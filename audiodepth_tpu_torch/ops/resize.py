@@ -1,0 +1,45 @@
+"""Bilinear resize with `jax.image.resize`'s linear + antialias semantics
+(port of `ops/resize.py::resize_bilinear`).
+
+The resize is two triangle-weight matrices, one per spatial axis, applied as
+matrix products: out = Wh · x · Wwᵀ. The matrices are
+`_triangle_weight_mat` of the JAX package (torchvision `Resize` semantics:
+half-pixel centres, kernel support widened by in/out when downscaling,
+rows renormalised to sum 1), built here in float64 and cast to the input's
+dtype so the float64 mode stays float64.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _triangle_weight_mat(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] row-stochastic triangle resample matrix, float64."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample_f[:, None] - np.arange(in_size, dtype=np.float64)[None, :])
+    w = np.maximum(0.0, 1.0 - x / kernel_scale)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0.0, total, 1.0), 0.0)
+    ok = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(ok[:, None], w, 0.0)
+
+
+@functools.lru_cache(maxsize=32)
+def _weight_tensor(in_size: int, out_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    w = torch.from_numpy(_triangle_weight_mat(in_size, out_size))
+    return w.to(device=device, dtype=dtype)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Antialiased bilinear resize of the last two axes of [..., H, W]."""
+    wh = _weight_tensor(x.shape[-2], out_h, x.dtype, x.device)
+    ww = _weight_tensor(x.shape[-1], out_w, x.dtype, x.device)
+    return torch.matmul(torch.matmul(wh, x), ww.T)
