@@ -2,7 +2,8 @@
 `cli/serve.py`).
 
   * One forward per batch — TOF-fix → mel front end (kernel B1 on the card)
-    → UNet → meters + clip to [0, max_depth] — run once per size of a batch
+    → model (UNet, or the binaural attention net with kernel B2 on the
+    card) → meters + clip to [0, max_depth] — run once per size of a batch
     ladder at startup (`warmup`), so no size is first seen mid-serving.
   * Micro-batching: concurrent requests are collected for up to
     --batch_wait_ms, padded to the smallest ladder size, and run as one
@@ -295,7 +296,7 @@ def load_serving_state(args):
     """Build (cfg, task, source) from parsed flags: a task on args.device
     with random or reference-checkpoint weights."""
     from ..configs import load_config
-    from ..models import init_unet_weights, make_task
+    from ..models import init_weights, make_task
     from ..tools.import_jax import load_torch_state_dict
     from .common import model_shape_overrides
 
@@ -324,7 +325,7 @@ def load_serving_state(args):
         return cfg, task, f"torch:{args.torch_checkpoint}"
 
     gen = torch.Generator().manual_seed(int(args.seed))
-    init_unet_weights(task.model, gen)
+    init_weights(task.model, gen)
     return cfg, task, "random-init"
 
 

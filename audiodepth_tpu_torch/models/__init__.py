@@ -1,19 +1,33 @@
-"""Model registry of the port. Only `unet_baseline` is ported so far; the
-other families are queued in ROADMAP.md (queue A)."""
+"""Model registry of the port. `unet_baseline` and `binaural_attention` are
+ported; the other families are queued in ROADMAP.md (queue A)."""
 
+import torch
+import torch.nn as nn
+
+from .binaural_attention import BinauralAttentionNet, build_binaural, init_binaural_weights
 from .unet import UNetGenerator, build_unet, init_unet_weights
 
-__all__ = ["UNetGenerator", "build_unet", "init_unet_weights", "make_task"]
+__all__ = ["BinauralAttentionNet", "UNetGenerator", "build_binaural", "build_unet",
+           "init_binaural_weights", "init_unet_weights", "init_weights", "make_task"]
 
 # where each unported family stands in ROADMAP.md
 _QUEUED = {
-    "binaural_attention": "ROADMAP.md A2 (serving through kernel B2)",
     "base_residual": "ROADMAP.md A5 (the other families)",
     "rgb_depth": "ROADMAP.md A5 (the other families)",
     "adabins_distillation": "ROADMAP.md A5 (the other families)",
     "unet_cvae": "ROADMAP.md A5 (the other families)",
     "coarse_depth": "ROADMAP.md A5 (the other families)",
 }
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of a ported model with its family's JAX initializers."""
+    if isinstance(model, BinauralAttentionNet):
+        init_binaural_weights(model, generator)
+    elif isinstance(model, UNetGenerator):
+        init_unet_weights(model, generator)
+    else:
+        raise NotImplementedError(f"no init for {type(model).__name__}")
 
 
 def make_task(cfg, device=None):
@@ -23,6 +37,10 @@ def make_task(cfg, device=None):
     name = cfg.model.name
     if name == "unet_baseline":
         return t.UNetBaselineTask(cfg, device=device)
+    if name == "binaural_attention":
+        from ..train.tasks_extra import BinauralAttentionTask
+
+        return BinauralAttentionTask(cfg, device=device)
     if name == "spline_depth":
         raise NotImplementedError(
             "spline_depth is dead config in the reference (no model code)")

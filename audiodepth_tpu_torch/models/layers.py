@@ -1,4 +1,4 @@
-"""Building blocks of the UNet baseline (port of part of `models/layers.py`).
+"""Building blocks of the model zoo (port of `models/layers.py`).
 
 The port runs NCHW inside the model. Cast points follow the JAX package
 exactly, with no autocast:
@@ -8,12 +8,16 @@ exactly, with no autocast:
   * BatchNorm computes in at least fp32 and casts back to the compute dtype;
   * the head is promoted with `at_least_f32`.
 
-The residual/attention blocks (`DoubleConv`, `Down`, `UpBilinear`) wait for
-the binaural slice.
+Initializers: `normal_init` (the pix2pix UNet) and `kaiming_init` (the
+residual and attention families). The residual blocks (`DoubleConv`,
+`Down`, `UpBilinear`) keep the reference's module names, so their
+state_dict keys are the reference's (`double_conv.0`, `maxpool_conv.1`,
+`conv.double_conv.3`, ...).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -30,6 +34,18 @@ def normal_init(std: float = 0.02) -> Callable[[torch.Tensor, Optional[torch.Gen
         draw = torch.empty(t.shape, dtype=torch.float32).normal_(0.0, std, generator=generator)
         with torch.no_grad():
             t.copy_(draw)
+
+    return init
+
+
+def kaiming_init() -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
+    """torch `kaiming_normal_(mode="fan_out", nonlinearity="relu")`, which is
+    flax `variance_scaling(2.0, "fan_out", "normal")`: N(0, 2 / fan_out) with
+    fan_out = out_channels x receptive field, drawn like `normal_init`."""
+
+    def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+        fan_out = t.shape[0] * math.prod(t.shape[2:])
+        normal_init(math.sqrt(2.0 / fan_out))(t, generator)
 
     return init
 
@@ -109,3 +125,65 @@ class ConvUp(nn.ConvTranspose2d):
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
                                   stride=2, padding=1)
+
+
+class Conv2d(nn.Conv2d):
+    """Stride-1 'SAME' conv that computes in the model's compute dtype
+    (flax `nn.Conv(dtype=...)`): input, kernel and bias are cast to it."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 → BN → ReLU) × 2, no conv bias (base_residual_model.py:23-40)."""
+
+    def __init__(self, in_ch: int, out_ch: int, mid_ch: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        mid = mid_ch or out_ch
+        self.double_conv = nn.Sequential(
+            Conv2d(in_ch, mid, 3, bias=False, dtype=dtype), BatchNorm(mid, dtype), nn.ReLU(),
+            Conv2d(mid, out_ch, 3, bias=False, dtype=dtype), BatchNorm(out_ch, dtype),
+            nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.double_conv(x)
+
+
+class Down(nn.Module):
+    """2×2 max-pool, then DoubleConv."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(in_ch, out_ch, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool_conv(x)
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """2× bilinear upsample with torch's align_corners=True phase (the JAX
+    package reproduces it with `scale_and_translate`)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+
+class UpBilinear(nn.Module):
+    """2× bilinear upsample → concat [skip, x] → DoubleConv(out, mid=in//2)
+    (the bilinear branch of Up, base_residual_model.py:57-80). `in_ch` is
+    the channel count after the concat."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = DoubleConv(in_ch, out_ch, in_ch // 2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = upsample2x_align_corners(x)
+        return self.conv(torch.cat([skip, x.to(skip.dtype)], dim=1))

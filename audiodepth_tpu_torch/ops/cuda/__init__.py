@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels of the port, one wrapper module each.
 
-`KERNELS` lists every kernel wrapper with the TPU kernel it replaces; each
-wrapper keeps a `launches` count of its kernel launches.
+`KERNELS` lists every kernel wrapper with its source and the TPU kernel it
+replaces; each wrapper keeps a `launches` count of its kernel launches.
 """
 
-from . import fused_frontend
+from . import flash_attention, fused_frontend
 
 KERNELS = (
     (fused_frontend.fused_mel_frontend, fused_frontend.SOURCE, fused_frontend.REPLACES),
+    (flash_attention.flash_cross_attention, flash_attention.SOURCE, flash_attention.REPLACES),
 )

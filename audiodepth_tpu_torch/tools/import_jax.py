@@ -1,14 +1,17 @@
 """Weights carried across: the JAX package's variables → the port's
 state_dict, and reference `.pth` checkpoints → the port.
 
-`unet_state_dict_from_jax` runs the JAX package's UNet mapping spec
-(tools/import_torch.py `_spec_unet`, in its flax→torch direction
-`_ExportBuilder`) on plain numpy arrays:
+`unet_state_dict_from_jax` and `binaural_state_dict_from_jax` run the
+JAX package's mapping specs (tools/import_torch.py `_spec_unet` and
+`_spec_binaural`, in their flax→torch direction `_ExportBuilder`) on plain
+numpy arrays:
 
     nn.Conv kernel            [kh,kw,I,O] -> Conv2d          [O,I,kh,kw]
     nn.ConvTranspose(SAME)    [kh,kw,I,O] -> ConvTranspose2d [I,O,kh,kw],
                                              spatially flipped
+    nn.Dense kernel           [I,O]       -> 1x1 Conv2d      [O,I,1,1]
     BatchNorm scale/bias + mean/var       -> weight/bias + running_mean/var
+    attention gamma           [1]         -> gamma [1], as it is
 
 Arrays keep their dtype, so float64 variables give a float64 state_dict.
 Every leaf must be consumed and every key produced once; drift raises.
@@ -81,6 +84,27 @@ class _Exporter:
         self._emit(f"{tprefix}.running_var", self._take("batch_stats", f"{fpath}/var"))
         self.out[f"{tprefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
+    def dense1x1(self, fpath: str, tprefix: str):
+        w = self._take("params", f"{fpath}/kernel")                 # [I,O]
+        self._emit(f"{tprefix}.weight", w.T[:, :, None, None])
+        self._emit(f"{tprefix}.bias", self._take("params", f"{fpath}/bias"))
+
+    def raw(self, fpath: str, tkey: str):
+        self._emit(tkey, self._take("params", fpath))
+
+    # the reference's DoubleConv / Down / Up blocks
+    def double_conv(self, fpath: str, tprefix: str):
+        self.conv(f"{fpath}/Conv_0", f"{tprefix}.double_conv.0", bias=False)
+        self.bn(f"{fpath}/BatchNorm_0/BatchNorm_0", f"{tprefix}.double_conv.1")
+        self.conv(f"{fpath}/Conv_1", f"{tprefix}.double_conv.3", bias=False)
+        self.bn(f"{fpath}/BatchNorm_1/BatchNorm_0", f"{tprefix}.double_conv.4")
+
+    def encoder(self, fpath: str, tprefix: str):
+        self.double_conv(f"{fpath}/DoubleConv_0", f"{tprefix}.inc")
+        for i in range(4):
+            self.double_conv(f"{fpath}/Down_{i}/DoubleConv_0",
+                             f"{tprefix}.down{i + 1}.maxpool_conv.1")
+
     def finish(self) -> Dict[str, torch.Tensor]:
         leftover = sorted({(col, k) for col, tree in self.trees.items() for k in tree}
                           - self.used)
@@ -109,6 +133,28 @@ def unet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
         b.convT(f"ConvUp_{j}/ConvTranspose_0", f"{P[d]}.5", bias=False)
         b.bn(f"BatchNorm_{n - 2 + j}/BatchNorm_0", f"{P[d]}.6")
     b.convT(f"ConvUp_{n - 1}/ConvTranspose_0", f"{P[0]}.3", bias=True)
+    return b.finish()
+
+
+def binaural_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                                 attention_levels: Sequence[int] = (2, 3, 4, 5)
+                                 ) -> Dict[str, torch.Tensor]:
+    """The port's BinauralAttentionNet state_dict from the JAX model's
+    variables (`_spec_binaural`)."""
+    b = _Exporter(params, batch_stats)
+    b.encoder("left_encoder", "left_encoder")
+    b.encoder("right_encoder", "right_encoder")
+    for lvl in attention_levels:
+        tp = f"attention_modules.attn_{lvl}"
+        for i, proj in enumerate(("query", "key", "value", "out")):
+            b.dense1x1(f"attn_{lvl}/Dense_{i}", f"{tp}.{proj}")
+        b.raw(f"attn_{lvl}/gamma", f"{tp}.gamma")
+    for lvl in range(1, 6):
+        b.conv(f"fusion_{lvl}", f"fusion_layers.fusion_{lvl}.0", bias=True)
+        b.bn(f"fusion_bn_{lvl}/BatchNorm_0", f"fusion_layers.fusion_{lvl}.1")
+    for i in range(4):
+        b.double_conv(f"UpBilinear_{i}/DoubleConv_0", f"up{i + 1}.conv")
+    b.conv("Conv_0", "outc.0", bias=True)
     return b.finish()
 
 

@@ -71,7 +71,7 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 
 
 def test_unported_family_names_its_roadmap_item():
-    cfg = load_config("batvisionv2", "test", model_name="binaural_attention")
+    cfg = load_config("batvisionv2", "test", model_name="base_residual")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_task(cfg, device="cpu")
 

@@ -5,6 +5,8 @@ Runs the real ThreadingHTTPServer + collector thread with a tiny
 random-init model on device="cpu"; asserts the served depth equals a direct
 predict_meters call (pad rows never leak into results), the ragged
 micro-batch path pads to the ladder, and the stats/health endpoints work.
+A tiny binaural_attention model (γ non-zero) is served the same way, and
+its --random_init is the family's own init.
 """
 
 import json
@@ -17,6 +19,8 @@ import pytest
 import torch
 
 from audiodepth_tpu_torch.cli import serve as serve_mod
+from audiodepth_tpu_torch.configs import load_config
+from audiodepth_tpu_torch.models import init_binaural_weights, init_weights, make_task
 
 _TINY = ["--device", "cpu", "--random_init", "--seed", "0", "--generator", "unet_128",
          "--ngf", "4", "--compute_dtype", "float32"]
@@ -179,3 +183,64 @@ def test_orbax_flags_rejected(flags):
     args = serve_mod.build_parser().parse_args(["--device", "cpu"] + flags)
     with pytest.raises(SystemExit):
         serve_mod.load_serving_state(args)
+
+
+def _binaural_task():
+    """A tiny binaural_attention task (base 4, 32²) with every γ non-zero,
+    so that the served answer goes through the attention."""
+    cfg = load_config("batvisionv2", "test", model_name="binaural_attention", overrides={
+        "model.base_channels": 4, "dataset.images_size": 32, "mode.compute_dtype": "float32"})
+    task = make_task(cfg, device="cpu")
+    init_weights(task.model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for i, attn in enumerate(task.model.attention_modules.values()):
+            attn.gamma.fill_(0.3 * (i + 1))
+    return cfg, task
+
+
+def test_binaural_served_depth_matches_direct_predict():
+    cfg, task = _binaural_task()
+    runner = serve_mod.InferenceRunner(cfg, task, ladder=(1, 4))
+    runner.warmup()
+    batcher = serve_mod.MicroBatcher(runner, wait_ms=5.0)
+    server = serve_mod.make_server(batcher, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        rng = np.random.default_rng(5)
+        waves = [(rng.standard_normal((2, runner.wave_len)) * 0.1).astype(np.float32)
+                 for _ in range(3)]
+        results = [None] * 3
+
+        def call(i):
+            results[i] = _post_predict(server.server_address[1], waves[i])
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+        runner.close()
+    direct = _direct(task, cfg, np.stack(waves))
+    assert direct.shape == (3, 32, 32)
+    for i in range(3):
+        np.testing.assert_allclose(results[i], direct[i], rtol=1e-5, atol=1e-5)
+
+
+def test_binaural_random_init_is_the_family_init():
+    args = serve_mod.build_parser().parse_args(
+        ["--device", "cpu", "--random_init", "--seed", "2", "--model", "binaural_attention",
+         "--base_channels", "4", "--attention_levels", "2,3"])
+    cfg, task, source = serve_mod.load_serving_state(args)
+    assert source == "random-init" and task.name == "binaural_attention"
+    assert sorted(task.model.attention_modules) == ["attn_2", "attn_3"]
+    want = make_task(cfg, device="cpu").model
+    init_binaural_weights(want, torch.Generator().manual_seed(2))
+    got = task.model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in want.state_dict().items())
+    assert all(float(a.gamma.detach()) == 0.0 for a in task.model.attention_modules.values())
