@@ -1,1 +1,2 @@
-"""Data-side ops of the port (the audio front end)."""
+"""Data side of the port: the audio front end, the transport codec, the
+synthetic corpus and the dataset factory."""

@@ -1,0 +1,79 @@
+"""Edge-aware loss family of the binaural attention model (port of
+`losses/binaural.py`).
+
+Components, on NHWC single-channel maps with the gt > 0 validity mask m:
+  recon  = Σ|pred·m − gt·m| / (Σm + 1e-6)
+  edge   = L1 between Sobel gradient magnitudes, weighted by the DILATED
+           mask (a 3×3 max-pool of m; the reference calls it "eroded")
+  smooth = Σ (|∇x pred| + |∇y pred|) · exp(−|∇gt|) · m / (Σm + 1e-6)
+The Sobel maps are computed in float32, as the JAX package computes them
+(also in its float64 mode).
+
+Also the RGB teacher's loss: unmasked L1 + mean first-difference smoothness.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_SOBEL = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
+
+
+def _sobel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sobel gradients (x, y) of NHWC single-channel maps, zero 'same'
+    padding, in float32."""
+    kx = torch.tensor(_SOBEL, dtype=torch.float32, device=x.device)
+    weight = torch.stack([kx, kx.t()])[:, None]  # [2, 1, 3, 3]: x, then y
+    g = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), weight, padding=1)
+    g = g.permute(0, 2, 3, 1)
+    return g[..., 0:1], g[..., 1:2]
+
+
+def _grad_mag(x: torch.Tensor) -> torch.Tensor:
+    gx, gy = _sobel(x)
+    return torch.sqrt(gx * gx + gy * gy + 1e-6)
+
+
+def binaural_attention_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_recon=1.0,
+                            lambda_edge=0.2, lambda_smooth=0.1
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    m = (gt > 0).to(torch.float32)
+    msum = m.sum() + 1e-6
+    loss_recon = (pred * m - gt * m).abs().sum() / msum
+
+    pred_grad = _grad_mag(pred)
+    gt_grad = _grad_mag(gt)
+    m_dil = F.max_pool2d(m.permute(0, 3, 1, 2), 3, stride=1, padding=1).permute(0, 2, 3, 1)
+    loss_edge = (pred_grad * m_dil - gt_grad * m_dil).abs().sum() / (m_dil.sum() + 1e-6)
+
+    pgx, pgy = _sobel(pred)
+    smooth = pgx.abs() + pgy.abs()
+    loss_smooth = (smooth * torch.exp(-gt_grad) * m).sum() / msum
+
+    total = lambda_recon * loss_recon + lambda_edge * loss_edge + lambda_smooth * loss_smooth
+    return total, {"recon": loss_recon, "edge": loss_edge, "smooth": loss_smooth,
+                   "total": total}
+
+
+def adaptive_binaural_weights(epoch: float, warmup_epochs: int = 20):
+    """3-phase curriculum (utils_binaural_attention_loss.py:199-218):
+    (λ_recon, λ_edge, λ_smooth) at a 0-based epoch."""
+    w = float(warmup_epochs)
+    epoch = float(epoch)
+    lam_edge = 0.0 if epoch < w else (0.2 * (epoch - w) / (2 * w) if epoch < 3 * w else 0.2)
+    lam_smooth = 0.0 if epoch < 3 * w else 0.1 * min((epoch - 3 * w) / w, 1.0)
+    return 1.0, lam_edge, lam_smooth
+
+
+def rgb_depth_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_l1: float = 1.0,
+                   lambda_smooth: float = 0.1):
+    """RGB teacher loss: UNMASKED L1 + first-difference smoothness."""
+    l1 = (pred - gt).abs().mean()
+    dx = (pred[:, :, :-1, :] - pred[:, :, 1:, :]).abs().mean()
+    dy = (pred[:, :-1, :, :] - pred[:, 1:, :, :]).abs().mean()
+    smooth = dx + dy
+    total = lambda_l1 * l1 + lambda_smooth * smooth
+    return total, {"l1": l1, "smooth": smooth, "total": total}

@@ -17,9 +17,11 @@ version on the CPU.
 Module names are the reference's (`tools/import_torch.py::_spec_binaural`
 of the JAX package), so a reference `.pth` loads with strict=True: the
 projections are 1×1 convs ([O, I, 1, 1]) applied to tokens as matrix
-products. `remat` and `sp_axis` of the JAX model are training and
-multi-device tools and are not ported (ROADMAP.md A4, A8); the config's
-`model.extra.remat` is accepted and has no effect.
+products. With `remat` (the config's `model.extra.remat`, on by default as
+in the JAX package) both encoders recompute their activations in the
+backward of a train-mode forward instead of keeping them, and BatchNorm
+folds its statistics once. `sp_axis` of the JAX model is a multi-device tool
+and is not ported (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ class BinauralCrossAttention(nn.Module):
 class BinauralAttentionNet(nn.Module):
     def __init__(self, base_channels: int = 64, max_depth: float = 30.0,
                  attention_levels: Sequence[int] = (2, 3, 4, 5), output_size: int = 256,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = base_channels
         ch = level_channels(c)
@@ -104,8 +106,8 @@ class BinauralAttentionNet(nn.Module):
         self.attention_levels = tuple(int(lv) for lv in attention_levels)
         self.output_size = int(output_size)
         self.compute_dtype = dtype
-        self.left_encoder = SharedEncoder(1, c, dtype=dtype)
-        self.right_encoder = SharedEncoder(1, c, dtype=dtype)
+        self.left_encoder = SharedEncoder(1, c, dtype=dtype, remat=remat)
+        self.right_encoder = SharedEncoder(1, c, dtype=dtype, remat=remat)
         self.attention_modules = nn.ModuleDict({
             f"attn_{lv}": BinauralCrossAttention(ch[lv], dtype=dtype)
             for lv in self.attention_levels})
@@ -166,5 +168,6 @@ def build_binaural(cfg) -> BinauralAttentionNet:
         max_depth=float(cfg.dataset.max_depth),
         attention_levels=tuple(cfg.model.attention_levels),
         output_size=cfg.dataset.images_size,
+        remat=bool(cfg.model.extra.get("remat", True)),
         dtype=resolve_compute_dtype(cfg),
     )

@@ -6,6 +6,8 @@ exactly, with no autocast:
     compute dtype (flax `nn.Conv(dtype=...)`), so its output is in that
     dtype;
   * BatchNorm computes in at least fp32 and casts back to the compute dtype;
+    in train mode it folds the batch statistics into its running buffers in
+    their stored dtype, except while `remat` recomputes a forward;
   * the head is promoted with `at_least_f32`.
 
 Initializers: `normal_init` (the pix2pix UNet) and `kaiming_init` (the
@@ -17,12 +19,15 @@ state_dict keys are the reference's (`double_conv.0`, `maxpool_conv.1`,
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def normal_init(std: float = 0.02) -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
@@ -56,9 +61,40 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+# set while `remat` recomputes a forward inside the backward: BatchNorm then
+# normalizes as before but does not fold its statistics a second time
+_remat_state = threading.local()
+
+
+def _recomputing() -> bool:
+    return getattr(_remat_state, "recomputing", False)
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    prev = _recomputing()
+    _remat_state.recomputing = True
+    try:
+        yield
+    finally:
+        _remat_state.recomputing = prev
+
+
+def remat(fn: Callable, *args):
+    """`fn(*args)` with its activations recomputed in the backward instead of
+    kept (the JAX package's `nn.remat`), without a second BatchNorm fold."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute_context()))
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (momentum 0.1, eps 1e-5, affine) that normalizes in at
-    least fp32 and casts the result back to the compute dtype."""
+    least fp32 and casts the result back to the compute dtype.
+
+    In train mode it normalizes with the batch statistics and folds them,
+    with torch's unbiased variance, into the running buffers in place and in
+    their stored dtype, whatever the compute dtype (the JAX package's
+    `models/layers.py:86-95`). Eval mode normalizes with the buffers."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -66,13 +102,32 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sdt = torch.promote_types(x.dtype, torch.float32)
-        # `.to` returns the buffer itself when the dtype already matches, so
-        # a train-mode forward still updates the running statistics in place
-        y = F.batch_norm(
-            x.to(sdt), self.running_mean.to(sdt), self.running_var.to(sdt),
-            self.weight.to(sdt), self.bias.to(sdt),
-            training=self.training, momentum=self.momentum, eps=self.eps)
+        xs, w, b = x.to(sdt), self.weight.to(sdt), self.bias.to(sdt)
+        if not self.training:
+            y = F.batch_norm(xs, self.running_mean.to(sdt), self.running_var.to(sdt), w, b,
+                             training=False, momentum=0.0, eps=self.eps)
+        elif self.running_mean.dtype == sdt:
+            # the buffers themselves: the fused kernel folds them in place. A
+            # recompute folds into copies, so that it saves the same tensors
+            # for the backward as the forward did
+            rm, rv = self.running_mean, self.running_var
+            if _recomputing():
+                rm, rv = rm.clone(), rv.clone()
+            y = F.batch_norm(xs, rm, rv, w, b, training=True, momentum=self.momentum,
+                             eps=self.eps)
+        else:
+            y = F.batch_norm(xs, None, None, w, b, training=True, momentum=0.0, eps=self.eps)
+            if not _recomputing():
+                self._fold(xs)
         return y.to(self.compute_dtype)
+
+    @torch.no_grad()
+    def _fold(self, xs: torch.Tensor) -> None:
+        """running ← (1 − momentum)·running + momentum·batch, in the
+        buffers' dtype (a compute dtype other than the buffers')."""
+        var, mean = torch.var_mean(xs, dim=(0, 2, 3), correction=1)
+        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+            buf.mul_(1.0 - self.momentum).add_(self.momentum * stat.to(buf.dtype))
 
 
 class _InstanceNorm(nn.Module):

@@ -9,4 +9,6 @@ from . import flash_attention, fused_frontend
 KERNELS = (
     (fused_frontend.fused_mel_frontend, fused_frontend.SOURCE, fused_frontend.REPLACES),
     (flash_attention.flash_cross_attention, flash_attention.SOURCE, flash_attention.REPLACES),
+    (flash_attention.flash_cross_attention_bwd, flash_attention.SOURCE,
+     flash_attention.REPLACES_BWD),
 )

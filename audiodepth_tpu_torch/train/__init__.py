@@ -1,1 +1,1 @@
-"""Tasks of the port (inference half; training comes with its own slice)."""
+"""Tasks, optimizer and training engine of the port."""

@@ -1,0 +1,196 @@
+"""The training engine: train and eval steps and the epoch loop (port of
+`train/engine.py`).
+
+One engine drives any Task. A train step decodes the compact batch on the
+device, runs the task's loss, backpropagates (through kernels B1-B3 on the
+card for the binaural family), measures the global gradient norm, clips it
+with optax's semantics, updates the parameters with the per-step learning
+rate and counts the step. The epoch index enters the loss as a 0-based
+float, so curriculum schedules need nothing else.
+
+The host encodes each batch with the compact codec (`data/codec.py`) and the
+device decodes it; in float64 mode (the parity mode) the host ships float32
+batches as they are, since the uint16 depth quantum (0.46 mm at 30 m) would
+perturb gradients at ~1e-5.
+
+Not ported yet: checkpoints and preemption saves, the profiler hook, meshes,
+wandb and device prefetch (ROADMAP.md A6, A7, A8).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from ..configs import Config
+from ..data.codec import decode_batch, depth_storage_units, encode_batch
+from .optim import clip_by_global_norm_, global_norm, make_optimizer, make_schedule
+from .tasks import Task
+
+
+@dataclass
+class TrainState:
+    """The step count, the module (its parameters and BatchNorm statistics)
+    and the optimizer (its state). A train step updates all three in place."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+class Engine:
+    def __init__(self, cfg: Config, task: Task, steps_per_epoch: int = 1):
+        self.cfg = cfg
+        self.task = task
+        self.device = task.device
+        self.schedule = make_schedule(cfg.mode, steps_per_epoch)
+        self.steps_per_epoch = steps_per_epoch
+        # compact-transport decode scale: the dataset's STORED depth range
+        self._depth_units = depth_storage_units(cfg)
+        self._encode_units = (None if cfg.mode.compute_dtype == "float64"
+                              else self._depth_units)
+        self.history: List[Dict[str, object]] = []
+
+    def init_state(self) -> TrainState:
+        model = self.task.model
+        return TrainState(step=0, model=model,
+                          optimizer=make_optimizer(model.parameters(), self.cfg.mode))
+
+    # ------------------------------------------------------------------
+    def encode(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The host's half of the transport: the compact codec, except in
+        float64 mode."""
+        if self._encode_units is None:
+            return batch
+        return encode_batch(batch, self._encode_units)
+
+    def put_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """Host arrays (or tensors) → tensors on the task's device."""
+        return {k: torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
+                .to(self.device, non_blocking=True) for k, v in batch.items()}
+
+    def train_step(self, state: TrainState, batch, epoch: float = 0.0):
+        """One optimizer step on `batch`; returns (state, metrics), metrics
+        being device tensors: the task's scalar aux and the global gradient
+        norm before clipping."""
+        if "_valid" in batch:
+            raise ValueError("padded batches (_valid mask) are eval-only; train loaders "
+                             "must produce full batches (drop_last)")
+        batch = decode_batch(self.put_batch(batch), self._depth_units)
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss, aux = self.task.loss_fn(batch, float(epoch))
+        loss.backward()
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        norm = global_norm(grads)
+        clip = self.cfg.mode.grad_clip_norm
+        if clip and clip > 0:
+            clip_by_global_norm_(grads, norm, clip)
+        lr = self.schedule(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in aux.items()}
+        metrics["grad_norm"] = norm
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch, epoch: float = 0.0) -> Dict[str, torch.Tensor]:
+        """Per-sample metrics of one batch. A ragged tail arrives padded with
+        a `_valid` row mask: pad rows' metrics are zeroed and the mask is
+        returned, so `evaluate` divides by the true count."""
+        batch = dict(batch)
+        valid = batch.pop("_valid", None)
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=self.device)
+        batch = decode_batch(self.put_batch(batch), self._depth_units)
+        out = self.task.eval_metrics(batch)
+        crit = getattr(self.task, "eval_criterion_loss", None)
+        batch_loss = crit(batch, epoch, valid=valid) if crit is not None else None
+        if valid is not None:
+            valid = valid.to(torch.float32)
+            out = {k: v * valid for k, v in out.items()}
+            out["_valid"] = valid
+        if batch_loss is not None:
+            out["_batch_criterion_loss"] = batch_loss
+        return out
+
+    def evaluate(self, state: TrainState, batches: Iterable,
+                 epoch: float = 0.0) -> Dict[str, float]:
+        """Mean per-sample metrics over an eval split (pad rows excluded);
+        `criterion_loss` is the equal-weight mean of the per-batch criterion
+        where the task defines one (train.py:842)."""
+        sums: Dict[str, float] = {}
+        count = 0.0
+        crit_sum, n_batches = 0.0, 0
+        for batch in batches:
+            out = dict(self.eval_step(state, batch, epoch))
+            valid = out.pop("_valid", None)
+            bl = out.pop("_batch_criterion_loss", None)
+            if bl is not None:
+                crit_sum += float(bl)
+                n_batches += 1
+            if valid is not None:
+                count += float(valid.sum())
+            else:
+                count += int(next(iter(out.values())).shape[0])
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + float(v.sum())
+        if count == 0:
+            return {}
+        result = {k: v / count for k, v in sums.items()}
+        if n_batches:
+            result["criterion_loss"] = crit_sum / n_batches
+        return result
+
+    # ------------------------------------------------------------------
+    def fit(self, state: TrainState, train_batches: Callable[[], Iterable],
+            val_batches: Optional[Callable[[], Iterable]] = None,
+            epochs: Optional[int] = None, start_epoch: int = 1,
+            log: Optional[Callable[[Dict[str, object]], None]] = None,
+            on_step: Optional[Callable[[TrainState, Dict[str, torch.Tensor]], None]] = None
+            ) -> TrainState:
+        """The epoch loop. Each epoch's record (appended to `self.history`
+        and passed to `log`) holds the per-epoch means of the scalar aux, the
+        last step's grad_norm, the lr the epoch started at, its time and
+        pairs_per_sec, and the validation means every validation_iter
+        epochs. `on_step(state, metrics)` runs after every step, while the
+        step's gradients are still on the parameters. train_batches and
+        val_batches are zero-argument callables that return a fresh iterator
+        of host batches."""
+        mode = self.cfg.mode
+        epochs = epochs or mode.epochs
+        for epoch in range(start_epoch, epochs + 1):
+            t0 = time.perf_counter()
+            n_samples = n_steps = 0
+            sums: Dict[str, torch.Tensor] = {}
+            last: Dict[str, torch.Tensor] = {}
+            for batch in train_batches():
+                n_samples += int(next(iter(batch.values())).shape[0])
+                state, last = self.train_step(state, self.encode(batch), epoch=float(epoch - 1))
+                if on_step is not None:
+                    on_step(state, last)
+                for k, v in last.items():
+                    if k != "grad_norm" and v.dim() == 0:
+                        sums[k] = sums[k] + v if k in sums else v
+                n_steps += 1
+            # the one host readback of the epoch, and its time's sync point
+            record: Dict[str, object] = {"epoch": epoch}
+            record.update({k: float(v) / n_steps for k, v in sums.items()})
+            if "grad_norm" in last:
+                record["grad_norm"] = float(last["grad_norm"])
+            dt = time.perf_counter() - t0
+            record.update(lr=self.schedule((epoch - 1) * self.steps_per_epoch), steps=n_steps,
+                          samples=n_samples, epoch_time=dt,
+                          pairs_per_sec=n_samples / max(dt, 1e-9))
+            if val_batches is not None and mode.validation and epoch % mode.validation_iter == 0:
+                record["val"] = self.evaluate(state, val_batches(), epoch=float(epoch - 1))
+            self.history.append(record)
+            if log is not None:
+                log(record)
+        return state

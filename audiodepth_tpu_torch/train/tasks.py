@@ -1,32 +1,35 @@
-"""Task definitions, inference half (port of `train/tasks.py`).
+"""Task definitions (port of `train/tasks.py`).
 
-A Task owns the model, the input preparation (the device front end) and the
-output semantics of its family. The loss and the eval metrics come with the
-training slice. Unlike the JAX package, the parameters and BatchNorm
-statistics live in the task's `nn.Module`, so the predict methods take the
-batch alone.
+A Task owns the model, the criterion, the input preparation (the device
+front end) and the train- and eval-time output semantics of its family.
+Unlike the JAX package, the parameters and BatchNorm statistics live in the
+task's `nn.Module`, so the methods take the batch (and the epoch) alone.
 
 Batch convention: dict with leading batch dim —
   * 'waveform' [B, C, L] raw audio, or
-  * 'input'    [B, H, W, C] pre-computed model input (NHWC).
+  * 'input'    [B, H, W, C] pre-computed model input (NHWC), and
+  * 'depth'    [B, H, W, 1] ground truth in dataset units (normalized to
+               [0, 1] when cfg.dataset.depth_norm, meters otherwise).
 Values may be numpy arrays or tensors; they are moved to the task's device.
 Predictions are NHWC, [B, H, W, 1], as the JAX package returns them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .._device import DeviceLike, configure_precision, resolve_device
 from ..configs import Config
 from ..data.frontend import make_frontend
+from ..losses import make_criterion
+from ..metrics import EVAL_PRED_MIN, compute_errors_batch
 from ..models.unet import build_unet
 
 
 class Task:
-    """Base task: subclasses set self.model."""
+    """Base task: subclasses set self.model and define `loss_fn`."""
 
     name = "base"
     # UNet-type heads emit normalized depth when depth_norm (sigmoid head)
@@ -38,6 +41,9 @@ class Task:
         configure_precision()
         self.max_depth = float(cfg.dataset.max_depth)
         self.depth_norm = bool(cfg.dataset.depth_norm)
+        self.criterion = make_criterion(cfg.mode.criterion, l1_weight=cfg.mode.l1_weight,
+                                        silog_weight=cfg.mode.silog_weight,
+                                        silog_lambda=cfg.mode.silog_lambda)
         self._frontend = make_frontend(cfg)
         self.model: Optional[torch.nn.Module] = None  # set by subclass
 
@@ -56,6 +62,18 @@ class Task:
             return pred * self.max_depth
         return pred
 
+    # -- training ---------------------------------------------------------
+    def apply_train(self, x: torch.Tensor) -> torch.Tensor:
+        """A train-mode forward (BatchNorm on batch statistics, folding them
+        into its running buffers) of an NHWC input; NHWC out."""
+        self.model.train()
+        return self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], epoch: float
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, scalar aux) of one decoded device batch at a 0-based epoch."""
+        raise NotImplementedError
+
     # -- evaluation -------------------------------------------------------
     @torch.no_grad()
     def predict_raw(self, batch: Dict[str, object]) -> torch.Tensor:
@@ -68,9 +86,30 @@ class Task:
     def predict_meters(self, batch: Dict[str, object]) -> torch.Tensor:
         return self.pred_to_meters(self.predict_raw(batch))
 
+    def eval_metrics(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-sample metric tensors [B] (train.py:782-844 validation
+        semantics) and the per-sample masked-L1 'loss' in model units."""
+        pred = self.predict_raw(batch)
+        gt = batch["depth"]
+        # EVAL_PRED_MIN, one f32 ulp above the 1e-3 eps, keeps every clipped
+        # pixel on the common branch of both metric versions
+        pred_m = torch.clamp(self.pred_to_meters(pred), EVAL_PRED_MIN, self.max_depth)
+        out = compute_errors_batch(self.to_meters(gt), pred_m, metric_scale=True)
+        # eval loss: masked L1 in model units (test.py:240), per sample, so
+        # the split mean does not depend on the batch size; gt is brought to
+        # the prediction's units
+        gt_model_units = (gt if (self.pred_is_normalized or not self.depth_norm)
+                          else gt * self.max_depth)
+        w = (gt != 0).to(torch.float32)
+        axes = tuple(range(1, gt.dim()))
+        out["loss"] = (((pred - gt_model_units).abs() * w).sum(dim=axes)
+                       / w.sum(dim=axes).clamp_min(1.0))
+        return out
+
 
 class UNetBaselineTask(Task):
-    """unet_baseline: UNet-256 (or -128) on the mel front end."""
+    """unet_baseline: UNet-256 (or -128) on the mel front end. Its training
+    half (its loss and validation criterion) is ROADMAP.md A3."""
 
     name = "unet_baseline"
     pred_is_normalized = True

@@ -13,9 +13,13 @@ non-zero:
              the shapes its path gives it, max |Δ| asserted, and its time,
              the plain version's time, the card's bound for the same work
              and, where one PyTorch call computes the same function, that
-             call's time: B1 (the mel front end) and B2 (flash
-             cross-attention forward, the four binaural level shapes, a
-             ragged shape and float32);
+             call's time: B1 (the mel front end), B2 (flash
+             cross-attention forward) and B3 (its backward), each at the
+             four binaural level shapes of a batch of 16, level 2 of a
+             batch of 1, a ragged shape and float32;
+  autograd   `cross_attention` gradients through FlashCrossAttentionFn
+             (B2 forward, B3 backward) against autograd of the blockwise
+             plain path on the card, level 3 in bf16, level 2 in f32;
   serve      the unet path: unet_256 / ngf 64 / 256² / bf16, random init
              from seed 0, batch ladder 1,4,16, the port's HTTP server
              in-process, 16 warm-up requests, then a 48-request loadtest
@@ -33,8 +37,24 @@ non-zero:
              for each path, and B2's share of the binaural device time;
   f32_vs_cpu each model seeded in float32 (TF32 off) through
              `predict_meters` on the card and on the CPU;
+  train      the training path: `cli/train.py`'s main in-process, the
+             binaural net at base 64, levels 2-5, 256², bf16, remat on,
+             batch 16, 64 synthetic samples (4 steps) and one validation
+             pass of 64, with every γ set non-zero after init; every loss
+             and grad_norm finite, every parameter moved, every attention
+             projection's first-step gradient non-zero, and the launches
+             per train step (B1 1, B2 4, B3 4) and per eval batch (B1 1,
+             B2 4, B3 0); then 8 steps on one repeated batch, whose last
+             loss must be below its first, timed step by step;
+  f32_train_vs_cpu  one seeded float32 train step (TF32 off) at full
+             width, 256², batch 2, γ non-zero, on the card and on the CPU
+             from one state_dict, and in float64 on the CPU: the losses,
+             and the card's gradients as close to the float64 ones as the
+             CPU's float32 gradients are;
+  profile    one bf16 train step at batch 16: host wall, device time, busy
+             share, top items, B2's and B3's shares;
   kernels    one line listing every kernel with its numbers at its main
-             shape.
+             shape and its launches on each path.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero before printing
 any result.
@@ -44,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -74,6 +95,15 @@ B2_SHAPES = [
     ("ragged", 4, 1000, 777, 32, 256, "bfloat16"),
 ]
 B2_MAIN = "level 2"
+# B3 vs its plain version, relative to the plain version's max |·| of each
+# of dq, dk, dv: in bf16, p and ds are rounded to bf16 before their products
+# (2^-9 relative each) and the outputs to bf16 (2^-9), in sums of up to
+# 16384 terms whose rounding errors partly cancel: 2^-6; in f32 the path is
+# full fp32 with an approximate exp2 (2^-22 relative) and atomics in
+# another order: 1e-4
+B3_TOL = {"bfloat16": 2 ** -6, "float32": 1e-4}  # also the autograd phase's
+F32_TRAIN_TOL = 1e-3   # train loss, card vs CPU in float32, relative
+F32_GRAD_FACTOR = 2.0  # card's f32 gradient error vs the CPU's, both against f64 (see phase)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
@@ -119,14 +149,29 @@ def phase_env(torch):
     return smi, n_sm * max_sm_mhz * 1e6 * EX2_PER_CLOCK_PER_SM
 
 
+def ptxas_report(logs) -> dict:
+    """{kernel (template argument in <>): ptxas's registers and spills}
+    from nvcc's `-Xptxas -v` output."""
+    report, name = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            if "entry function" in ln:
+                m = re.search(r"((?:flash_fwd|flash_bwd|fused_mel)\w*?_kernel)(?:ILi(\d+)EE)?", ln)
+                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "") if m else ln
+            elif name and ("registers" in ln or "spill" in ln):
+                part = ln.split("Used ")[-1].strip() if "registers" in ln else ln.strip()
+                report[name] = f"{report[name]}; {part}" if name in report else part
+    return report
+
+
 def phase_build(build):
+    # one library per source; B2 and B3 share csrc/flash_attention.cu
     t0 = time.perf_counter()
     logs = build.build(["fused_frontend", "flash_attention"])
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    report = ptxas_report(logs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs), "ptxas": ptxas})
-
+          "built": sorted(logs), "ptxas": report})
+    return report
 
 def phase_kernel(torch, np, ff, peak):
     """B1 against its plain version at the serving shapes (B·C = 2, 8, 32 at
@@ -251,6 +296,113 @@ def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
     return rows
 
 
+def _sdpa_bwd_ms(torch, q, k, v, do, scale):
+    """(ms, backend) of the backward of `F.scaled_dot_product_attention` on
+    its memory-efficient backend, the only fused one that takes dk != dv:
+    `torch.autograd.grad` of its output alone is timed. A yardstick only."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t.unsqueeze(1).detach().requires_grad_() for t in (q, k, v))
+    do4 = do.unsqueeze(1)
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:  # the backend does not take the shapes
+        return None, "EFFICIENT_ATTENTION refused: " + str(exc).splitlines()[0][:80]
+    ms = time_ms(torch, lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True),
+                 runs=10, warmup=2)
+    return ms, "EFFICIENT_ATTENTION backward"
+
+
+def phase_kernel_b3(torch, fa, peak, ex2_rate):
+    """B3 against its plain version on the card at B2's shapes, from B2's
+    forward on inputs drawn as B2's phase draws them (q, k with standard
+    deviation 3) and do ~ N(0, 1). Tolerances: B3_TOL."""
+    flops_peak, bw_peak, tensor_peak = peak
+    rows = []
+    for label, b, n, m, dk, dv, dtype in B2_SHAPES:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(n + m + dk + dv + b)
+        q = (3 * torch.randn(b, n, dk, device="cuda", generator=g)).to(dt)
+        k = (3 * torch.randn(b, m, dk, device="cuda", generator=g)).to(dt)
+        v = torch.randn(b, m, dv, device="cuda", generator=g).to(dt)
+        do = torch.randn(b, n, dv, device="cuda", generator=g).to(dt)
+        scale = 1.0 / dv ** 0.5
+        o, lse = fa.flash_cross_attention(q, k, v, scale)
+        got = fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale)
+        want = fa.flash_cross_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        errs, maxes = {}, {}
+        for name, a, w, shape in zip(("dq", "dk", "dv"), got, want,
+                                     ((b, n, dk), (b, m, dk), (b, m, dv))):
+            assert a.shape == w.shape == shape and a.dtype == dt, (label, name, a.shape)
+            assert torch.isfinite(a).all(), f"B3 {label}: {name} is not finite"
+            maxes[name] = float(w.float().abs().max())
+            errs[name] = float((a.float() - w.float()).abs().max())
+            assert errs[name] <= B3_TOL[dtype] * maxes[name], \
+                f"B3 {label}: {name} differs by {errs[name]} (max {maxes[name]})"
+        del got, want
+        heavy = n * m * b > 2 ** 31
+        ms = time_ms(torch, lambda: fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale),
+                     runs=10 if heavy else 50)
+        plain_ms = time_ms(torch, lambda: fa.flash_cross_attention_bwd_plain(
+            q, k, v, o, lse, do, scale), runs=3 if heavy else 20, warmup=1 if heavy else 3)
+        library_ms, library = _sdpa_bwd_ms(torch, q, k, v, do, scale)
+        es = q.element_size()
+        flops = 2.0 * b * n * m * (3 * dk + 2 * dv)  # s, pᵀ·do, do·vᵀ, dsᵀ·q, ds·k
+        ex2 = float(b) * n * m
+        # in: q, k, v, o, do, lse; out: dq, dk, dv
+        nbytes = es * b * (2 * n * dk + 2 * m * dk + 2 * m * dv + 2 * n * dv) + 4.0 * b * n
+        terms = {"operations": flops / ((tensor_peak if dtype == "bfloat16" else flops_peak)
+                                        * 1e12),
+                 "ex2": ex2 / ex2_rate, "bytes": nbytes / (bw_peak * 1e12)}
+        bound_by = max(terms, key=terms.get)
+        row = {"phase": "kernel", "name": fa.flash_cross_attention_bwd.name, "shape": label,
+               "B": b, "N": n, "M": m, "dk": dk, "dv": dv, "dtype": dtype,
+               "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+               "max_abs_plain": maxes, "tol_rel": B3_TOL[dtype],
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": terms[bound_by] * 1e3,
+               "bound_by": "bytes" if bound_by == "bytes" else "operations",
+               "bound_terms_ms": {k_: t * 1e3 for k_, t in terms.items()},
+               "library_ms": library_ms, "library": library,
+               "tflops": flops / (ms * 1e9)}
+        emit(row)
+        rows.append(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_autograd(torch, fa, blockwise):
+    """`cross_attention` (FlashCrossAttentionFn: B2 forward, B3 backward)
+    against autograd of the blockwise plain path on the card, values and
+    gradients, at level 3 (2B = 32) in bf16 and level 2 (2B = 2) in f32."""
+    for label, b, n, dk, dv, dtype in (("level 3", 32, 4096, 32, 256, "bfloat16"),
+                                       ("level 2, batch 1", 2, 16384, 16, 128, "float32")):
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(b + n)
+        q, k, v = ((torch.randn(b, n, d, device="cuda", generator=g)).to(dt).requires_grad_()
+                   for d in (dk, dk, dv))
+        do = torch.randn(b, n, dv, device="cuda", generator=g).to(dt)
+        scale = 1.0 / dv ** 0.5
+        before = fa.flash_cross_attention_bwd.launches
+        got = torch.autograd.grad(fa.cross_attention(q, k, v, scale), (q, k, v), do)
+        assert fa.flash_cross_attention_bwd.launches == before + 1
+        want = torch.autograd.grad(blockwise(q, k, v, scale, block_q=512), (q, k, v), do)
+        rel = {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a).all()
+            rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+            assert rel[name] <= B3_TOL[dtype], f"autograd {label}: {name} off by {rel}"
+        emit({"phase": "autograd", "shape": label, "dtype": dtype, "rel_err": rel,
+              "tol_rel": B3_TOL[dtype]})
+        del q, k, v, do, got, want
+        torch.cuda.empty_cache()
+
+
 def _post(port, wave):
     req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
                                  data=wave.astype("float32").tobytes(), method="POST")
@@ -317,12 +469,14 @@ def set_gammas(torch, np, model, seed: int = 1234):
 SERVE_PATHS = {
     "unet_baseline": {
         "argv": ["--generator", "unet_256", "--ngf", "64"],
-        "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0},
+        "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
+                      "flash_cross_attention_bwd": 0},
         "share_of": None},
     "binaural_attention": {
         "argv": ["--model", "binaural_attention", "--base_channels", "64",
                  "--attention_levels", "2,3,4,5"],
-        "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4},
+        "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
+                      "flash_cross_attention_bwd": 0},
         "share_of": "flash_fwd"},
 }
 
@@ -441,9 +595,211 @@ def phase_f32_vs_cpu(torch, np, configs, models, path: str):
           "rel_err": err / scale, "tol_rel": F32_VS_CPU_TOL, "cpu_seconds": cpu_s})
 
 
-def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name):
+# the training path: flags of cli/train.py's main, and the launches each
+# kernel makes per train step and per eval batch
+TRAIN_BATCH = 16
+TRAIN_ARGV = ["--dataset", "synthetic", "--model", "binaural_attention",
+              "--base_channels", "64", "--attention_levels", "2,3,4,5",
+              "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+              "--num_samples", "64", "--epochs", "1", "--validation", "true",
+              "--validation_iter", "1", "--seed", "0"]
+VAL_SAMPLES = 64  # the synthetic val split (data/batvision.py)
+PER_TRAIN_STEP = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
+                  "flash_cross_attention_bwd": 4}
+PER_EVAL_BATCH = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
+                  "flash_cross_attention_bwd": 0}
+REPEATED_STEPS = 8
+
+
+def phase_train(torch, np, train_cli, kernels):
+    """cli/train.py's main in-process on the card (see the module note),
+    then REPEATED_STEPS steps on one batch, timed, and a profile of one."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+
+    seen, steps = {}, []
+
+    def on_task(task):
+        seen["task"] = task
+        seen["gammas"] = set_gammas(torch, np, task.model)
+        seen["before"] = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+
+    def on_step(state, metrics):
+        if not steps:  # the first step's gradients are still on the parameters
+            seen["first_grads"] = {
+                n: float(p.grad.abs().max()) for n, p in state.model.named_parameters()
+                if n.startswith("attention_modules.") and ".gamma" not in n}
+        steps.append(metrics)
+
+    for wrapper, _, _ in kernels:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    eng, state = train_cli.main(TRAIN_ARGV, on_task=on_task, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.name: w.launches for w, _, _ in kernels}
+    task, record = seen["task"], eng.history[-1]
+    cfg = task.cfg
+    assert cfg.dataset.images_size == 256 and cfg.model.base_channels == 64
+    assert cfg.mode.compute_dtype == "bfloat16" and task.model.left_encoder.remat
+    assert tuple(cfg.model.attention_levels) == (2, 3, 4, 5)
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    assert len(steps) == 64 // TRAIN_BATCH, len(steps)
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
+    unmoved = [n for n, p in task.model.named_parameters()
+               if torch.equal(p.detach(), seen["before"][n])]
+    assert not unmoved, f"parameters that did not move: {unmoved[:8]}"
+    zero = [n for n, g in seen["first_grads"].items() if not g > 0]
+    assert len(seen["first_grads"]) == 4 * 8 and not zero, f"zero attention gradients: {zero}"
+    n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
+    expected = {name: PER_TRAIN_STEP[name] * len(steps) + PER_EVAL_BATCH[name] * n_eval
+                for name in PER_TRAIN_STEP}
+    assert launches == expected, f"train: launches {launches}, expected {expected}"
+    val = record["val"]
+    assert val and all(np.isfinite(v) for v in val.values()), val
+
+    # one batch, repeated: the loss must fall; each step timed to its end
+    ds = make_dataset(cfg, "train", num_samples=TRAIN_BATCH)
+    batch = eng.encode(next(ds.batches(TRAIN_BATCH, shuffle=False)))
+    torch.cuda.reset_peak_memory_stats()
+    rep_losses, times = [], []
+    for _ in range(REPEATED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        rep_losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0], rep_losses
+    step_ms = statistics.median(times[1:]) * 1e3
+    emit({"phase": "train", "flags": TRAIN_ARGV, "remat": True, "gammas_set_to": seen["gammas"],
+          "params": sum(p.numel() for p in task.model.parameters()),
+          "steps": len(steps), "eval_batches": n_eval, "losses": losses, "grad_norms": norms,
+          "first_step_attention_grad_min": min(seen["first_grads"].values()),
+          "launches": launches, "expected_launches": expected, "epoch_record": record,
+          "main_wall_s": wall, "repeated_batch_losses": rep_losses,
+          "step_ms_median": step_ms, "step_ms_all": [t * 1e3 for t in times],
+          "pairs_per_sec": TRAIN_BATCH / (step_ms / 1e3),
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    emit(profile_train_step(torch, eng, state, batch))
+    return launches
+
+
+def profile_train_step(torch, eng, state, batch):
+    """Host wall and device time of one bf16 train step (torch.profiler:
+    kernel time summed over CUDA activities), the top items, and the shares
+    of B2 (flash_fwd) and B3 (flash_bwd)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(
+        ((e.self_device_time_total, e.key) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+        reverse=True)
+    device_us = sum(d for d, _ in kernels)
+    row = {"phase": "profile", "model": "binaural_attention", "what": "one bf16 train step",
+           "batch": TRAIN_BATCH, "wall_ms": wall * 1e3,
+           "device_ms": device_us / 1e3 if device_us else "not measured",
+           "device_busy_share": device_us / 1e6 / wall if device_us else "not measured",
+           "n_kernel_names": len(kernels),
+           "top_ms": [[k[:60], d / 1e3] for d, k in kernels[:12]]}
+    for tag in ("flash_fwd", "flash_bwd"):
+        mine = sum(d for d, k in kernels if tag in k)
+        row[f"{tag}_ms"] = mine / 1e3
+        row[f"{tag}_share"] = mine / device_us if device_us else "not measured"
+    return row
+
+
+def phase_f32_train_vs_cpu(torch, np, configs, models):
+    """One seeded float32 train step (TF32 off) at full width, 256², batch
+    2, every γ non-zero, on the card and on the CPU from one state_dict, and
+    the same step in float64 on the CPU as the reference.
+
+    The loss: card within F32_TRAIN_TOL of the CPU's float32 loss. The
+    gradients: this step's float32 gradient field is ill-conditioned (the
+    CPU's own float32 gradients are 0.8 % off its float64 ones in global L2,
+    7 % on the worst tensor), so a float32-vs-float32 gate at 1e-3 fails
+    for correct code. Both float32 gradients are measured against float64,
+    each tensor relative to max(its max, 1e-3 · the largest max over all
+    tensors), and the card must be as close as the CPU: its global
+    relative L2 error within F32_GRAD_FACTOR × the CPU's, and its worst
+    tensor within F32_GRAD_FACTOR × the CPU's worst. A wrong kernel moves
+    the tensors it feeds by O(1) and fails both."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+
+    def cfg_for(dtype):
+        return configs.load_config("synthetic", "train", model_name="binaural_attention",
+                                   overrides={"mode.compute_dtype": dtype})
+
+    cpu = models.make_task(cfg_for("float32"), device="cpu")
+    models.init_weights(cpu.model, torch.Generator().manual_seed(0))
+    set_gammas(torch, np, cpu.model)
+    state_dict = cpu.model.state_dict()
+    gpu = models.make_task(cfg_for("float32"), device="cuda")
+    gpu.model.load_state_dict(state_dict, strict=True)
+    ref = models.make_task(cfg_for("float64"), device="cpu")
+    ref.model.double().load_state_dict(state_dict, strict=True)
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    batch = next(make_dataset(cfg_for("float32"), "train", num_samples=2).batches(2, shuffle=False))
+
+    def step(task):
+        t0 = time.perf_counter()
+        task.model.zero_grad(set_to_none=True)
+        dev = {k: torch.from_numpy(v).to(task.device) for k, v in batch.items()}
+        loss, _ = task.loss_fn(dev, 0.0)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().double() for n, p in task.model.named_parameters()}
+        return loss.item(), grads, time.perf_counter() - t0
+
+    want_loss, want, cpu_s = step(ref)
+    cpu_loss, cpu_grads, cpu32_s = step(cpu)
+    got_loss, got, _ = step(gpu)
+    assert np.isfinite(got_loss) and abs(got_loss - cpu_loss) <= F32_TRAIN_TOL * abs(cpu_loss)
+    gmax = max(float(g.abs().max()) for g in want.values())
+    ref_l2 = float(torch.sqrt(sum((g * g).sum() for g in want.values())))
+
+    def errors(grads):
+        per = {n: float((grads[n] - w).abs().max()) / max(float(w.abs().max()), 1e-3 * gmax)
+               for n, w in want.items()}
+        l2 = float(torch.sqrt(sum(((grads[n] - w) ** 2).sum() for n, w in want.items())))
+        return per, l2 / ref_l2
+
+    card_per, card_l2 = errors(got)
+    cpu_per, cpu_l2 = errors(cpu_grads)
+    worst = max(card_per, key=card_per.get)
+    cpu_worst = max(cpu_per.values())
+    assert card_l2 <= F32_GRAD_FACTOR * cpu_l2, (card_l2, cpu_l2)
+    assert card_per[worst] <= F32_GRAD_FACTOR * cpu_worst, (worst, card_per[worst], cpu_worst)
+    # the per-tensor measure card vs CPU float32, as reported before the f64 reference
+    vs_cpu32 = max(float((got[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * gmax)
+                   for n, g in cpu_grads.items())
+    attention = max(v for n, v in card_per.items() if n.startswith("attention_modules."))
+    emit({"phase": "f32_train_vs_cpu", "loss_f64": want_loss, "loss_cpu_f32": cpu_loss,
+          "loss_card_f32": got_loss, "loss_tol_rel": F32_TRAIN_TOL,
+          "card_vs_f64_global_l2_rel": card_l2, "cpu_f32_vs_f64_global_l2_rel": cpu_l2,
+          "card_vs_f64_worst_tensor": [worst, card_per[worst]],
+          "cpu_f32_vs_f64_worst_tensor": cpu_worst, "grad_factor": F32_GRAD_FACTOR,
+          "card_vs_f64_worst_attention_tensor": attention,
+          "card_vs_cpu_f32_worst_tensor": vs_cpu32,
+          "tensors_over_1e-3": {"card": sum(v > 1e-3 for v in card_per.values()),
+                                "cpu_f32": sum(v > 1e-3 for v in cpu_per.values()),
+                                "of": len(card_per)},
+          "largest_grad_max": gmax, "cpu_f64_seconds": cpu_s, "cpu_f32_seconds": cpu32_s})
+
+# the prefix of each wrapper's kernels in the ptxas report
+PTXAS_PREFIX = {"fused_mel_frontend": "fused_mel", "flash_cross_attention_fwd": "flash_fwd",
+                "flash_cross_attention_bwd": "flash_bwd"}
+
+
+def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name, ptxas):
     """One entry of the `kernels` line: numbers at the kernel's main shape,
-    the largest error over all its shapes, launches summed over the paths."""
+    the largest error over all its shapes, launches summed over the paths,
+    and ptxas's registers and spills of each of its instantiations."""
     mine = [r for r in rows if r["name"] == wrapper.name]
     return {
         "name": wrapper.name, "route": "cuda", "source": source, "replaces": replaces,
@@ -452,7 +808,8 @@ def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name)
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "library", "main_shape")},
-        "peak": peak_name}
+        "peak": peak_name,
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(PTXAS_PREFIX[wrapper.name])}}
 
 
 def main() -> int:
@@ -467,6 +824,8 @@ def main() -> int:
     from audiodepth_tpu_torch import configs, models
     from audiodepth_tpu_torch._device import configure_precision
     from audiodepth_tpu_torch.cli import serve
+    from audiodepth_tpu_torch.cli import train as train_cli
+    from audiodepth_tpu_torch.ops.attention import blockwise_cross_attention
     from audiodepth_tpu_torch.ops.cuda import KERNELS, _build
     from audiodepth_tpu_torch.ops.cuda import flash_attention as fa
     from audiodepth_tpu_torch.ops.cuda import fused_frontend as ff
@@ -474,23 +833,30 @@ def main() -> int:
     configure_precision()
     smi, ex2_rate = phase_env(torch)
     peak_name, peak = peak_for(torch.cuda.get_device_name(0))
-    phase_build(_build)
+    ptxas = phase_build(_build)
     b1_rows = phase_kernel(torch, np, ff, peak)
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
-    launches = {path: phase_serve(torch, np, serve, KERNELS, path) for path in SERVE_PATHS}
+    b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
+    phase_autograd(torch, fa, blockwise_cross_attention)
+    launches = {f"serve {path}": phase_serve(torch, np, serve, KERNELS, path)
+                for path in SERVE_PATHS}
     for path in SERVE_PATHS:
         phase_f32_vs_cpu(torch, np, configs, models, path)
+    launches["train binaural_attention"] = phase_train(torch, np, train_cli, KERNELS)
+    phase_f32_train_vs_cpu(torch, np, configs, models)
 
     b1 = next(r for r in b1_rows if r["bc"] == 32 and r["L"] == 7782)
     b1_main = dict(b1, main_shape="B*C=32, L=7782", ms=b1["us"] / 1e3,
                    plain_ms=b1["plain_us"] / 1e3, bound_ms=b1["bound_us"] / 1e3,
                    # no single PyTorch call computes the fused STFT→mel→log→min-max
                    library_ms=None, library=None)
-    b2_main = dict(next(r for r in b2_rows if r["shape"] == B2_MAIN),
-                   main_shape="level 2: 2B=32, N=M=16384, dk=16, dv=128, bf16")
+    level2 = "level 2: 2B=32, N=M=16384, dk=16, dv=128, bf16"
+    b2_main = dict(next(r for r in b2_rows if r["shape"] == B2_MAIN), main_shape=level2)
+    b3_main = dict(next(r for r in b3_rows if r["shape"] == B2_MAIN), main_shape=level2)
     main_rows = {ff.fused_mel_frontend.name: (b1_rows, b1_main),
-                 fa.flash_cross_attention.name: (b2_rows, b2_main)}
-    kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name)
+                 fa.flash_cross_attention.name: (b2_rows, b2_main),
+                 fa.flash_cross_attention_bwd.name: (b3_rows, b3_main)}
+    kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas)
                for w, src, rep in KERNELS]
     emit({"kernels": kernels})
     print(smi, flush=True)

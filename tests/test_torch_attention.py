@@ -11,7 +11,9 @@ path and the wrapper's dispatch) against the JAX package.
   * the port's `blockwise_cross_attention` against the JAX package's, in
     f64 at 1e-12 and f32 at 1e-5;
   * the wrapper takes the plain version for a CPU tensor and launches
-    nothing; bad shapes and dtypes raise; importing it builds nothing.
+    nothing, and so does the model's dispatch `cross_attention` (through
+    FlashCrossAttentionFn); bad shapes and dtypes raise; importing it builds
+    nothing.
 """
 
 from __future__ import annotations
@@ -103,8 +105,8 @@ def test_wrapper_cpu_goes_to_plain_version():
     want_o, want_lse = fa.flash_cross_attention_fwd_plain(q, k, v, 0.2)
     assert fa.flash_cross_attention.launches == before
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
-    # the model's dispatch: the blockwise path on the CPU
-    assert torch.equal(fa.cross_attention(q, k, v, 0.2), blockwise_cross_attention(q, k, v, 0.2))
+    # the model's dispatch: FlashCrossAttentionFn over the plain version on the CPU
+    assert torch.equal(fa.cross_attention(q, k, v, 0.2), want_o)
     assert fa.flash_cross_attention.launches == before
 
 

@@ -2,7 +2,8 @@
 
   * every module of `audiodepth_tpu_torch` imports with jax, flax, optax
     and the JAX package blocked (by exact top-level name: a prefix check on
-    "audiodepth_tpu" would also match the port);
+    "audiodepth_tpu" would also match the port), the training slice's
+    modules among them;
   * an entry point called without device="cpu" raises here rather than
     running on the CPU;
   * the fused front end's wrapper sends a CPU tensor to the plain version
@@ -47,15 +48,24 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules of the training slice, which must be among those walked
+_TRAINING_SLICE = {
+    "cli.train", "data.batvision", "data.codec", "data.synthetic", "losses",
+    "losses.basic", "losses.binaural", "metrics", "metrics.errors", "train.engine",
+    "train.optim", "train.tasks", "train.tasks_extra", "ops.cuda.flash_attention",
+}
 
 
 def test_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every module was walked
+    walked = {n.split(".", 1)[1] for n in out.stdout.split()}
+    assert len(walked) >= 37  # every module was walked
+    assert _TRAINING_SLICE <= walked, _TRAINING_SLICE - walked
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu():
