@@ -1,21 +1,17 @@
-// Flash cross-attention forward for Hopper (sm_90a): kernel B2.
+// Flash cross-attention for Hopper (sm_90a): kernel B2 (the forward) and
+// kernel B3 (the backward, from "Kernel B3" on, with its own note).
 //
-// Replaces the TPU kernel audiodepth_tpu/ops/pallas/flash_attention.py
+// B2 replaces the TPU kernel audiodepth_tpu/ops/pallas/flash_attention.py:103
 // (_fwd_kernel, via _flash_fwd). Same function:
 //   o   = softmax(q.k^T.scale).v          [B, N, dv], in the input dtype
 //   lse = log sum_m exp(q.k^T.scale)      [B, N] fp32 (natural log)
 // with q [B, N, dk], k [B, M, dk], v [B, M, dv], all bf16 or all fp32, and
-// an online base-2 softmax with fp32 running max and sum.
-//
-// Differences from the TPU kernel. There the k axis was a sequential grid
-// dimension with the running statistics in VMEM scratch; here it is a loop
-// inside the block, and blocks over (q-tile, dv-slice, batch) run in
-// parallel. The scale is not folded into a bf16 copy of q (a rounding the
-// TPU kernel paid to save a VPU pass): the raw fp32 score s enters the
-// softmax as exp2(s*c - m*c), c = scale*log2(e), one FFMA per score. No
-// 128-lane padding of dk and no VMEM-driven block cap: dk is padded with
-// zeros to a multiple of 16 in shared memory only, and ragged N and M are
-// masked.
+// an online base-2 softmax with fp32 running max and sum. There the k axis
+// was a sequential grid dimension with the statistics in VMEM scratch; here
+// it is a loop inside the block. The scale is not folded into a bf16 copy
+// of q (a rounding the TPU kernel paid to save a VPU pass): the fp32 score s
+// enters the softmax as exp2(s*c - m*c), c = scale*log2(e). P is rounded to
+// bf16 before P.V; statistics, accumulators and lse stay fp32.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s; the exp2 unit
 // (MUFU) does 16 ex2 a clock per SM, 132 SMs at 1.98 GHz = 4.18e12 ex2/s).
@@ -25,40 +21,47 @@
 // 0.09 ms: bound by tensor operations, with ex2 close behind. Level 5
 // (N = 256) is bound by bytes.
 //
-// Design (bf16, FA2-style, simple first). A block of 4 warps owns a 64-row
-// q tile (16 rows a warp) and a 128-wide slice of dv. Its q fragments stay in
-// registers. k/v tiles of 64 keys go to shared memory with cp.async, double
-// buffered. S = Q.K^T and O += P.V both run on the tensor cores as
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate); P never leaves registers: the
-// accumulator layout of S is repacked to bf16 as the A operand of P.V. The
-// rows padded by 8 bf16 keep ldmatrix free of bank conflicts. dv is split
-// across blocks and the cheap Q.K^T (dk <= dv/2) is recomputed per slice; at
-// level 2 (dv = 128) there is one slice, so no ex2 is repeated. Blocks are
-// ordered batch-major, so the q tiles of one attention row reuse its k/v
-// (4.7 MB at level 2) from the 50 MB L2. Known gaps: mma.sync reaches only
-// part of the tensor cores' rate (wgmma, TMA and warp specialisation are the
-// next step), and the softmax is not overlapped with the products. Measured
-// by chip_smoke.py on an H100 80GB HBM3 at its 700 W limit: 11.5 ms at the
-// level-2 shape (4.6x the bound, 215 TFLOP/s), where PyTorch's fused SDPA
-// (its memory-efficient backend, the only one that takes dk != dv) takes
-// 19.2 ms.
+// Design (bf16; the plan in ops/cuda/flash_attention.py picks the tiles).
+// One warpgroup (128 threads) owns 64 q rows and a dv slice of DVS <= 256
+// columns (dv <= 256: one slice; dv 512: two of 256). The earlier mma.sync
+// design lost most of its time to shared-memory traffic: each of its four
+// warps re-read every K and V fragment with its own ldmatrix (~256 B of
+// shared memory per MMA). Here S = Q.K^T (m64n64) and O += P.V (m64nDVS)
+// run as wgmma, which reads each B operand once per warpgroup, straight
+// from the tiles TMA wrote (128/64/32-byte swizzle; V read MN-major). P goes
+// from the S accumulators to the register A operand of P.V without touching
+// shared memory. K/V tiles of 64 keys stream through a ring of 2-3 stages
+// guarded by mbarriers; one thread issues every copy, so no thread spends
+// instructions on addresses. The exp2 and the rest of the softmax of tile
+// i+1 run while the tensor cores do P.V of tile i (S of tile i+1 is issued
+// first, then P.V of tile i; waiting for one group leaves P.V in flight),
+// and 2-3 blocks share an SM, whose products and softmax also interleave.
+// No atomics: an answer is bit-reproducible from run to run. Ragged N and
+// M: TMA reads rows past the end as zeros, keys past M get -inf.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at its 700 W limit: 5.73
+// ms at the level-2 shape (2.3x the bound, 432 TFLOP/s; the mma.sync design
+// took 11.5 ms), 0.73 ms at level 3 (1.59 before); PyTorch's fused SDPA (its
+// memory-efficient backend, the only one that takes dk != dv) takes 19.2 ms
+// at level 2. Removing the exp2 altogether would save 7-10 % at level 2 and
+// the O rescale 11 % (tools/flash_ablation.py, same card): neither alone is
+// the limit; the chain of waits inside each warpgroup is (PERF.md).
 //
-// fp32 runs the same tiling on the CUDA cores in full fp32 (no TF32): a
-// 256-thread block, each thread owning 4 q rows x 4 keys of S and the same 4
-// rows x 8 columns of O, with P passed through shared memory.
-//
-// The backward, kernel B3, follows B2 in this file (its own note is there).
+// fp32 runs a CUDA-core tiling (256 threads, 4 q rows x 4 keys of S and 4
+// rows x 8 columns of O a thread, P through shared memory), unchanged from
+// the first port: it serves the parity checks only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;    // q rows per block
+constexpr int kBQ = 64;    // q rows per block (wgmma's M; also the fp32 path's)
 constexpr int kBK = 64;    // keys per k/v tile
-constexpr int kDVS = 128;  // dv columns per block (the dv slice)
+constexpr int kDVS = 128;  // dv columns per block of the fp32 forward
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -68,46 +71,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16), fp32 accumulators and statistics
-// ---------------------------------------------------------------------------
-
-constexpr int kThreadsBf16 = 128;  // 4 warps x 16 q rows
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d += a.b for one 16x8x16 tile; a row-major 16x16, b col-major 16x8
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -115,201 +80,251 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, bool valid) {
-  return valid ? *reinterpret_cast<const uint32_t*>(base) : 0u;
+// The accumulator layout of a 64-column wgmma (32 floats a thread: columns
+// 8j + 2t, +1 of rows g and g + 8 in d[4j..4j+3]) as the four A fragments
+// of the next product's k-steps of 16, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
 }
 
-template <int DKP>
-struct Bf16Smem {
-  static constexpr int kStride = DKP + 8;   // bf16 per k row (16-byte pad)
-  static constexpr int vStride = kDVS + 8;  // bf16 per v row
-  static constexpr int kStage = kBK * kStride;
-  static constexpr int vStage = kBK * vStride;
-  static constexpr size_t bytes = size_t(2) * (kStage + vStage) * sizeof(__nv_bfloat16);
+// ---------------------------------------------------------------------------
+// B2, bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+// Shared memory of the forward, in bytes from the 1024-aligned base: the Q
+// tile, `stages` K tiles, `stages` V tiles (DVS / 64 sub-tiles of 64 x 64,
+// 8 KB each), then 1 + stages mbarriers. The plan mirrors this.
+struct FwdLayout {
+  int k_off, v_off, bar_off, k_stage, v_stage;
+  size_t bytes;
 };
 
-// grid (q_tiles * n_slices, B); block 128. DKP = dk rounded up to 16.
-template <int DKP>
-__global__ void __launch_bounds__(kThreadsBf16)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int N, int M, int dk, int dv, int n_slices,
-                      float c /* scale * log2(e) */) {
-  using L = Bf16Smem<DKP>;
-  constexpr int KSTEPS = DKP / 16;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* vs = ks + 2 * L::kStage;
+__host__ __device__ inline FwdLayout fwd_layout(int dkp, int dvs, int stages) {
+  FwdLayout L;
+  L.k_stage = kBK * dkp * 2;  // 2, 4 or 8 KB
+  L.v_stage = kBK * dvs * 2;  // a multiple of 8 KB
+  L.k_off = kBQ * dkp * 2;
+  L.v_off = L.k_off + stages * L.k_stage;
+  L.bar_off = L.v_off + stages * L.v_stage;
+  L.bytes = size_t(L.bar_off) + 8 * (1 + stages) + 1024;  // + slack to align the base
+  return L;
+}
+
+// grid (q_tiles * n_slices, B); block 128 (one warpgroup). DKP = dk padded
+// to 16, 32 or 64 (the q/k swizzle is one row: 2*DKP bytes), DVS = the dv
+// slice padded to a multiple of 64.
+template <int DKP, int DVS>
+__global__ void __launch_bounds__(128, DVS <= 128 ? 3 : 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int N, int M, int dv, int n_slices, int stages,
+                       float c /* scale * log2(e) */) {
+  using namespace sm90;
+  constexpr int SW = 2 * DKP;
+  constexpr uint32_t kTileBytes = kBK * DKP * 2, vTileBytes = kBK * DVS * 2;
+  const FwdLayout L = fwd_layout(DKP, DVS, stages);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bar_off);  // [0] Q, [1 + s] stage s
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / thread in group
+  const int g = lane >> 2, t = lane & 3;
   const int slice = blockIdx.x % n_slices;
   const int q0 = (blockIdx.x / n_slices) * kBQ;
-  const int col0 = slice * kDVS;
-  const size_t b = blockIdx.y;
-  const __nv_bfloat16* qb = q + b * N * dk;
-  const __nv_bfloat16* kb = k + b * M * dk;
-  const __nv_bfloat16* vb = v + b * M * dv;
+  const int col0 = slice * DVS;
+  const int b = blockIdx.y;
+  const int n_tiles = (M + kBK - 1) / kBK;
 
-  // q fragments (A operand of S = Q.K^T), loaded once; zero past N and dk
-  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
-  uint32_t qa[KSTEPS][4];
+  auto issue = [&](int tile, int st) {
+    uint64_t* bar = bars + 1 + st;
+    mbar_arrive_expect_tx(bar, kTileBytes + vTileBytes);
+    tma_load_3d(sm + L.k_off + st * L.k_stage, &tk, bar, 0, tile * kBK, b);
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    const int d = s * 16 + 2 * t;
-    qa[s][0] = load_pair(qb + size_t(r_lo) * dk + d, r_lo < N && d < dk);
-    qa[s][1] = load_pair(qb + size_t(r_hi) * dk + d, r_hi < N && d < dk);
-    qa[s][2] = load_pair(qb + size_t(r_lo) * dk + d + 8, r_lo < N && d + 8 < dk);
-    qa[s][3] = load_pair(qb + size_t(r_hi) * dk + d + 8, r_hi < N && d + 8 < dk);
+    for (int j = 0; j < DVS / 64; ++j)
+      tma_load_3d(sm + L.v_off + st * L.v_stage + j * 8192, &tv, bar, col0 + 64 * j, tile * kBK, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= stages; ++s) mbar_init(bars + s, 1);
+    fence_mbar_init();
+    mbar_arrive_expect_tx(bars, kBQ * DKP * 2);
+    tma_load_3d(sm, &tq, bars, 0, q0, b);
+    for (int s = 0; s < stages && s < n_tiles; ++s) issue(s, s);
   }
+  __syncthreads();
 
-  auto load_tile = [&](int kv0, int stage) {
-    __nv_bfloat16* kt = ks + stage * L::kStage;
-    __nv_bfloat16* vt = vs + stage * L::vStage;
-    constexpr int kChunks = DKP / 8;  // 16-byte chunks per k row
-    for (int i = tid; i < kBK * kChunks; i += kThreadsBf16) {
-      const int r = i / kChunks, ch = i - r * kChunks;
-      const bool ok = kv0 + r < M && ch * 8 < dk;
-      cp_async16(kt + r * L::kStride + ch * 8, ok ? kb + size_t(kv0 + r) * dk + ch * 8 : kb, ok);
-    }
-    constexpr int vChunks = kDVS / 8;
-    for (int i = tid; i < kBK * vChunks; i += kThreadsBf16) {
-      const int r = i / vChunks, ch = i - r * vChunks;
-      const int col = col0 + ch * 8;
-      const bool ok = kv0 + r < M && col < dv;
-      cp_async16(vt + r * L::vStride + ch * 8, ok ? vb + size_t(kv0 + r) * dv + col : vb, ok);
-    }
+  const uint64_t q_desc = make_desc(sm, 16, 8 * SW, SW);
+  // S = Q.K^T: both K-major, one k-step of 16 per 32 bytes of row
+  auto qk = [&](float (&s)[32], int st) {
+    const uint64_t k_desc = make_desc(sm + L.k_off + st * L.k_stage, 16, 8 * SW, SW);
+#pragma unroll
+    for (int ks = 0; ks < DKP / 16; ++ks)
+      wgmma_ss<64, 0, 0>(s, desc_advance(q_desc, 32 * ks), desc_advance(k_desc, 32 * ks), ks > 0);
+  };
+  float acc[DVS / 2];
+#pragma unroll
+  for (int i = 0; i < DVS / 2; ++i) acc[i] = 0.f;
+  // O += P.V: V read MN-major, 16 keys (2 KB of rows) a k-step, sub-tiles 8 KB apart
+  auto pv = [&](const uint32_t (&pa)[4][4], int st) {
+    const uint64_t v_desc = make_desc(sm + L.v_off + st * L.v_stage, 8192, 1024, 128);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DVS, 1>(acc, pa[kk], desc_advance(v_desc, 2048 * kk), 1);
   };
 
-  float acc[kDVS / 8][4];
-#pragma unroll
-  for (int j = 0; j < kDVS / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the raw scores
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the raw scores (rows g, g + 8)
   float l_lo = 0.f, l_hi = 0.f;              // this thread's part of the running sum
-
-  // ldmatrix lane addressing: matrix index mi, row r8 within it
-  const int mi = lane >> 3, r8 = lane & 7;
-  const int n_tiles = (M + kBK - 1) / kBK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = it * kBK;
-    if (it + 1 < n_tiles) {
-      load_tile(kv0 + kBK, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + (it & 1) * L::kStage;
-    const __nv_bfloat16* vt = vs + (it & 1) * L::vStage;
-
-    // S = Q.K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
-    float s[kBK / 8][4];
+  // online softmax of tile `tile` in place (s becomes p); returns the factors
+  // that rescale what the accumulator held before this tile
+  auto softmax = [&](float (&s)[32], int tile, float& alpha_lo, float& alpha_hi) {
+    if ((tile + 1) * kBK > M) {  // ragged last tile: keys past M get no weight
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ss = 0; ss < KSTEPS; ++ss) {
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kt + (np * 16 + r8 + (mi >> 1) * 8) * L::kStride + ss * 16 + (mi & 1) * 8);
-        mma_bf16(s[2 * np], qa[ss], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa[ss], bk[2], bk[3]);
+      for (int j = 0; j < 8; ++j) {
+        const int key = tile * kBK + j * 8 + 2 * t;
+        if (key >= M) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (key + 1 >= M) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
       }
     }
-    if (kv0 + kBK > M) {  // ragged last tile: keys past M get no weight
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        const int key = kv0 + j * 8 + 2 * t;
-        if (key >= M) s[j][0] = s[j][2] = -INFINITY;
-        if (key + 1 >= M) s[j][1] = s[j][3] = -INFINITY;
-      }
-    }
-
-    // online softmax; a row's 64 scores lie on the 4 threads of a quad
     float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    for (int j = 0; j < 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
+    // a row's 64 scores lie on the 4 threads of a quad
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
     // every tile holds at least one key < M, so mx is finite
     const float sc_lo = mx_lo * c, sc_hi = mx_hi * c;
-    const float alpha_lo = fast_exp2(m_lo * c - sc_lo);  // 0 on the first tile
-    const float alpha_hi = fast_exp2(m_hi * c - sc_hi);
+    alpha_lo = fast_exp2(m_lo * c - sc_lo);  // 0 on the first tile
+    alpha_hi = fast_exp2(m_hi * c - sc_hi);
     m_lo = mx_lo;
     m_hi = mx_hi;
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = fast_exp2(fmaf(s[j][0], c, -sc_lo));
-      s[j][1] = fast_exp2(fmaf(s[j][1], c, -sc_lo));
-      s[j][2] = fast_exp2(fmaf(s[j][2], c, -sc_hi));
-      s[j][3] = fast_exp2(fmaf(s[j][3], c, -sc_hi));
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], c, -sc_lo));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], c, -sc_lo));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], c, -sc_hi));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], c, -sc_hi));
+      sum_lo += s[4 * j] + s[4 * j + 1];
+      sum_hi += s[4 * j + 2] + s[4 * j + 3];
     }
     l_lo = l_lo * alpha_lo + sum_lo;
     l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int j = 0; j < kDVS / 8; ++j) {
-      acc[j][0] *= alpha_lo;
-      acc[j][1] *= alpha_lo;
-      acc[j][2] *= alpha_hi;
-      acc[j][3] *= alpha_hi;
-    }
+  };
 
-    // O += P.V: P (accumulator layout of S) repacked as bf16 A fragments
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < kDVS / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vt + (kk * 16 + r8 + (mi & 1) * 8) * L::vStride + dp * 16 + (mi >> 1) * 8);
-        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // this stage is read; the next iteration's load may overwrite it
+  uint32_t pa[4][4];  // P of the tile whose P.V is next, bf16 A fragments
+  mbar_wait(bars, 0);
+  {
+    float s[32], alo, ahi;
+    mbar_wait(bars + 1, 0);
+    wgmma_fence();
+    qk(s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(s, 0, alo, ahi);  // acc is zero: nothing to rescale
+    acc_to_a(s, pa);
   }
+  for (int it = 1; it < n_tiles; ++it) {
+    const int st = it % stages, prev = (it - 1) % stages;
+    mbar_wait(bars + 1 + st, (it / stages) & 1);
+    float s[32], alpha_lo, alpha_hi;
+    fence_regs(acc);
+    wgmma_fence();
+    qk(s, st);  // S of this tile first ...
+    wgmma_commit();
+    pv(pa, prev);  // ... then P.V of the last one
+    wgmma_commit();
+    wgmma_wait<1>();  // S has landed; P.V runs on under the softmax
+    fence_regs(s);
+    softmax(s, it, alpha_lo, alpha_hi);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    __syncthreads();  // every warp is done with stage `prev`
+    if (tid == 0 && it - 1 + stages < n_tiles) issue(it - 1 + stages, prev);
+#pragma unroll
+    for (int j = 0; j < DVS / 8; ++j) {
+      acc[4 * j] *= alpha_lo;
+      acc[4 * j + 1] *= alpha_lo;
+      acc[4 * j + 2] *= alpha_hi;
+      acc[4 * j + 3] *= alpha_hi;
+    }
+    acc_to_a(s, pa);
+  }
+  fence_regs(acc);
+  wgmma_fence();
+  pv(pa, (n_tiles - 1) % stages);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
 
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  __nv_bfloat16* ob = o + b * N * dv;
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  __nv_bfloat16* ob = o + size_t(b) * N * dv;
 #pragma unroll
-  for (int j = 0; j < kDVS / 8; ++j) {
+  for (int j = 0; j < DVS / 8; ++j) {
     const int col = col0 + j * 8 + 2 * t;
     if (col < dv) {
       if (r_lo < N)
         *reinterpret_cast<uint32_t*>(ob + size_t(r_lo) * dv + col) =
-            pack_bf16(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
+            pack_bf16(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
       if (r_hi < N)
         *reinterpret_cast<uint32_t*>(ob + size_t(r_hi) * dv + col) =
-            pack_bf16(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
+            pack_bf16(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
     }
   }
   if (slice == 0 && t == 0) {
-    if (r_lo < N) lse[b * N + r_lo] = (m_lo * c + log2f(l_lo)) * kLn2;
-    if (r_hi < N) lse[b * N + r_hi] = (m_hi * c + log2f(l_hi)) * kLn2;
+    if (r_lo < N) lse[size_t(b) * N + r_lo] = (m_lo * c + log2f(l_lo)) * kLn2;
+    if (r_hi < N) lse[size_t(b) * N + r_hi] = (m_hi * c + log2f(l_hi)) * kLn2;
+  }
+}
+
+template <int DKP, int DVS>
+cudaError_t launch_fwd_wgmma(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
+                             const void* k, const void* v, void* o, float* lse, int B, int N,
+                             int M, int dk, int dv, int n_slices, int stages, float c) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBQ, DKP, 2 * DKP);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBK, DKP, 2 * DKP);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, B, M, dv, kBK, 64, 128);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DKP, DVS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<DKP, DVS><<<grid, 128, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, N, M, dv, n_slices, stages, c);
+  return cudaGetLastError();
+}
+
+template <int DKP>
+cudaError_t launch_fwd_wgmma_dvs(int dvs, dim3 grid, size_t smem, cudaStream_t stream,
+                                 const void* q, const void* k, const void* v, void* o, float* lse,
+                                 int B, int N, int M, int dk, int dv, int n_slices, int stages,
+                                 float c) {
+  switch (dvs) {
+    case 64: return launch_fwd_wgmma<DKP, 64>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 128: return launch_fwd_wgmma<DKP, 128>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 192: return launch_fwd_wgmma<DKP, 192>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 256: return launch_fwd_wgmma<DKP, 256>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the same tiling on the CUDA cores
+// B2, fp32: a tiling on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kThreadsF32 = 256;  // 16 x 16: ty owns rows 4ty..4ty+3
@@ -451,31 +466,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DKP>
-cudaError_t launch_bf16(dim3 grid, cudaStream_t stream, const void* q, const void* k,
-                        const void* v, void* o, float* lse, int N, int M, int dk, int dv,
-                        int n_slices, float c) {
-  const size_t smem = Bf16Smem<DKP>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DKP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  flash_fwd_bf16_kernel<DKP><<<grid, kThreadsBf16, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, N, M, dk, dv,
-      n_slices, c);
-  return cudaGetLastError();
-}
-
 // ===========================================================================
 // Kernel B3: the backward.
 //
 // Replaces the TPU kernel audiodepth_tpu/ops/pallas/flash_attention.py:148
-// (_bwd_kernel, via _flash_bwd). With D = rowsum(do*o) computed by the
-// caller (as the JAX package does outside its kernel):
+// (_bwd_kernel, via _flash_bwd). With D = rowsum(do*o) in fp32:
 //   p  = exp(q.k^T.scale - lse)       dv = p^T.do
 //   ds = p*(do.v^T - D)               dk = ds^T.q.scale     dq = ds.k.scale
-// dq, dk, dv accumulate in fp32 and are cast to the input dtype.
+// p is recomputed as exp2(s*c - lse*log2e) on the fp32 scores (c =
+// scale*log2e); p and ds are rounded to bf16 before their products, as the
+// TPU kernel does; dq, dk, dv accumulate in fp32 and are cast to the input
+// dtype.
 //
 // Bound on the H100 SXM. At the level-2 shape (2B = 32, N = M = 16384,
 // dk = 16, dv = 128) the five products (s, p^T.do, do.v^T, ds^T.q, ds.k) are
@@ -483,354 +484,408 @@ cudaError_t launch_bf16(dim3 grid, cudaStream_t stream, const void* q, const voi
 // exp2 of p 8.6e9 = 2.05 ms, the bytes ~0.5 GB = 0.15 ms: bound by tensor
 // operations. Level 3 is 6.5e11 FLOP = 0.66 ms; level 5 is bound by bytes.
 //
-// Design (bf16, FA2-style, simple first). What the TPU kernel did for its
-// layout is gone: no transposed dq/dk accumulators, no full-N dq buffer in
-// fast memory, no 128-lane padding (dk is padded to 16 in shared memory
-// only). A block of 4 warps owns a tile of 64 keys (16 a warp) and one
-// 128-wide slice of dv, and sweeps every 64-row q tile. Each warp computes
-// S^T = K.Q^T for its keys, so P^T and dS^T sit in the accumulator layout
-// with keys as rows and repack in registers into the A operand of
-// dv += P^T.dO and dk += dS^T.Q; dk and the dv slice accumulate in fp32
-// registers across the sweep. p is recomputed as exp2(s*c - lse*log2e) on
-// the fp32 scores (c = scale*log2e, B2's choice); p and ds are rounded to
-// bf16 before their products, as the TPU kernel does. dP^T = V.dO^T needs
-// the whole of dv, so only the block of slice 0 computes dP, dS, dk and dq
-// (its V and dO tiles hold every column); the blocks of the other slices
-// (dv 256 and 512, levels 3-5) recompute S and P and accumulate their dv
-// slice only. dq crosses key tiles: dS^T goes to shared memory in bf16,
-// each warp multiplies 16 q rows of dS by the tile's K, and the fp32 result
-// is added to a [B, N, dk] fp32 buffer that the caller zeroed, with one
-// atomicAdd per element (N*M*B*dk/64 adds: 2.1e9 at level 2). The atomics
-// make dq's fp32 sums run-to-run nondeterministic in their last bits.
-// q/dO tiles are double buffered with cp.async while they fit shared
-// memory (dv <= 256); K (and V for slice 0) load once per block.
+// Design (flash_bwd_wgmma_kernel, bf16). The first port's mma.sync kernel
+// lost its time to shared-memory traffic (its four warps each re-read every
+// B operand with ldmatrix, ~300 B of shared memory per MMA), to 2.1e9
+// scalar fp32 atomics for dq at level 2, to two __syncthreads and no
+// overlap per q tile, and at dv 256 and 512 to further blocks per key tile
+// that recomputed S and exp2 for their dv slices. Here one warpgroup owns 64
+// keys and all of dv (two warpgroups share dv above 256), and sweeps the q
+// tiles:
+//   - K and V load once by TMA and stay in shared memory; each q tile's Q,
+//     dO (TMA, zero past N) and its lse*log2e and D (one bulk copy of a
+//     padded [B, q_tiles, 2, 64] fp32 buffer) stream through a ring of 1-2
+//     stages guarded by mbarriers, issued by one thread.
+//   - S^T = K.Q^T and dP^T = V.dO^T run as wgmma (m64n64, both K-major) and
+//     are issued together; the exp2 of P^T runs while dP^T is in flight.
+//   - dV += P^T.dO and dK += dS^T.Q run as wgmma with P^T and dS^T as
+//     register A operands (the accumulators of S^T and dP^T, rounded to
+//     bf16), dO and Q read MN-major; dk and dv stay in fp32 registers for
+//     the sweep. dv <= 256 fits one warpgroup's registers, so no S or exp2
+//     is computed twice there. Above 256 (levels 4-5, dv 512) two
+//     warpgroups each take half of dv over the same keys, both compute S^T
+//     and P^T, the second hands its part of dP^T to the first through
+//     shared memory, the first computes dS and dQ and the second dK.
+//   - dQ = dS.K reads dS^T from shared memory (written in the 128-byte
+//     swizzle, read MN-major) and K (MN-major) with one wgmma per k-step;
+//     the 64 x dk fp32 tile goes to shared memory and is added to the
+//     zeroed fp32 [B, N, dk] dq with one cp.reduce.async.bulk .add.f32 per
+//     tile, double-buffered, in place of 64*dk scalar atomics. The order of
+//     those adds across key tiles varies, so dq's last bits vary from run
+//     to run; dk and dv do not.
+// D = rowsum(do*o) and lse*log2e come from flash_bwd_prep_kernel, which
+// also writes the padding (zeros: q rows past N get p = 1 from zero q rows
+// but dp = ds = 0 from zero dO rows, and add nothing).
+// Measured by chip_smoke.py on an H100 80GB HBM3 at its 700 W limit: 12.15
+// ms at level 2 (2.3x the bound, 430 TFLOP/s; the mma.sync design took 29.0
+// ms), 1.64 / 0.39 / 0.060 ms at levels 3-5 (6.49 / 1.08 / 0.144 before);
+// SDPA's memory-efficient backward takes 72.4 ms at level 2. Without its
+// exp2 B3 would save 2 % at level 2, without the dq reduce 3 % (9 % at
+// level 3; tools/flash_ablation.py).
 //
 // fp32 runs on the CUDA cores in full fp32: a 256-thread block owns 32 keys
 // and the whole of dv, sweeps 32-row q tiles, and passes P and dS through
-// shared memory; dq takes the same atomics.
+// shared memory; dq takes scalar atomics.
 // ===========================================================================
 
 constexpr int kBwdBK = 64;        // keys per block
 constexpr int kBwdBQ = 64;        // q rows per sweep step
-constexpr int kBwdThreads = 128;  // 4 warps x 16 keys
+constexpr int kBwdThreads = 128;  // 4 warps (one warpgroup)
 constexpr int kBwdMaxDv = 512;
+constexpr int kStatBytes = 2 * kBwdBQ * 4;  // lse*log2e and D of one q tile
 
-// shared memory of the bf16 backward, in bf16 elements unless noted
-struct BwdLayout {
-  int k_stride, w_stride, ds_stride, stages;
-  int v_off, q_off, do_off, ds_off, stat_off;  // elements from the start
+// D = rowsum(do*o) and lse*log2e of every q row into stat [B, q_tiles, 2,
+// 64], zero past N. grid (q_tiles, B); block 256: a warp per row, 8 at once.
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ stat, int N, int dv) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t b = blockIdx.y;
+  float* st = stat + (b * gridDim.x + blockIdx.x) * (2 * kBwdBQ);
+  for (int r = warp; r < kBwdBQ; r += 8) {
+    const int row = blockIdx.x * kBwdBQ + r;
+    float d = 0.f;
+    if (row < N) {
+      const uint4* ob = reinterpret_cast<const uint4*>(o + (b * N + row) * dv);
+      const uint4* db = reinterpret_cast<const uint4*>(dout + (b * N + row) * dv);
+      for (int i = lane; i < dv / 8; i += 32) {
+        const uint4 x = ob[i], y = db[i];
+        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 xf = __bfloat1622float2(xs[j]), yf = __bfloat1622float2(ys[j]);
+          d = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, d));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (lane == 0) {
+      st[r] = row < N ? lse[b * N + row] * kLog2e : 0.f;
+      st[kBwdBQ + r] = d;
+    }
+  }
+}
+
+// Shared memory of the wgmma backward, in bytes from the 1024-aligned base:
+// K, V (dvt / 64 sub-tiles of 8 KB, dvt = WGS * DVS), `stages` Q and dO
+// tiles, dS^T (64 x 64 bf16), two fp32 dq tiles of 64 x dk, `stages` lse/D
+// tiles, with two warpgroups the 64 x 64 fp32 exchange of dP^T, then 1 +
+// stages mbarriers. The plan mirrors this.
+struct BwdWgLayout {
+  int v_off, q_off, do_off, ds_off, dq_off, xp_off, stat_off, bar_off, q_stage, do_stage, dq_buf;
   size_t bytes;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int dkp, int w, int stages) {
-  BwdLayout L;
-  L.k_stride = dkp + 8;
-  L.w_stride = w + 8;
-  L.ds_stride = kBwdBQ + 8;
-  L.stages = stages;
-  L.v_off = kBwdBK * L.k_stride;
-  L.q_off = L.v_off + kBwdBK * L.w_stride;
-  L.do_off = L.q_off + stages * kBwdBQ * L.k_stride;
-  L.ds_off = L.do_off + stages * kBwdBQ * L.w_stride;
-  L.stat_off = L.ds_off + kBwdBK * L.ds_stride;
-  L.bytes = size_t(L.stat_off) * 2 + size_t(2 * stages * kBwdBQ) * sizeof(float);
+__host__ __device__ inline BwdWgLayout bwd_wg_layout(int dkp, int dvt, int dk, int stages,
+                                                     int wgs) {
+  BwdWgLayout L;
+  L.q_stage = kBwdBQ * dkp * 2;
+  L.do_stage = kBwdBQ * dvt * 2;
+  L.dq_buf = kBwdBQ * dk * 4;
+  L.v_off = kBwdBK * dkp * 2;
+  L.q_off = L.v_off + kBwdBK * dvt * 2;
+  L.do_off = L.q_off + stages * L.q_stage;
+  L.ds_off = L.do_off + stages * L.do_stage;
+  L.dq_off = L.ds_off + kBwdBK * kBwdBQ * 2;
+  L.xp_off = L.dq_off + 2 * L.dq_buf;
+  L.stat_off = L.xp_off + (wgs == 2 ? kBwdBK * kBwdBQ * 4 : 0);
+  L.bar_off = L.stat_off + stages * kStatBytes;
+  L.bytes = size_t(L.bar_off) + 8 * (1 + stages) + 1024;  // + slack to align the base
   return L;
 }
 
-// grid (key_tiles * n_slices, B); block 128. DKP = dk rounded up to 16;
-// W = the dO/V tile width of slice 0: max(dv rounded up to 16, kDVS).
-template <int DKP>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ dsum,
-                      float* __restrict__ dq, __nv_bfloat16* __restrict__ dk_out,
-                      __nv_bfloat16* __restrict__ dv_out, int N, int M, int dk, int dv,
-                      int n_slices, int W, int stages, float c, float scale) {
-  constexpr int KSTEPS = DKP / 16;
-  const BwdLayout L = bwd_layout(DKP, W, stages);
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* vs = ks + L.v_off;
-  __nv_bfloat16* qs = ks + L.q_off;
-  __nv_bfloat16* dos = ks + L.do_off;
-  __nv_bfloat16* dsT = ks + L.ds_off;
-  float* lse2s = reinterpret_cast<float*>(ks + L.stat_off);  // stages x kBwdBQ
-  float* dsums = lse2s + stages * kBwdBQ;                      // stages x kBwdBQ
+// grid (key_tiles, B); block 128 * WGS. DKP = dk padded to 16, 32 or 64;
+// DVS = the dv columns of one warpgroup, padded to a multiple of 64 (<= 256).
+// WGS = 2 splits dv across two warpgroups over the same 64 keys: each one
+// computes S^T, P^T, its part of dP^T and its half of dV; the second hands
+// its part of dP^T to the first through shared memory; the first computes
+// dS and dQ, the second dK from dS^T in shared memory (so neither holds dv,
+// dk and dP^T at once beyond what one warpgroup of dv 256 holds).
+template <int DKP, int DVS, int WGS>
+__global__ void __launch_bounds__(kBwdThreads * WGS, WGS == 1 ? 2 : 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ stat, float* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int N,
+                       int M, int dk, int dv, int stages, float c, float scale) {
+  using namespace sm90;
+  constexpr int SW = 2 * DKP;
+  constexpr int SUB = DVS / 64;  // 64-column sub-tiles of one warpgroup's dv
+  constexpr uint32_t qBytes = kBwdBQ * DKP * 2, doBytes = kBwdBQ * DVS * WGS * 2;
+  const BwdWgLayout L = bwd_wg_layout(DKP, DVS * WGS, dk, stages, WGS);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint8_t* ds_s = sm + L.ds_off;
+  float* xp = reinterpret_cast<float*>(sm + L.xp_off);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bar_off);  // [0] K/V, [1 + s] stage s
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = WGS == 1 ? 0 : threadIdx.x / kBwdThreads;  // this warpgroup
+  const bool lead = wg == 0;                                // computes dS and dQ
+  const bool dk_owner = WGS == 1 || wg == 1;                // accumulates dK
+  const int tid = threadIdx.x % kBwdThreads, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix lane addressing
-  const int slice = blockIdx.x % n_slices;
-  const int k0 = (blockIdx.x / n_slices) * kBwdBK;
-  const int col0 = slice * kDVS;
-  const bool lead = slice == 0;  // computes dP, dS, dk and dq
-  const int w_load = lead ? W : kDVS;  // dO columns [col0, col0 + w_load) in smem
-  const size_t b = blockIdx.y;
-  const __nv_bfloat16* qb = q + b * N * dk;
-  const __nv_bfloat16* kb = k + b * M * dk;
-  const __nv_bfloat16* vb = v + b * M * dv;
-  const __nv_bfloat16* dob = dout + b * N * dv;
-  const float* lseb = lse + b * N;
-  const float* dsumb = dsum + b * N;
+  const int k0 = blockIdx.x * kBwdBK;
+  const int b = blockIdx.y;
+  const int n_qt = (N + kBwdBQ - 1) / kBwdBQ;
+  const float* statb = stat + size_t(b) * n_qt * (2 * kBwdBQ);
 
-  // the block's K tile, and V (every column) for slice 0; zero past M and dk
-  constexpr int kChunks = DKP / 8;
-  for (int i = tid; i < kBwdBK * kChunks; i += kBwdThreads) {
-    const int r = i / kChunks, ch = i - r * kChunks;
-    const bool ok = k0 + r < M && ch * 8 < dk;
-    cp_async16(ks + r * L.k_stride + ch * 8, ok ? kb + size_t(k0 + r) * dk + ch * 8 : kb, ok);
-  }
-  if (lead) {
-    const int vChunks = W / 8;
-    for (int i = tid; i < kBwdBK * vChunks; i += kBwdThreads) {
-      const int r = i / vChunks, ch = i - r * vChunks;
-      const bool ok = k0 + r < M && ch * 8 < dv;
-      cp_async16(vs + r * L.w_stride + ch * 8, ok ? vb + size_t(k0 + r) * dv + ch * 8 : vb, ok);
-    }
-  }
-  cp_async_commit();
-
-  // one q tile: Q, the dO columns this block reads, lse*log2e and D; rows
-  // past N are zero, which gives them p = 1 but dP = dS = 0 and no dv
-  auto load_q_tile = [&](int qt0, int st) {
-    __nv_bfloat16* qt = qs + st * kBwdBQ * L.k_stride;
-    for (int i = tid; i < kBwdBQ * kChunks; i += kBwdThreads) {
-      const int r = i / kChunks, ch = i - r * kChunks;
-      const bool ok = qt0 + r < N && ch * 8 < dk;
-      cp_async16(qt + r * L.k_stride + ch * 8, ok ? qb + size_t(qt0 + r) * dk + ch * 8 : qb, ok);
-    }
-    __nv_bfloat16* dt = dos + st * kBwdBQ * L.w_stride;
-    const int dChunks = w_load / 8;
-    for (int i = tid; i < kBwdBQ * dChunks; i += kBwdThreads) {
-      const int r = i / dChunks, ch = i - r * dChunks;
-      const int col = col0 + ch * 8;
-      const bool ok = qt0 + r < N && col < dv;
-      cp_async16(dt + r * L.w_stride + ch * 8, ok ? dob + size_t(qt0 + r) * dv + col : dob, ok);
-    }
-    if (tid < kBwdBQ) {
-      lse2s[st * kBwdBQ + tid] = qt0 + tid < N ? lseb[qt0 + tid] * kLog2e : 0.f;
-    } else {
-      const int j = tid - kBwdBQ;
-      dsums[st * kBwdBQ + j] = qt0 + j < N ? dsumb[qt0 + j] : 0.f;
-    }
+  auto issue = [&](int tile, int st) {
+    uint64_t* bar = bars + 1 + st;
+    mbar_arrive_expect_tx(bar, qBytes + doBytes + kStatBytes);
+    tma_load_3d(sm + L.q_off + st * L.q_stage, &tq, bar, 0, tile * kBwdBQ, b);
+#pragma unroll
+    for (int j = 0; j < SUB * WGS; ++j)
+      tma_load_3d(sm + L.do_off + st * L.do_stage + j * 8192, &tdo, bar, 64 * j, tile * kBwdBQ, b);
+    bulk_load(sm + L.stat_off + st * kStatBytes, statb + size_t(tile) * (2 * kBwdBQ), kStatBytes,
+              bar);
   };
-
-  load_q_tile(0, 0);
-  cp_async_commit();
-  cp_async_wait<1>();  // the K/V group has landed
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= stages; ++s) mbar_init(bars + s, 1);
+    fence_mbar_init();
+    mbar_arrive_expect_tx(bars, kBwdBK * (DKP + DVS * WGS) * 2);
+    tma_load_3d(sm, &tk, bars, 0, k0, b);
+#pragma unroll
+    for (int j = 0; j < SUB * WGS; ++j)
+      tma_load_3d(sm + L.v_off + j * 8192, &tv, bars, 64 * j, k0, b);
+    for (int s = 0; s < stages && s < n_qt; ++s) issue(s, s);
+  }
   __syncthreads();
 
-  const int krow = warp * 16;  // this warp's keys within the tile
-  uint32_t ka[KSTEPS][4];      // A operand of S^T = K.Q^T
-#pragma unroll
-  for (int s = 0; s < KSTEPS; ++s)
-    ldmatrix_x4(ka[s], ks + (krow + r8 + (mi & 1) * 8) * L.k_stride + s * 16 + (mi >> 1) * 8);
-  const bool key_lo_ok = k0 + krow + g < M, key_hi_ok = k0 + krow + g + 8 < M;
+  // K: A of S^T (K-major, k-steps of 32 bytes) and B of dQ (MN-major,
+  // k-steps of 16 rows) share one descriptor; V (this warpgroup's columns):
+  // A of dP^T (K-major, 64-column sub-tiles); dS^T: A of dQ (MN-major, 16
+  // rows = 2 KB a k-step)
+  const uint64_t k_desc = make_desc(sm, 16, 8 * SW, SW);
+  const uint64_t v_desc = make_desc(sm + L.v_off + wg * SUB * 8192, 16, 1024, 128);
+  const uint64_t ds_desc = make_desc(ds_s, 16, 1024, 128);
+  const int krow = warp * 16 + g;  // this thread's keys: krow, krow + 8
+  const bool key_lo_ok = k0 + krow < M, key_hi_ok = k0 + krow + 8 < M;
 
-  float dv_acc[kDVS / 8][4];
+  float dv_acc[DVS / 2], dk_acc[DKP / 2];
 #pragma unroll
-  for (int j = 0; j < kDVS / 8; ++j) dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
-  float dk_acc[DKP / 8][4];
+  for (int i = 0; i < DVS / 2; ++i) dv_acc[i] = 0.f;
 #pragma unroll
-  for (int j = 0; j < DKP / 8; ++j) dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
+  for (int i = 0; i < DKP / 2; ++i) dk_acc[i] = 0.f;
 
-  const int n_qt = (N + kBwdBQ - 1) / kBwdBQ;
+  mbar_wait(bars, 0);
   for (int it = 0; it < n_qt; ++it) {
-    const int qt0 = it * kBwdBQ;
-    const int st = stages == 2 ? (it & 1) : 0;
-    if (stages == 2 && it + 1 < n_qt) {
-      load_q_tile(qt0 + kBwdBQ, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* qt = qs + st * kBwdBQ * L.k_stride;
-    const __nv_bfloat16* dt = dos + st * kBwdBQ * L.w_stride;
-    const float* l2 = lse2s + st * kBwdBQ;
-    const float* dd = dsums + st * kBwdBQ;
+    const int st = it % stages;
+    mbar_wait(bars + 1 + st, (it / stages) & 1);
+    const uint8_t* q_s = sm + L.q_off + st * L.q_stage;
+    const uint8_t* do_s = sm + L.do_off + st * L.do_stage + wg * SUB * 8192;
+    const float* l2 = reinterpret_cast<const float*>(sm + L.stat_off + st * kStatBytes);
+    const float* dd = l2 + kBwdBQ;
+    const uint64_t q_desc = make_desc(q_s, 16, 8 * SW, SW);
+    const uint64_t do_kdesc = make_desc(do_s, 16, 1024, 128);
+    const uint64_t do_mndesc = make_desc(do_s, 8192, 1024, 128);
 
-    // S^T = K.Q^T: 16 keys x 64 q rows per warp
-    float p[kBwdBQ / 8][4];
+    // S^T = K.Q^T and (this warpgroup's part of) dP^T = V.dO^T, issued together
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBwdBQ / 8; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+    for (int ks = 0; ks < DKP / 16; ++ks)
+      wgmma_ss<64, 0, 0>(s, desc_advance(k_desc, 32 * ks), desc_advance(q_desc, 32 * ks), ks > 0);
+    wgmma_commit();
 #pragma unroll
-    for (int ss = 0; ss < KSTEPS; ++ss) {
-#pragma unroll
-      for (int np = 0; np < kBwdBQ / 16; ++np) {
-        uint32_t bq[4];
-        ldmatrix_x4(bq, qt + (np * 16 + r8 + (mi >> 1) * 8) * L.k_stride + ss * 16 + (mi & 1) * 8);
-        mma_bf16(p[2 * np], ka[ss], bq[0], bq[1]);
-        mma_bf16(p[2 * np + 1], ka[ss], bq[2], bq[3]);
-      }
+    for (int kk = 0; kk < DVS / 16; ++kk) {
+      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+      wgmma_ss<64, 0, 0>(dp, desc_advance(v_desc, off), desc_advance(do_kdesc, off), kk > 0);
     }
-    // P^T = exp2(S^T*c - lse*log2e); keys past M get none
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    // P^T = exp2(S^T*c - lse*log2e) while dP^T is in flight; keys past M get none
 #pragma unroll
-    for (int j = 0; j < kBwdBQ / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       const int col = j * 8 + 2 * t;
       const float l0 = l2[col], l1 = l2[col + 1];
-      p[j][0] = key_lo_ok ? fast_exp2(fmaf(p[j][0], c, -l0)) : 0.f;
-      p[j][1] = key_lo_ok ? fast_exp2(fmaf(p[j][1], c, -l1)) : 0.f;
-      p[j][2] = key_hi_ok ? fast_exp2(fmaf(p[j][2], c, -l0)) : 0.f;
-      p[j][3] = key_hi_ok ? fast_exp2(fmaf(p[j][3], c, -l1)) : 0.f;
+      s[4 * j] = key_lo_ok ? fast_exp2(fmaf(s[4 * j], c, -l0)) : 0.f;
+      s[4 * j + 1] = key_lo_ok ? fast_exp2(fmaf(s[4 * j + 1], c, -l1)) : 0.f;
+      s[4 * j + 2] = key_hi_ok ? fast_exp2(fmaf(s[4 * j + 2], c, -l0)) : 0.f;
+      s[4 * j + 3] = key_hi_ok ? fast_exp2(fmaf(s[4 * j + 3], c, -l1)) : 0.f;
     }
-
-    // dv slice += P^T.dO: the slice's columns are the tile's first kDVS
+    wgmma_wait<0>();
+    fence_regs(dp);
+    if (WGS == 2) {  // dP^T = the sum of both warpgroups' parts, in the lead one
+      if (!lead) {
 #pragma unroll
-    for (int kk = 0; kk < kBwdBQ / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+        for (int i = 0; i < 32; ++i) xp[i * kBwdThreads + tid] = dp[i];
+      }
+      __syncthreads();
+      if (lead) {
 #pragma unroll
-      for (int dp = 0; dp < kDVS / 16; ++dp) {
-        uint32_t bd[4];
-        ldmatrix_x4_trans(bd, dt + (kk * 16 + r8 + (mi & 1) * 8) * L.w_stride + dp * 16 + (mi >> 1) * 8);
-        mma_bf16(dv_acc[2 * dp], pa, bd[0], bd[1]);
-        mma_bf16(dv_acc[2 * dp + 1], pa, bd[2], bd[3]);
+        for (int i = 0; i < 32; ++i) dp[i] += xp[i * kBwdThreads + tid];
       }
     }
-
     if (lead) {
-      // dP^T = V.dO^T over every column of dv (zero-padded to W)
-      float ds[kBwdBQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBwdBQ / 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
-      for (int kk = 0; kk < W / 16; ++kk) {
-        uint32_t va[4];
-        ldmatrix_x4(va, vs + (krow + r8 + (mi & 1) * 8) * L.w_stride + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int np = 0; np < kBwdBQ / 16; ++np) {
-          uint32_t bd[4];
-          ldmatrix_x4(bd, dt + (np * 16 + r8 + (mi >> 1) * 8) * L.w_stride + kk * 16 + (mi & 1) * 8);
-          mma_bf16(ds[2 * np], va, bd[0], bd[1]);
-          mma_bf16(ds[2 * np + 1], va, bd[2], bd[3]);
-        }
-      }
       // dS^T = P^T (dP^T - D)
 #pragma unroll
-      for (int j = 0; j < kBwdBQ / 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
         const int col = j * 8 + 2 * t;
         const float d0 = dd[col], d1 = dd[col + 1];
-        ds[j][0] = p[j][0] * (ds[j][0] - d0);
-        ds[j][1] = p[j][1] * (ds[j][1] - d1);
-        ds[j][2] = p[j][2] * (ds[j][2] - d0);
-        ds[j][3] = p[j][3] * (ds[j][3] - d1);
+        dp[4 * j] = s[4 * j] * (dp[4 * j] - d0);
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d1);
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d0);
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d1);
       }
-      // dk += dS^T.Q; dS^T to shared memory (bf16) for dq
-#pragma unroll
-      for (int kk = 0; kk < kBwdBQ / 16; ++kk) {
-        uint32_t da[4];
-        da[0] = pack_bf16(ds[2 * kk][0], ds[2 * kk][1]);
-        da[1] = pack_bf16(ds[2 * kk][2], ds[2 * kk][3]);
-        da[2] = pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-        da[3] = pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-        __nv_bfloat16* row_lo = dsT + (krow + g) * L.ds_stride + kk * 16 + 2 * t;
-        __nv_bfloat16* row_hi = row_lo + 8 * L.ds_stride;
-        *reinterpret_cast<uint32_t*>(row_lo) = da[0];
-        *reinterpret_cast<uint32_t*>(row_hi) = da[1];
-        *reinterpret_cast<uint32_t*>(row_lo + 8) = da[2];
-        *reinterpret_cast<uint32_t*>(row_hi + 8) = da[3];
-#pragma unroll
-        for (int np = 0; np < DKP / 16; ++np) {
-          uint32_t bq[4];
-          ldmatrix_x4_trans(bq, qt + (kk * 16 + r8 + (mi & 1) * 8) * L.k_stride + np * 16 + (mi >> 1) * 8);
-          mma_bf16(dk_acc[2 * np], da, bq[0], bq[1]);
-          mma_bf16(dk_acc[2 * np + 1], da, bq[2], bq[3]);
-        }
-      }
-      __syncthreads();  // dS^T of all four warps is in shared memory
+    }
+    uint32_t pa[4][4], da[4][4];
+    acc_to_a(s, pa);
+    if (lead) acc_to_a(dp, da);
 
-      // dq rows qt0 + 16*warp .. + 16: dS.K over the tile's 64 keys
-      float dqa[DKP / 8][4];
+    // dV += P^T.dO and, with one warpgroup, dK += dS^T.Q from registers (dO
+    // and Q MN-major, 16 q rows a k-step)
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < DKP / 8; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DVS, 1>(dv_acc, pa[kk], desc_advance(do_mndesc, 2048 * kk), 1);
+    if (WGS == 1) {
 #pragma unroll
-      for (int kk = 0; kk < kBwdBK / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, dsT + (kk * 16 + r8 + (mi >> 1) * 8) * L.ds_stride + warp * 16 + (mi & 1) * 8);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DKP, 1>(dk_acc, da[kk], desc_advance(q_desc, 16 * SW * kk), 1);
+    }
+    wgmma_commit();
+
+    if (lead) {
+      // dS^T (keys x 64 q, bf16) to shared memory in the 128-byte swizzle:
+      // the 16-byte chunk j of row r sits at chunk j ^ (r % 8)
 #pragma unroll
-        for (int np = 0; np < DKP / 16; ++np) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, ks + (kk * 16 + r8 + (mi & 1) * 8) * L.k_stride + np * 16 + (mi >> 1) * 8);
-          mma_bf16(dqa[2 * np], a, bk[0], bk[1]);
-          mma_bf16(dqa[2 * np + 1], a, bk[2], bk[3]);
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * kk + h;
+          const int r0 = krow, r1 = krow + 8;
+          *reinterpret_cast<uint32_t*>(ds_s + r0 * 128 + ((j ^ (r0 & 7)) << 4) + 4 * t) =
+              da[kk][2 * h];
+          *reinterpret_cast<uint32_t*>(ds_s + r1 * 128 + ((j ^ (r1 & 7)) << 4) + 4 * t) =
+              da[kk][2 * h + 1];
         }
       }
-      const int r_lo = qt0 + warp * 16 + g, r_hi = r_lo + 8;
-      float* dqb = dq + b * N * dk;
+      fence_proxy_async();
+    }
+    __syncthreads();  // dS^T of every warp is in shared memory
+
+    float dqa[DKP / 2];
+    if (lead) {  // dQ = dS.K over the block's 64 keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DKP, 1, 1>(dqa, desc_advance(ds_desc, 2048 * kk),
+                            desc_advance(k_desc, 16 * SW * kk), kk > 0);
+      wgmma_commit();
+    } else if (WGS == 2) {  // dK += dS^T.Q, dS^T read K-major from shared memory
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DKP, 0, 1>(dk_acc, desc_advance(ds_desc, 32 * kk),
+                            desc_advance(q_desc, 16 * SW * kk), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(da);
+
+    // the 64 x dk fp32 tile of dq (scaled) to shared memory, then one bulk add
+    float* dq_s = reinterpret_cast<float*>(sm + L.dq_off + (it & 1) * L.dq_buf);
+    if (lead) {
+      const int qr = warp * 16 + g;
 #pragma unroll
       for (int j = 0; j < DKP / 8; ++j) {
         const int col = j * 8 + 2 * t;
         if (col < dk) {
-          if (r_lo < N) {
-            atomicAdd(dqb + size_t(r_lo) * dk + col, dqa[j][0] * scale);
-            atomicAdd(dqb + size_t(r_lo) * dk + col + 1, dqa[j][1] * scale);
-          }
-          if (r_hi < N) {
-            atomicAdd(dqb + size_t(r_hi) * dk + col, dqa[j][2] * scale);
-            atomicAdd(dqb + size_t(r_hi) * dk + col + 1, dqa[j][3] * scale);
-          }
+          *reinterpret_cast<float2*>(dq_s + qr * dk + col) =
+              make_float2(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+          *reinterpret_cast<float2*>(dq_s + (qr + 8) * dk + col) =
+              make_float2(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
         }
       }
+      fence_proxy_async();
     }
-    __syncthreads();  // this stage (and dS^T) is consumed
-    if (stages == 1 && it + 1 < n_qt) {
-      load_q_tile(qt0 + kBwdBQ, 0);
-      cp_async_commit();
+    __syncthreads();  // the dq tile is written; stage `st`, dS^T and the exchange are consumed
+    if (threadIdx.x == 0) {
+      const int rows = min(kBwdBQ, N - it * kBwdBQ);
+      bulk_reduce_add_f32(dq + (size_t(b) * N + size_t(it) * kBwdBQ) * dk, dq_s,
+                          uint32_t(rows * dk * 4));
+      bulk_commit();
+      bulk_wait_read<1>();  // the other dq buffer is free for the next tile
+      if (it + stages < n_qt) issue(it + stages, st);
     }
   }
+  if (threadIdx.x == 0) bulk_wait_all();
 
-  const int key_lo = k0 + krow + g, key_hi = key_lo + 8;
-  if (lead) {
-    __nv_bfloat16* dkb = dk_out + b * M * dk;
+  const int key_lo = k0 + krow, key_hi = key_lo + 8;
+  if (dk_owner) {
+    __nv_bfloat16* dkb = dk_out + size_t(b) * M * dk;
 #pragma unroll
     for (int j = 0; j < DKP / 8; ++j) {
       const int col = j * 8 + 2 * t;
       if (col < dk) {
         if (key_lo < M)
           *reinterpret_cast<uint32_t*>(dkb + size_t(key_lo) * dk + col) =
-              pack_bf16(dk_acc[j][0] * scale, dk_acc[j][1] * scale);
+              pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
         if (key_hi < M)
           *reinterpret_cast<uint32_t*>(dkb + size_t(key_hi) * dk + col) =
-              pack_bf16(dk_acc[j][2] * scale, dk_acc[j][3] * scale);
+              pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
       }
     }
   }
-  __nv_bfloat16* dvb = dv_out + b * M * dv;
+  __nv_bfloat16* dvb = dv_out + size_t(b) * M * dv;
 #pragma unroll
-  for (int j = 0; j < kDVS / 8; ++j) {
-    const int col = col0 + j * 8 + 2 * t;
+  for (int j = 0; j < DVS / 8; ++j) {
+    const int col = wg * DVS + j * 8 + 2 * t;
     if (col < dv) {
       if (key_lo < M)
         *reinterpret_cast<uint32_t*>(dvb + size_t(key_lo) * dv + col) =
-            pack_bf16(dv_acc[j][0], dv_acc[j][1]);
+            pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
       if (key_hi < M)
         *reinterpret_cast<uint32_t*>(dvb + size_t(key_hi) * dv + col) =
-            pack_bf16(dv_acc[j][2], dv_acc[j][3]);
+            pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
     }
   }
 }
 
-template <int DKP>
-cudaError_t launch_bwd_bf16(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
-                            const void* k, const void* v, const void* dout, const float* lse,
-                            const float* dsum, float* dq, void* dk_out, void* dv_out, int N,
-                            int M, int dk, int dv, int n_slices, int W, int stages, float c,
-                            float scale) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16_kernel<DKP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int DKP, int DVS, int WGS>
+cudaError_t launch_bwd_wgmma(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
+                             const void* k, const void* v, const void* dout, const float* stat,
+                             float* dq, void* dk_out, void* dv_out, int B, int N, int M, int dk,
+                             int dv, int stages, float c, float scale) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBwdBQ, DKP, 2 * DKP);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBwdBK, DKP, 2 * DKP);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, B, M, dv, kBwdBK, 64, 128);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tdo, dout, B, N, dv, kBwdBQ, 64, 128);
   if (err != cudaSuccess) return err;
-  flash_bwd_bf16_kernel<DKP><<<grid, kBwdThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, dsum,
-      dq, static_cast<__nv_bfloat16*>(dk_out), static_cast<__nv_bfloat16*>(dv_out), N, M, dk, dv,
-      n_slices, W, stages, c, scale);
+  err = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<DKP, DVS, WGS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_bwd_wgmma_kernel<DKP, DVS, WGS><<<grid, kBwdThreads * WGS, smem, stream>>>(
+      tq, tk, tv, tdo, stat, dq, static_cast<__nv_bfloat16*>(dk_out),
+      static_cast<__nv_bfloat16*>(dv_out), N, M, dk, dv, stages, c, scale);
   return cudaGetLastError();
+}
+
+// one warpgroup for dv <= 256 (DVS 64..256), two above (DVS 192 or 256 each)
+template <int DKP>
+cudaError_t launch_bwd_wgmma_dvs(int dvs, int wgs, dim3 grid, size_t smem, cudaStream_t stream,
+                                 const void* q, const void* k, const void* v, const void* dout,
+                                 const float* stat, float* dq, void* dk_out, void* dv_out, int B,
+                                 int N, int M, int dk, int dv, int stages, float c, float scale) {
+  switch (wgs * 1000 + dvs) {
+    case 1064: return launch_bwd_wgmma<DKP, 64, 1>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale);
+    case 1128: return launch_bwd_wgmma<DKP, 128, 1>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale);
+    case 1192: return launch_bwd_wgmma<DKP, 192, 1>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale);
+    case 1256: return launch_bwd_wgmma<DKP, 256, 1>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale);
+    case 2192: return launch_bwd_wgmma<DKP, 192, 2>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale);
+    case 2256: return launch_bwd_wgmma<DKP, 256, 2>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // fp32 backward on the CUDA cores
@@ -980,84 +1035,104 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 extern "C" {
 
-// Launches on `stream` of `device`; returns cudaGetLastError() (0 on
-// success). The caller checks shapes: dk % 8 == 0, dk <= 64, dv % 8 == 0,
-// 16-byte aligned contiguous tensors, B <= 65535.
+// Kernel B2. The plan (ops/cuda/flash_attention.py) picks the variant (0:
+// fp32 CUDA cores, 1: bf16 wgmma), dkp, dvs, the block, stages, the shared
+// memory bytes and grid.x; they are checked here against the kernel's own layout
+// and a mismatch returns cudaErrorInvalidValue. Launches on `stream` of
+// `device`; returns cudaGetLastError() (0 on success). The caller checks
+// shapes: dk % 8 == 0, dk <= 64, dv % 8 == 0, 16-byte aligned contiguous
+// tensors, B <= 65535.
 int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int B, int N, int M, int dk, int dv, float scale, int is_bf16,
-                               int device, void* stream) {
+                               int B, int N, int M, int dk, int dv, float scale, int variant,
+                               int dkp, int dvs, int block, int stages, long long smem,
+                               int grid_x, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dk <= 0 || dk > kMaxDk || dk % 8 || dv % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_slices = (dv + kDVS - 1) / kDVS;
-  const dim3 grid(((N + kBQ - 1) / kBQ) * n_slices, B);
   const float c = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (!is_bf16) {
+  const int q_tiles = (N + kBQ - 1) / kBQ;
+  if (variant == 0) {
+    const int n_slices = (dv + kDVS - 1) / kDVS;
+    if (block != kThreadsF32 || size_t(smem) != F32Smem::bytes || grid_x != q_tiles * n_slices)
+      return static_cast<int>(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(F32Smem::bytes));
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_f32_kernel<<<grid, kThreadsF32, F32Smem::bytes, st>>>(
+    flash_fwd_f32_kernel<<<dim3(grid_x, B), kThreadsF32, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), l, N, M, dk, dv, n_slices, c);
     return static_cast<int>(cudaGetLastError());
   }
-  switch ((dk + 15) / 16) {
-    case 1: err = launch_bf16<16>(grid, st, q, k, v, o, l, N, M, dk, dv, n_slices, c); break;
-    case 2: err = launch_bf16<32>(grid, st, q, k, v, o, l, N, M, dk, dv, n_slices, c); break;
-    case 3: err = launch_bf16<48>(grid, st, q, k, v, o, l, N, M, dk, dv, n_slices, c); break;
-    default: err = launch_bf16<64>(grid, st, q, k, v, o, l, N, M, dk, dv, n_slices, c); break;
+  const int n_slices = (dv + 255) / 256;
+  if (variant != 1 || block != 128 || dkp < dk || dvs * n_slices < dv || dvs % 64 || dvs > 256 ||
+      stages < 1 ||
+      size_t(smem) != fwd_layout(dkp, dvs, stages).bytes || grid_x != q_tiles * n_slices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, B);
+  switch (dkp) {
+    case 16: err = launch_fwd_wgmma_dvs<16>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+    case 32: err = launch_fwd_wgmma_dvs<32>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+    case 64: err = launch_fwd_wgmma_dvs<64>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
 // Kernel B3. dq is a zeroed fp32 [B, N, dk] buffer the kernel adds into;
-// dk and dv are written in the input dtype; lse and dsum are fp32 [B, N].
-// The caller checks shapes: dk % 8 == 0, dk <= 64, dv % 8 == 0,
-// dv <= 512, 16-byte aligned contiguous tensors, B <= 65535.
+// dk and dv are written in the input dtype; lse is fp32 [B, N]. Variant 0
+// (fp32) reads D from dsum [B, N]; variant 2 (bf16 wgmma, one warpgroup a
+// block for dv <= 256, two above) first runs flash_bwd_prep_kernel from o,
+// dout and lse into `stat` [B, q_tiles, 2, 64] fp32. The plan's dkp, dvs
+// (the dv columns of one warpgroup), block, stages, smem and grid_x are
+// checked as in the forward. The caller checks shapes: dk % 8 == 0, dk <=
+// 64, dv % 8 == 0, dv <= 512, 16-byte aligned contiguous tensors, B <=
+// 65535.
 int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* dsum, void* dq, void* dk_out,
-                               void* dv_out, int B, int N, int M, int dk, int dv, float scale,
-                               int is_bf16, int device, void* stream) {
+                               const void* o, const void* lse, const void* dsum, void* stat,
+                               void* dq, void* dk_out, void* dv_out, int B, int N, int M, int dk,
+                               int dv, float scale, int variant, int dkp, int dvs, int block,
+                               int stages, long long smem, int grid_x, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dk <= 0 || dk > kMaxDk || dk % 8 || dv <= 0 || dv % 8 || dv > kBwdMaxDv)
     return static_cast<int>(cudaErrorInvalidValue);
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const float c = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* ds = static_cast<const float*>(dsum);
   float* dqf = static_cast<float*>(dq);
-  if (!is_bf16) {
-    const size_t smem = bwd_f32_bytes(dv);
-    if (smem > size_t(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, B);
+  if (variant == 0) {
+    if (block != kThreadsF32 || size_t(smem) != bwd_f32_bytes(dv) ||
+        grid_x != (M + kBwdF32BK - 1) / kBwdF32BK)
+      return static_cast<int>(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((M + kBwdF32BK - 1) / kBwdF32BK, B);
     flash_bwd_f32_kernel<<<grid, kThreadsF32, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), l, ds, dqf, static_cast<float*>(dk_out),
-        static_cast<float*>(dv_out), N, M, dk, dv, c, scale);
+        static_cast<const float*>(dout), l, static_cast<const float*>(dsum), dqf,
+        static_cast<float*>(dk_out), static_cast<float*>(dv_out), N, M, dk, dv, c, scale);
     return static_cast<int>(cudaGetLastError());
   }
-  const int dkp = (dk + 15) / 16 * 16;
-  const int W = (dv + 15) / 16 * 16 > kDVS ? (dv + 15) / 16 * 16 : kDVS;
-  int stages = 2;
-  if (bwd_layout(dkp, W, 2).bytes > size_t(max_smem)) stages = 1;
-  const size_t smem = bwd_layout(dkp, W, stages).bytes;
-  if (smem > size_t(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_slices = (dv + kDVS - 1) / kDVS;
-  const dim3 grid(((M + kBwdBK - 1) / kBwdBK) * n_slices, B);
-  switch (dkp / 16) {
-    case 1: err = launch_bwd_bf16<16>(grid, smem, st, q, k, v, dout, l, ds, dqf, dk_out, dv_out, N, M, dk, dv, n_slices, W, stages, c, scale); break;
-    case 2: err = launch_bwd_bf16<32>(grid, smem, st, q, k, v, dout, l, ds, dqf, dk_out, dv_out, N, M, dk, dv, n_slices, W, stages, c, scale); break;
-    case 3: err = launch_bwd_bf16<48>(grid, smem, st, q, k, v, dout, l, ds, dqf, dk_out, dv_out, N, M, dk, dv, n_slices, W, stages, c, scale); break;
-    default: err = launch_bwd_bf16<64>(grid, smem, st, q, k, v, dout, l, ds, dqf, dk_out, dv_out, N, M, dk, dv, n_slices, W, stages, c, scale); break;
+  const int q_tiles = (N + kBwdBQ - 1) / kBwdBQ;
+  const int wgs = block / kBwdThreads;
+  if (variant != 2 || (wgs != 1 && wgs != 2) || block % kBwdThreads || dkp < dk ||
+      dvs * wgs < dv || (wgs == 2 && dv <= 256) || dvs % 64 || dvs > 256 || stages < 1 ||
+      size_t(smem) != bwd_wg_layout(dkp, dvs * wgs, dk, stages, wgs).bytes ||
+      grid_x != (M + kBwdBK - 1) / kBwdBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* stf = static_cast<float*>(stat);
+  flash_bwd_prep_kernel<<<dim3(q_tiles, B), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), l, stf, N, dv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (dkp) {
+    case 16: err = launch_bwd_wgmma_dvs<16>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
+    case 32: err = launch_bwd_wgmma_dvs<32>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
+    case 64: err = launch_bwd_wgmma_dvs<64>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/cuda/lib<name>-<hash>.so` at the root of the checkout (a
-directory `.gitignore` lists). The hash covers the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded. Nothing is
+directory `.gitignore` lists). The hash covers the source, every header in
+`csrc/` (`*.cuh`, `*.h`: a source may include any of them) and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded. Nothing is
 built when a module is imported: the first wrapper call on a CUDA tensor
 builds, or `build()` builds several sources at once, one nvcc each, all
 started together.
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

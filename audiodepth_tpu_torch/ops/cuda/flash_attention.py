@@ -15,12 +15,24 @@ CUDA tensor, and the two plain versions on a CPU tensor. On a CUDA tensor a
 wrapper launches its kernel or raises; nothing falls back. The JAX package
 sent N, M ≤ 256 to XLA because of the TPU's per-grid-step overhead, which
 has no counterpart here, so the kernels take every shape.
+
+Which kernel design runs, with which tiles, is decided by shape alone in
+`fwd_plan` / `bwd_plan` (pure Python, tested on the CPU); the wrappers
+launch what the plan says and the C entry points check it against the
+kernels' own layouts:
+  B2 bf16: "wgmma" (wgmma + TMA, one warpgroup per 64 q rows and a dv slice
+           of ≤ 256 columns); B2 f32: "f32" (CUDA cores).
+  B3 bf16: "wgmma" (one warpgroup per 64 keys and all of dv ≤ 256, two
+           warpgroups sharing dv above; dq by bulk reduce-add); B3 f32:
+           "f32".
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -32,7 +44,99 @@ SOURCE = "audiodepth_tpu_torch/csrc/flash_attention.cu"
 REPLACES = "audiodepth_tpu/ops/pallas/flash_attention.py:103"
 REPLACES_BWD = "audiodepth_tpu/ops/pallas/flash_attention.py:148"
 MAX_HEAD_DK = 64   # the kernels' largest q/k width (the binaural levels use 16..64)
-MAX_HEAD_DV = 512  # B3's largest value width (its V and dO tiles fill shared memory)
+MAX_HEAD_DV = 512  # B3's largest value width (two warpgroups' registers hold its dv)
+
+# shared memory of an H100 SM and the most one block may take (opt-in), and
+# what the runtime keeps of it for each resident block
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED_PER_BLOCK = 1024
+TILE = 64  # q rows and keys a tile, the wgmma's M
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one kernel call runs: the design (`variant`, with `code` its
+    number in the C entry point), q/k width padded to `dkp`, the dv tile
+    width `dvs` of one warpgroup (wgmma: ≤ 256, a multiple of 64; B2's
+    `n_slices` blocks, B3's `block // 128` warpgroups cover dv), the ring's
+    `stages`, the dynamic shared memory in bytes, the grid and the block."""
+
+    variant: str
+    code: int
+    dkp: int
+    dvs: int
+    n_slices: int
+    stages: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    block: int
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Resident blocks an SM's shared memory allows."""
+        return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED_PER_BLOCK)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _wgmma_dkp(dk: int) -> int:
+    """q/k rows are one swizzle span of 32, 64 or 128 bytes."""
+    return 16 if dk <= 16 else 32 if dk <= 32 else 64
+
+
+def _fwd_wgmma_bytes(dkp: int, dvs: int, stages: int) -> int:
+    # Q tile, `stages` K and V tiles, 1 + stages mbarriers, 1 KB of alignment
+    # slack (csrc/flash_attention.cu: fwd_layout)
+    bar = TILE * dkp * 2 + stages * TILE * (dkp + dvs) * 2
+    return bar + 8 * (1 + stages) + 1024
+
+
+def _bwd_wgmma_bytes(dkp: int, dvt: int, dk: int, stages: int, wgs: int) -> int:
+    # K, V (dvt columns), `stages` Q and dO tiles, dSᵀ, two fp32 dq tiles,
+    # with two warpgroups the fp32 dPᵀ exchange, `stages` lse/D tiles, 1 +
+    # stages mbarriers, alignment slack (bwd_wg_layout)
+    bar = (TILE * (dkp + dvt) * 2 + stages * TILE * (dkp + dvt) * 2 + TILE * TILE * 2
+           + 2 * TILE * dk * 4 + (TILE * TILE * 4 if wgs == 2 else 0) + stages * 2 * TILE * 4)
+    return bar + 8 * (1 + stages) + 1024
+
+
+def _most_stages(bytes_of, options) -> int:
+    """The most stages that leave two blocks an SM, else the fewest."""
+    for stages in options:
+        if 2 * (bytes_of(stages) + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM:
+            return stages
+    return options[-1]
+
+
+def fwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Plan:
+    """B2's design and tiles for q [b, n, dk], k [b, m, dk], v [b, m, dv]."""
+    q_tiles = _cdiv(n, TILE)
+    if dtype == torch.float32:
+        n_slices = _cdiv(dv, 128)
+        smem = (3 * TILE * 65 + TILE * 128) * 4  # F32Smem
+        return Plan("f32", 0, dk, 128, n_slices, 1, smem, (q_tiles * n_slices, b, 1), 256)
+    dkp = _wgmma_dkp(dk)
+    n_slices = _cdiv(dv, 256)
+    dvs = TILE * _cdiv(_cdiv(dv, n_slices), TILE)
+    stages = _most_stages(lambda s: _fwd_wgmma_bytes(dkp, dvs, s), (3, 2))
+    return Plan("wgmma", 1, dkp, dvs, n_slices, stages, _fwd_wgmma_bytes(dkp, dvs, stages),
+                (q_tiles * n_slices, b, 1), 128)
+
+
+def bwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Plan:
+    """B3's design and tiles for the same shapes (dv ≤ MAX_HEAD_DV)."""
+    if dtype == torch.float32:
+        smem = 4 * (2 * 32 * 65 + 2 * 32 * (dv + 1) + 2 * 32 * 33 + 2 * 32)  # bwd_f32_bytes
+        return Plan("f32", 0, dk, dv, 1, 1, smem, (_cdiv(m, 32), b, 1), 256)
+    dkp = _wgmma_dkp(dk)
+    wgs = 1 if dv <= 256 else 2  # one warpgroup's registers hold 256 fp32 columns of dv
+    dvs = TILE * _cdiv(_cdiv(dv, wgs), TILE)
+    stages = _most_stages(lambda s: _bwd_wgmma_bytes(dkp, dvs * wgs, dk, s, wgs), (2, 1))
+    return Plan("wgmma", 2, dkp, dvs, 1, stages, _bwd_wgmma_bytes(dkp, dvs * wgs, dk, stages, wgs),
+                (_cdiv(m, TILE), b, 1), 128 * wgs)
 
 
 def flash_cross_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,18 +219,25 @@ def _check_kernel_inputs(tensors, dk: int, dv: int, max_dv: Optional[int] = None
         raise ValueError(f"the kernel's grid takes at most 65535 batch rows, got {q.shape[0]}")
 
 
+def _plan_args(plan: Plan):
+    return plan.code, plan.dkp, plan.dvs, plan.block, plan.stages, plan.smem_bytes, plan.grid[0]
+
+
 def _device_args(dev: torch.device):
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(dev).cuda_stream
 
 
 class FlashCrossAttention:
-    """Callable wrapper of kernel B2; `launches` counts kernel launches."""
+    """Callable wrapper of kernel B2; `launches` counts kernel launches and
+    `variant_launches` the same launches by the plan's variant."""
 
     name = "flash_cross_attention_fwd"
 
-    def __init__(self):
+    def __init__(self, library=None):
         self.launches = 0
+        self.variant_launches = Counter()
+        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,32 +246,39 @@ class FlashCrossAttention:
             return flash_cross_attention_fwd_plain(q, k, v, scale)
         _check_kernel_inputs((q, k, v), dk, dv)
 
-        lib = _library()
+        plan = fwd_plan(b, n, m, dk, dv, q.dtype)
+        lib = self._library()
         o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
         err = lib.adepth_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, n, m, dk, dv, float(scale), int(q.dtype == torch.bfloat16),
-            *_device_args(q.device))
+            b, n, m, dk, dv, float(scale), *_plan_args(plan), *_device_args(q.device))
         if err != 0:
             raise RuntimeError("flash_cross_attention launch failed: "
                                + lib.adepth_cuda_error_string(err).decode())
         self.launches += 1
+        self.variant_launches[plan.variant] += 1
         return o, lse
 
 
 class FlashCrossAttentionBwd:
     """Callable wrapper of kernel B3: (q, k, v, o, lse, do, scale) →
-    (dq, dk, dv); `launches` counts kernel launches.
+    (dq, dk, dv); `launches` counts kernel launches (one a call) and
+    `variant_launches` the same by the plan's variant.
 
-    D = rowsum(do⊙o) is computed here in fp32 with plain tensor ops, as the
-    JAX package computes it outside its kernel; dq accumulates in a zeroed
-    fp32 buffer that is cast to q's dtype afterwards."""
+    D = rowsum(do⊙o) in fp32: in bf16 a small kernel of B3
+    (`flash_bwd_prep_kernel`, launched by the same C call) writes it with
+    lse·log2e into a padded [B, q_tiles, 2, 64] buffer; in f32 it is
+    computed here with plain tensor ops, as the JAX package computes it
+    outside its kernel. dq accumulates in a zeroed fp32 buffer that is cast
+    to q's dtype afterwards."""
 
     name = "flash_cross_attention_bwd"
 
-    def __init__(self):
+    def __init__(self, library=None):
         self.launches = 0
+        self.variant_launches = Counter()
+        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                  lse: torch.Tensor, do: torch.Tensor, scale: float
@@ -178,23 +296,31 @@ class FlashCrossAttentionBwd:
             return flash_cross_attention_bwd_plain(q, k, v, o, lse, do, scale)
         if lse.dtype != torch.float32:
             raise TypeError(f"lse must be float32, got {lse.dtype}")
-        do = do.contiguous()
-        _check_kernel_inputs((q, k, v, do, lse), dk, dv, max_dv=MAX_HEAD_DV)
+        do, o = do.contiguous(), o.contiguous()
+        _check_kernel_inputs((q, k, v, do, o, lse), dk, dv, max_dv=MAX_HEAD_DV)
 
-        lib = _library()
-        dsum = (do.float() * o.float()).sum(-1)
+        plan = bwd_plan(b, n, m, dk, dv, q.dtype)
+        lib = self._library()
+        if plan.variant == "wgmma":
+            dsum = None
+            stat = torch.empty((b, _cdiv(n, TILE), 2, TILE), dtype=torch.float32, device=q.device)
+        else:
+            dsum = (do.float() * o.float()).sum(-1)
+            stat = None
         dq = torch.zeros((b, n, dk), dtype=torch.float32, device=q.device)
         dk_out = torch.empty_like(k)
         dv_out = torch.empty_like(v)
         err = lib.adepth_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), dq.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(),
-            b, n, m, dk, dv, float(scale), int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), None if dsum is None else dsum.data_ptr(),
+            None if stat is None else stat.data_ptr(), dq.data_ptr(), dk_out.data_ptr(),
+            dv_out.data_ptr(), b, n, m, dk, dv, float(scale), *_plan_args(plan),
             *_device_args(q.device))
         if err != 0:
             raise RuntimeError("flash_cross_attention backward launch failed: "
                                + lib.adepth_cuda_error_string(err).decode())
         self.launches += 1
+        self.variant_launches[plan.variant] += 1
         return dq.to(q.dtype), dk_out, dv_out
 
 
@@ -202,13 +328,18 @@ class FlashCrossAttentionBwd:
 def _library() -> ctypes.CDLL:
     from ._build import load
 
-    lib = load("flash_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.adepth_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                               ctypes.c_float, i, i, p]
+    return bind(load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from
+    `csrc/flash_attention.cu` on it."""
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    plan = [i, i, i, i, i, ll, i]  # _plan_args
+    lib.adepth_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, *plan, i, p]
     lib.adepth_flash_attention_fwd.restype = i
-    lib.adepth_flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                               ctypes.c_float, i, i, p]
+    lib.adepth_flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                               f, *plan, i, p]
     lib.adepth_flash_attention_bwd.restype = i
     lib.adepth_cuda_error_string.argtypes = [i]
     lib.adepth_cuda_error_string.restype = ctypes.c_char_p

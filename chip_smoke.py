@@ -8,7 +8,10 @@ non-zero:
   env        torch / CUDA versions, the card's name, power limit, SMs and
              maximum SM clock;
   build      compile every CUDA kernel of the port from `csrc/` (nvcc, one
-             process per source, all started together);
+             process per source, all started together), its seconds,
+             ptxas's registers and spills per kernel, and the count of
+             HGMMA (wgmma) instructions per kernel in `cuobjdump -sass` of
+             the built libraries (B2 and B3 must have some);
   kernel     each kernel against its plain PyTorch version on the card at
              the shapes its path gives it, max |Δ| asserted, and its time,
              the plain version's time, the card's bound for the same work
@@ -16,7 +19,10 @@ non-zero:
              call's time: B1 (the mel front end), B2 (flash
              cross-attention forward) and B3 (its backward), each at the
              four binaural level shapes of a batch of 16, level 2 of a
-             batch of 1, a ragged shape and float32;
+             batch of 1, float32, and ragged shapes that reach every
+             branch of the plan (`fwd_plan` / `bwd_plan`: dk 8 and 40
+             padded, dv 136 and 320, N and M not multiples of 64, N = 1),
+             each row naming the plan it ran;
   autograd   `cross_attention` gradients through FlashCrossAttentionFn
              (B2 forward, B3 backward) against autograd of the blockwise
              plain path on the card, level 3 in bf16, level 2 in f32;
@@ -54,7 +60,8 @@ non-zero:
   profile    one bf16 train step at batch 16: host wall, device time, busy
              share, top items, B2's and B3's shares;
   kernels    one line listing every kernel with its numbers at its main
-             shape and its launches on each path.
+             shape, its launches on each path (by plan variant where the
+             plan has several) and its SASS HGMMA count.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero before printing
 any result.
@@ -93,6 +100,12 @@ B2_SHAPES = [
     ("level 2, batch 1", 2, 16384, 16384, 16, 128, "bfloat16"),
     ("level 3, float32", 2, 4096, 4096, 32, 256, "float32"),
     ("ragged", 4, 1000, 777, 32, 256, "bfloat16"),
+    # the plan's other branches: dk padded to 16 and 64, dv tiles of 64 and
+    # 192, two forward dv slices and two B3 warpgroups sharing dv, one q row
+    ("dk 8, ragged", 2, 300, 200, 8, 64, "bfloat16"),
+    ("dk 40, dv 136, ragged", 2, 333, 129, 40, 136, "bfloat16"),
+    ("dk 24, dv 320, ragged", 2, 200, 150, 24, 320, "bfloat16"),
+    ("N 1", 2, 1, 70, 16, 128, "bfloat16"),
 ]
 B2_MAIN = "level 2"
 # B3 vs its plain version, relative to the plain version's max |·| of each
@@ -149,6 +162,33 @@ def phase_env(torch):
     return smi, n_sm * max_sm_mhz * 1e6 * EX2_PER_CLOCK_PER_SM
 
 
+def kernel_name(text: str) -> str:
+    """`flash_bwd_wgmma_kernel<16,128>` from a line holding its mangled name
+    (the line itself where there is none)."""
+    m = re.search(r"((?:flash_fwd|flash_bwd|fused_mel)\w*?_kernel)(I(?:Li\d+E)+E)?", text)
+    if not m:
+        return text.strip()
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_hgmma(build, names) -> dict:
+    """{kernel: its count of HGMMA (wgmma) instructions} in `cuobjdump
+    -sass` of each built library."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    counts, name = {}, None
+    for lib in names:
+        out = subprocess.run([tool, "-sass", str(build.library_path(lib))], capture_output=True,
+                             text=True, timeout=300, check=True).stdout
+        for ln in out.splitlines():
+            if "Function :" in ln:
+                name = kernel_name(ln.split("Function :")[-1])
+                counts.setdefault(name, 0)
+            elif name and "HGMMA" in ln:
+                counts[name] += 1
+    return counts
+
+
 def ptxas_report(logs) -> dict:
     """{kernel (template argument in <>): ptxas's registers and spills}
     from nvcc's `-Xptxas -v` output."""
@@ -156,8 +196,7 @@ def ptxas_report(logs) -> dict:
     for log in logs.values():
         for ln in log.splitlines():
             if "entry function" in ln:
-                m = re.search(r"((?:flash_fwd|flash_bwd|fused_mel)\w*?_kernel)(?:ILi(\d+)EE)?", ln)
-                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "") if m else ln
+                name = kernel_name(ln)
             elif name and ("registers" in ln or "spill" in ln):
                 part = ln.split("Used ")[-1].strip() if "registers" in ln else ln.strip()
                 report[name] = f"{report[name]}; {part}" if name in report else part
@@ -166,12 +205,15 @@ def ptxas_report(logs) -> dict:
 
 def phase_build(build):
     # one library per source; B2 and B3 share csrc/flash_attention.cu
+    names = ["fused_frontend", "flash_attention"]
     t0 = time.perf_counter()
-    logs = build.build(["fused_frontend", "flash_attention"])
+    logs = build.build(names)
+    seconds = time.perf_counter() - t0
     report = ptxas_report(logs)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs), "ptxas": report})
-    return report
+    hgmma = sass_hgmma(build, names)
+    emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": report,
+          "sass_hgmma": hgmma})
+    return report, hgmma
 
 def phase_kernel(torch, np, ff, peak):
     """B1 against its plain version at the serving shapes (B·C = 2, 8, 32 at
@@ -208,6 +250,12 @@ def phase_kernel(torch, np, ff, peak):
         emit(row)
         rows.append(row)
     return rows
+
+
+def plan_dict(plan) -> dict:
+    return {"variant": plan.variant, "dkp": plan.dkp, "dvs": plan.dvs,
+            "n_slices": plan.n_slices, "stages": plan.stages, "smem_bytes": plan.smem_bytes,
+            "grid": list(plan.grid), "block": plan.block, "blocks_per_sm": plan.blocks_per_sm}
 
 
 def _sdpa_ms(torch, q, k, v, scale):
@@ -283,6 +331,7 @@ def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
         bound_by = max(terms, key=terms.get)
         row = {"phase": "kernel", "name": fa.flash_cross_attention.name, "shape": label,
                "B": b, "N": n, "M": m, "dk": dk, "dv": dv, "dtype": dtype,
+               "plan": plan_dict(fa.fwd_plan(b, n, m, dk, dv, dt)),
                "max_abs_err": err, "max_abs_v": vmax, "tol_abs": B2_TOL[dtype] * vmax,
                "lse_rel_err": lse_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": terms[bound_by] * 1e3,
@@ -362,6 +411,7 @@ def phase_kernel_b3(torch, fa, peak, ex2_rate):
         bound_by = max(terms, key=terms.get)
         row = {"phase": "kernel", "name": fa.flash_cross_attention_bwd.name, "shape": label,
                "B": b, "N": n, "M": m, "dk": dk, "dv": dv, "dtype": dtype,
+               "plan": plan_dict(fa.bwd_plan(b, n, m, dk, dv, dt)),
                "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
                "max_abs_plain": maxes, "tol_rel": B3_TOL[dtype],
                "ms": ms, "plain_ms": plain_ms, "bound_ms": terms[bound_by] * 1e3,
@@ -450,6 +500,21 @@ def measure_profile(torch, np, runner, share_of=None):
     return out
 
 
+def reset_launches(kernels) -> None:
+    """Every count to 0, just before a path is driven."""
+    for wrapper, _, _ in kernels:
+        wrapper.launches = 0
+        if hasattr(wrapper, "variant_launches"):
+            wrapper.variant_launches.clear()
+
+
+def read_launches(kernels):
+    """({kernel: launches}, {kernel: {plan variant: launches}}) since the reset."""
+    return ({w.name: w.launches for w, _, _ in kernels},
+            {w.name: dict(w.variant_launches) for w, _, _ in kernels
+             if hasattr(w, "variant_launches")})
+
+
 def _gammas(model):
     return [m.gamma for m in model.attention_modules.values()]
 
@@ -493,8 +558,7 @@ def phase_serve(torch, np, serve, kernels, path: str):
     gammas = set_gammas(torch, np, task.model) if path == "binaural_attention" else None
     n_params = sum(p.numel() for p in task.model.parameters())
     runner = serve.InferenceRunner(cfg, task, ladder=[1, 4, 16])
-    for wrapper, _, _ in kernels:
-        wrapper.launches = 0
+    reset_launches(kernels)
     torch.cuda.reset_peak_memory_stats()
     warm = runner.warmup()
     batcher = serve.MicroBatcher(runner, wait_ms=args.batch_wait_ms)
@@ -511,7 +575,7 @@ def phase_serve(torch, np, serve, kernels, path: str):
         body, shape = _post(port, wave)
         direct = runner.run(wave[None])[0, ..., 0]
         direct_again = runner.run(wave[None])[0, ..., 0]
-        launches = {w.name: w.launches for w, _, _ in kernels}
+        launches, by_variant = read_launches(kernels)
         # the warm-up runs each ladder size once, then the server's batches
         # and the two direct runs
         device_batches = len(runner.ladder) + batcher.batches + 2
@@ -559,14 +623,14 @@ def phase_serve(torch, np, serve, kernels, path: str):
           "throughput_rps": res["throughput_rps"], "p50_ms": res["p50_ms"],
           "p95_ms": res["p95_ms"], "p99_ms": res["p99_ms"],
           "device_batches": device_batches, "mean_batch_fill": stats.get("mean_batch_fill"),
-          "launches": launches, "expected_launches": expected,
-          "served_vs_direct_max_abs": served_err, "direct_max_abs": scale,
+          "launches": launches, "launches_by_variant": by_variant,
+          "expected_launches": expected, "served_vs_direct_max_abs": served_err, "direct_max_abs": scale,
           "direct_repeat_max_abs": float(np.abs(direct_again - direct).max()),
           "gamma_zero_vs_set_max_abs": gamma_effect,
           "depth_range_m": [float(served.min()), float(served.max())],
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
     emit(profile)
-    return launches
+    return launches, by_variant
 
 
 def phase_f32_vs_cpu(torch, np, configs, models, path: str):
@@ -630,13 +694,12 @@ def phase_train(torch, np, train_cli, kernels):
                 if n.startswith("attention_modules.") and ".gamma" not in n}
         steps.append(metrics)
 
-    for wrapper, _, _ in kernels:
-        wrapper.launches = 0
+    reset_launches(kernels)
     t0 = time.perf_counter()
     eng, state = train_cli.main(TRAIN_ARGV, on_task=on_task, on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {w.name: w.launches for w, _, _ in kernels}
+    launches, by_variant = read_launches(kernels)
     task, record = seen["task"], eng.history[-1]
     cfg = task.cfg
     assert cfg.dataset.images_size == 256 and cfg.model.base_channels == 64
@@ -676,13 +739,14 @@ def phase_train(torch, np, train_cli, kernels):
           "params": sum(p.numel() for p in task.model.parameters()),
           "steps": len(steps), "eval_batches": n_eval, "losses": losses, "grad_norms": norms,
           "first_step_attention_grad_min": min(seen["first_grads"].values()),
-          "launches": launches, "expected_launches": expected, "epoch_record": record,
+          "launches": launches, "launches_by_variant": by_variant,
+          "expected_launches": expected, "epoch_record": record,
           "main_wall_s": wall, "repeated_batch_losses": rep_losses,
           "step_ms_median": step_ms, "step_ms_all": [t * 1e3 for t in times],
           "pairs_per_sec": TRAIN_BATCH / (step_ms / 1e3),
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
     emit(profile_train_step(torch, eng, state, batch))
-    return launches
+    return launches, by_variant
 
 
 def profile_train_step(torch, eng, state, batch):
@@ -796,20 +860,28 @@ PTXAS_PREFIX = {"fused_mel_frontend": "fused_mel", "flash_cross_attention_fwd": 
                 "flash_cross_attention_bwd": "flash_bwd"}
 
 
-def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name, ptxas):
+def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name, ptxas, hgmma):
     """One entry of the `kernels` line: numbers at the kernel's main shape,
-    the largest error over all its shapes, launches summed over the paths,
-    and ptxas's registers and spills of each of its instantiations."""
+    the largest error over all its shapes, launches summed over the paths
+    (and by plan variant), ptxas's registers and spills of each of its
+    instantiations, and their HGMMA count in the SASS."""
     mine = [r for r in rows if r["name"] == wrapper.name]
-    return {
+    prefix = PTXAS_PREFIX[wrapper.name]
+    by_function = {k: v for k, v in hgmma.items() if k.startswith(prefix)}
+    entry = {
         "name": wrapper.name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": sum(by_path[wrapper.name] for by_path in launches.values()),
-        "launches_by_path": {p: by_path[wrapper.name] for p, by_path in launches.items()},
+        "launches": sum(counts[wrapper.name] for counts, _ in launches.values()),
+        "launches_by_path": {p: counts[wrapper.name] for p, (counts, _) in launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "library", "main_shape")},
         "peak": peak_name,
-        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(PTXAS_PREFIX[wrapper.name])}}
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(prefix)},
+        "sass": {"HGMMA": sum(by_function.values()), "HGMMA_by_function": by_function}}
+    if hasattr(wrapper, "variant_launches"):
+        entry["launches_by_variant"] = {p: by_variant[wrapper.name]
+                                        for p, (_, by_variant) in launches.items()}
+    return entry
 
 
 def main() -> int:
@@ -833,7 +905,7 @@ def main() -> int:
     configure_precision()
     smi, ex2_rate = phase_env(torch)
     peak_name, peak = peak_for(torch.cuda.get_device_name(0))
-    ptxas = phase_build(_build)
+    ptxas, hgmma = phase_build(_build)
     b1_rows = phase_kernel(torch, np, ff, peak)
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
@@ -856,8 +928,11 @@ def main() -> int:
     main_rows = {ff.fused_mel_frontend.name: (b1_rows, b1_main),
                  fa.flash_cross_attention.name: (b2_rows, b2_main),
                  fa.flash_cross_attention_bwd.name: (b3_rows, b3_main)}
-    kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas)
+    kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas, hgmma)
                for w, src, rep in KERNELS]
+    for entry in kernels:  # the wgmma designs of B2 and B3 must be in the binary
+        if entry["name"] != ff.fused_mel_frontend.name:
+            assert entry["sass"]["HGMMA"] > 0, f"{entry['name']}: no HGMMA in its SASS"
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,12 @@ path and the wrapper's dispatch) against the JAX package.
   * the wrapper takes the plain version for a CPU tensor and launches
     nothing, and so does the model's dispatch `cross_attention` (through
     FlashCrossAttentionFn); bad shapes and dtypes raise; importing it builds
-    nothing.
+    nothing;
+  * B2's plan (`fwd_plan`, what the wrapper launches on the card) at every
+    model level, the chip-smoke shapes and the accepted edges: its variant,
+    shared memory, grid and padding;
+  * the build hash (`_build.library_path`) changes with any header of
+    `csrc/`, so an edited header is never served by a stale library.
 """
 
 from __future__ import annotations
@@ -137,3 +142,68 @@ def test_registered_and_nothing_built_on_import():
     with open(jfa.__file__) as f:
         assert f.read().splitlines()[102].startswith("def _fwd_kernel(")
     assert fa._library.cache_info().currsize == 0
+
+
+# (2B, N, M, dk, dv): the binaural levels 2-5 at a batch of 16 and level 2 at
+# a batch of 1, chip_smoke.py's other kernel shapes, and the accepted edges
+PLAN_SHAPES = [
+    (32, 16384, 16384, 16, 128), (32, 4096, 4096, 32, 256), (32, 1024, 1024, 64, 512),
+    (32, 256, 256, 64, 512), (2, 16384, 16384, 16, 128),
+    (4, 1000, 777, 32, 256), (2, 300, 200, 8, 64), (2, 333, 129, 40, 136),
+    (2, 200, 150, 24, 320), (2, 1, 70, 16, 128),
+    (1, 1, 1, 8, 8), (3, 1, 5000, 64, 512), (3, 5000, 1, 8, 8), (65535, 64, 64, 64, 8),
+]
+GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+
+
+def check_plan_limits(plan):
+    """What every plan must hold on the card, whatever its variant."""
+    assert plan.smem_bytes <= fa.SMEM_PER_BLOCK and plan.blocks_per_sm >= 1
+    assert all(1 <= g <= lim for g, lim in zip(plan.grid, GRID_LIMITS))
+    assert plan.block in (128, 256) and plan.stages >= 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fwd_plan(shape, dtype):
+    b, n, m, dk, dv = shape
+    plan = fa.fwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
+    check_plan_limits(plan)
+    q_tiles = -(-n // fa.TILE)
+    assert plan.grid == (q_tiles * plan.n_slices, b, 1)
+    if dtype == "float32":
+        assert plan.variant == "f32" and plan.n_slices == -(-dv // 128)
+        return
+    assert plan.variant == "wgmma" and plan.block == 128
+    # q/k rows padded to one swizzle span; dv slices of ≤ 256 padded to 64,
+    # by less than one 64-column sub-tile each
+    assert plan.dkp == min(w for w in (16, 32, 64) if w >= dk)
+    assert plan.dvs % 64 == 0 and plan.dvs <= 256
+    assert dv <= plan.dvs * plan.n_slices < dv + 64 * plan.n_slices
+    assert plan.n_slices == -(-dv // 256)
+    # the most stages (of 3, 2) that leave two blocks an SM
+    assert plan.stages in (2, 3)
+    assert plan.blocks_per_sm >= 2 or plan.stages == 2
+
+
+@pytest.mark.parametrize("suffix", ["cuh", "h"])
+def test_build_hash_covers_headers(tmp_path, monkeypatch, suffix):
+    """Editing a header alone changes the library's path, so `load` builds
+    anew; nothing is compiled to find the path."""
+    from audiodepth_tpu_torch.ops.cuda import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("library_path must not compile"))
+    (tmp_path / "kern.cu").write_text('#include "common.%s"\n' % suffix)
+    header = tmp_path / f"common.{suffix}"
+    header.write_text("// v1\n")
+    first = _build.library_path("kern")
+    assert _build.library_path("kern") == first  # stable
+    header.write_text("// v2\n")
+    edited = _build.library_path("kern")
+    assert edited != first and edited.parent == _build.BUILD_DIR
+    header.write_text("// v1\n")
+    assert _build.library_path("kern") == first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path("kern") != first
+    assert not list(tmp_path.glob("*.so"))

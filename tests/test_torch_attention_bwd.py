@@ -35,6 +35,7 @@ from audiodepth_tpu_torch.models.binaural_attention import BinauralCrossAttentio
 from audiodepth_tpu_torch.ops.attention import blockwise_cross_attention
 from audiodepth_tpu_torch.ops.cuda import KERNELS
 from audiodepth_tpu_torch.ops.cuda import flash_attention as fa
+from tests.test_torch_attention import PLAN_SHAPES, check_plan_limits
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -195,3 +196,28 @@ def test_gamma_trap(gamma):
     else:
         assert all(g > 0.0 for g in proj.values()), proj
     assert float(block.gamma.grad.abs()) > 0.0  # γ itself always learns
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd_plan(shape, dtype):
+    """B3's plan at every model level, the chip-smoke shapes and the edges:
+    wgmma for bf16 (one warpgroup per 64 keys and all of dv ≤ 256, two
+    warpgroups splitting dv above), f32 for f32; shared memory, grid and
+    padding."""
+    b, n, m, dk, dv = shape
+    plan = fa.bwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
+    check_plan_limits(plan)
+    if dtype == "float32":
+        assert plan.variant == "f32" and plan.grid == (-(-m // 32), b, 1)
+        return
+    wgs = 1 if dv <= 256 else 2
+    assert plan.variant == "wgmma" and plan.block == 128 * wgs and plan.n_slices == 1
+    assert plan.grid == (-(-m // fa.TILE), b, 1)
+    assert plan.dkp == min(w for w in (16, 32, 64) if w >= dk)
+    # each warpgroup's dv padded to 64, by less than one 64-column sub-tile
+    assert plan.dvs % 64 == 0 and plan.dvs <= 256
+    assert dv <= plan.dvs * wgs < dv + 64 * wgs
+    # the most stages (of 2, 1) that leave two blocks an SM
+    assert plan.stages in (1, 2)
+    assert plan.blocks_per_sm >= 2 or plan.stages == 1
