@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, in inline
-// PTX: mbarriers, TMA tile loads, 1-D bulk copies and the bulk fp32
-// reduce-add, shared-memory matrix descriptors for wgmma, and the wgmma
+// PTX: mbarriers, TMA tile loads, 1-D bulk copies (one block's, or
+// multicast to a cluster) and the bulk fp32 reduce-add, shared-memory matrix descriptors for wgmma, and the wgmma
 // fence / commit / wait (the products themselves are in sm90_wgmma.cuh).
 // Host side: a 3-D TMA tensor map of a row-major bf16 [batch, rows, cols]
 // tensor, encoded through the driver entry point the runtime hands out
@@ -73,6 +73,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the same copy into every block of the cluster named in `cta_mask`, at the
+// same block-relative offset, each completing on its own barrier at the
+// offset of `bar`
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
+                                                    uint64_t* bar, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(cta_mask)
       : "memory");
 }
 

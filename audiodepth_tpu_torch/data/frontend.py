@@ -62,7 +62,7 @@ def make_frontend(cfg: Config) -> Callable[[torch.Tensor], torch.Tensor]:
         if "spectrogram" not in fmt:
             return x  # waveform passthrough
         if "mel" in fmt and fdt == torch.float32:
-            spec = fused_mel_frontend(x.contiguous(), sample_rate=ds.sample_rate)
+            spec = fused_mel_frontend(x, sample_rate=ds.sample_rate)  # the cut stays a view
         else:
             if "mel" in fmt:
                 spec = mel_spectrogram(x, n_fft=512, win_length=64, n_mels=32,

@@ -10,19 +10,25 @@ non-zero:
   build      compile every CUDA kernel of the port from `csrc/` (nvcc, one
              process per source, all started together), its seconds,
              ptxas's registers and spills per kernel, and the count of
-             HGMMA (wgmma) instructions per kernel in `cuobjdump -sass` of
-             the built libraries (B2 and B3 must have some);
+             HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel in
+             `cuobjdump -sass` of the built libraries (B1 must have HMMA,
+             B2 and B3 HGMMA); with it, B1's earlier source where one was
+             put at B1_BEFORE (not in the repository);
   kernel     each kernel against its plain PyTorch version on the card at
              the shapes its path gives it, max |Δ| asserted, and its time,
              the plain version's time, the card's bound for the same work
              and, where one PyTorch call computes the same function, that
-             call's time: B1 (the mel front end), B2 (flash
-             cross-attention forward) and B3 (its backward), each at the
-             four binaural level shapes of a batch of 16, level 2 of a
-             batch of 1, float32, and ragged shapes that reach every
+             call's time: B1 (the mel front end: noise at B·C 2, 8, 32 and
+             a short L, the train path's synthetic echoes as a strided
+             view, clean chirps against float64; each row naming its plan),
+             B2 (flash cross-attention forward) and B3 (its backward), each
+             at the four binaural level shapes of a batch of 16, level 2 of
+             a batch of 1, float32, and ragged shapes that reach every
              branch of the plan (`fwd_plan` / `bwd_plan`: dk 8 and 40
              padded, dv 136 and 320, N and M not multiples of 64, N = 1),
              each row naming the plan it ran;
+  b1_before_after  B1 against its earlier design in turns on the same
+             card, where that source was built (else a line saying so);
   autograd   `cross_attention` gradients through FlashCrossAttentionFn
              (B2 forward, B3 backward) against autograd of the blockwise
              plain path on the card, level 3 in bf16, level 2 in f32;
@@ -61,7 +67,7 @@ non-zero:
              share, top items, B2's and B3's shares;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
-             plan has several) and its SASS HGMMA count.
+             plan has several) and its SASS HGMMA and HMMA counts.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script exits non-zero before printing
 any result.
@@ -69,6 +75,7 @@ any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -84,7 +91,14 @@ import urllib.request
 PEAKS = {"H100 SXM": (67.0, 3.35, 989.0), "H100 PCIe": (51.0, 2.0, 756.0),
          "H100 NVL": (60.0, 3.9, 835.0)}
 EX2_PER_CLOCK_PER_SM = 16  # the SFU's exp2 rate on sm_90
-KERNEL_TOL = 1e-5          # B1 vs its plain version (see the kernel phase)
+KERNEL_TOL = 1e-5          # B1 vs its fp32 plain version (see phase_kernel)
+B1_CLEAN_SLACK = 1e-5      # B1 vs float64 on clean chirps, beyond the fp32 plain's own error
+# B1's rows (input, B·C, L); the first port's source, where one was put
+# here, for the same-call before/after (phase_b1_before_after)
+B1_ROWS = [("noise", 2, 7782), ("noise", 8, 7782), ("noise", 32, 7782), ("noise", 8, 4000),
+           ("synthetic", 32, 7782), ("clean chirps", 8, 7782)]
+B1_MAIN = ("noise", 32, 7782)
+B1_BEFORE = os.path.join("build", "b1_before", "fused_frontend.cu")
 F32_VS_CPU_TOL = 1e-3      # relative to max |cpu|
 SERVED_TOL = 2 ** -5       # served vs direct bf16 answer, relative to max |direct|
 # B2 vs its plain version (see phase_kernel_b2)
@@ -172,9 +186,9 @@ def kernel_name(text: str) -> str:
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def sass_hgmma(build, names) -> dict:
-    """{kernel: its count of HGMMA (wgmma) instructions} in `cuobjdump
-    -sass` of each built library."""
+def sass_mma(build, names) -> dict:
+    """{kernel: {"HGMMA": n, "HMMA": m}}: its wgmma and its mma.sync tensor
+    instructions in `cuobjdump -sass` of each built library."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     counts, name = {}, None
     for lib in names:
@@ -183,9 +197,10 @@ def sass_hgmma(build, names) -> dict:
         for ln in out.splitlines():
             if "Function :" in ln:
                 name = kernel_name(ln.split("Function :")[-1])
-                counts.setdefault(name, 0)
-            elif name and "HGMMA" in ln:
-                counts[name] += 1
+                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+            elif name:
+                for op in ("HGMMA", "HMMA"):
+                    counts[name][op] += op in ln
     return counts
 
 
@@ -203,51 +218,201 @@ def ptxas_report(logs) -> dict:
     return report
 
 
+def _build_before(build):
+    """nvcc of B1's earlier source, where one was put at B1_BEFORE (it is not
+    in the repository: `git show <commit>:audiodepth_tpu_torch/csrc/fused_frontend.cu`),
+    started in the background: (process, library path), or None."""
+    if not os.path.exists(B1_BEFORE):
+        return None
+    lib = os.path.join(os.path.dirname(B1_BEFORE), "libfused_frontend_before.so")
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, B1_BEFORE]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
 def phase_build(build):
     # one library per source; B2 and B3 share csrc/flash_attention.cu
     names = ["fused_frontend", "flash_attention"]
     t0 = time.perf_counter()
+    before = _build_before(build)
     logs = build.build(names)
+    before_lib = None
+    if before is not None:
+        proc, before_lib = before
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"nvcc of {B1_BEFORE} failed:\n{log}"
     seconds = time.perf_counter() - t0
     report = ptxas_report(logs)
-    hgmma = sass_hgmma(build, names)
+    sass = sass_mma(build, names)
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": report,
-          "sass_hgmma": hgmma})
-    return report, hgmma
+          "sass_mma": sass, "b1_before": before_lib})
+    return report, sass, before_lib
 
-def phase_kernel(torch, np, ff, peak):
-    """B1 against its plain version at the serving shapes (B·C = 2, 8, 32 at
-    L = 7782) and at a short L. Tolerance 1e-5: the JAX package holds its
-    Pallas kernel to the XLA composition at atol 1e-6; the card's FMA
-    summation order differs from the plain version's cuBLAS order, and the
-    difference passes through log and the division by the channel's range."""
-    flops_peak, bw_peak, _ = peak
+
+def _b1_input(np, kind: str, bc: int, length: int, configs):
+    """[bc/2, 2, length] float32 waveforms (numpy) of one kind of input:
+    noise σ 0.05 with channel 0 silent; the train path's synthetic echoes
+    (rows of 8038 samples, cut by the caller to a view); clean chirps, two
+    echoes a channel and no noise."""
+    rng = np.random.default_rng(bc * 100_003 + length)
+    if kind == "noise":
+        wave = (rng.standard_normal((bc // 2, 2, length)) * 0.05).astype(np.float32)
+        wave[0, 0] = 0.0  # a silent channel takes the max == min branch
+        return wave
+    if kind == "synthetic":
+        from audiodepth_tpu_torch.data.synthetic import SyntheticEchoDataset
+
+        ds = SyntheticEchoDataset(configs.load_config("synthetic", "train"), num_samples=bc // 2)
+        return np.stack([ds.sample(i)["waveform"] for i in range(bc // 2)])
+    t = np.arange(256, dtype=np.float32)
+    chirp = np.sin(2 * np.pi * (0.01 + 0.0008 * t) * t) * np.hanning(256).astype(np.float32)
+    wave = np.zeros((bc // 2, 2, length), np.float32)
+    for i in range(bc // 2):
+        for ch in range(2):
+            for amp in (1.0, 0.5):
+                d = int(rng.integers(0, length - 256))
+                wave[i, ch, d:d + 256] += amp * chirp
+    return wave
+
+
+def _b1_bounds(bc, t_frames, length, consts, peak, win=64, n_freq=257, n_mels=32):
+    """(bound_us, bound_by, bound_fp32_us) of one B1 call.
+
+    bound_us: the work the function needs at the card's peak for it, against
+    its bytes: the DFT over the bins the bank reads only, in the six bf16
+    passes of the kernel's three-piece products, 6·2·BC·T·win·2·n_bins flops
+    at the dense bf16 rate (the time of three TF32 passes at the TF32 rate,
+    half the bf16 one), plus the bank's non-zeros, 2·BC·T·nnz flops at the
+    fp32 rate; bytes: the waveform and the packed constants read once, the
+    output written once. bound_fp32_us: the first port's yardstick, the
+    dense product 2·BC·T·(win·2·n_freq + n_freq·n_mels) flops at the fp32
+    rate against the waveform, output, basis and bank."""
+    flops_peak, bw_peak, tensor_peak = peak
+    dft_s = 6 * 2.0 * bc * t_frames * win * 2 * consts.n_bins / (tensor_peak * 1e12)
+    mel_s = 2.0 * bc * t_frames * consts.nnz / (flops_peak * 1e12)
+    bytes_s = (4.0 * (bc * length + bc * n_mels * t_frames) + consts.nbytes) / (bw_peak * 1e12)
+    ops_s = dft_s + mel_s
+    dense_flops = 2.0 * bc * t_frames * (win * 2 * n_freq + n_freq * n_mels)
+    dense_bytes = 4.0 * (bc * length + bc * n_mels * t_frames + win * 2 * n_freq + n_freq * n_mels)
+    fp32_s = max(dense_flops / (flops_peak * 1e12), dense_bytes / (bw_peak * 1e12))
+    return (max(ops_s, bytes_s) * 1e6, "operations" if ops_s > bytes_s else "bytes",
+            fp32_s * 1e6)
+
+
+def phase_kernel(torch, np, ff, peak, configs):
+    """B1 against its plain versions on the card, every row through the
+    wrapper as the main path calls it.
+
+    Rows (input, B·C, L): noise at the serving shapes (2, 8, 32 at L =
+    7782) and at L = 4000, held to the fp32 plain version within
+    KERNEL_TOL; the train path's synthetic echoes at 32 × 7782, cut from
+    rows of 8038 to a strided view as `make_frontend` cuts them, the same
+    gate. KERNEL_TOL = 1e-5: the JAX package holds its Pallas kernel to the
+    XLA composition at 1e-6; here the DFT's products are exact to 2^-26 but
+    sum in another order (16-tap steps on the tensor cores), and the
+    difference passes through log and the division by the channel's range.
+    Clean chirps without noise (8 × 7782) are held to the float64 plain
+    version instead: sidelobe bins near the 1e-8 floor make any two fp32
+    summation orders differ by up to ~1e-4 there (the fp32 plain version
+    itself is ~6e-5 from float64), so the gate is the fp32 plain version's
+    own float64 error + B1_CLEAN_SLACK.
+
+    Times: median of back-to-back launches; bounds: `_b1_bounds`."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    caps = ff.cluster_capacity(0)
+    consts = ff.frontend_constants()
+    emit({"phase": "b1_plan", "sms": n_sm, "cluster_capacity": caps,
+          "const_bytes": consts.nbytes})
     rows = []
-    for bc, length in [(2, 7782), (8, 7782), (32, 7782), (8, 4000)]:
-        rng = np.random.default_rng(bc * 100_003 + length)
-        wave_np = (rng.standard_normal((bc // 2, 2, length)) * 0.05).astype(np.float32)
-        wave_np[0, 0] = 0.0  # a silent channel takes the max == min branch
-        wave = torch.from_numpy(wave_np).cuda()
+    for kind, bc, length in B1_ROWS:
+        wave_np = _b1_input(np, kind, bc, length, configs)
+        wave = torch.from_numpy(wave_np).cuda()[..., :length]
         got = ff.fused_mel_frontend(wave)
         want = ff.fused_mel_frontend_plain(wave)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
         assert got.shape == want.shape and torch.isfinite(got).all()
-        assert float(got[0, 0].abs().max()) == 0.0
-        assert err <= KERNEL_TOL, f"B1 differs from its plain version by {err}"
+        vs_plain = float((got - want).abs().max())
+        row = {"phase": "kernel", "name": ff.fused_mel_frontend.name, "input": kind, "bc": bc,
+               "L": length, "T": got.shape[-1], "strided": not wave.is_contiguous(),
+               "plan": dataclasses.asdict(ff.frontend_plan(bc, length, n_sm, caps)),
+               "max_abs_err_vs_plain": vs_plain}
+        if kind == "clean chirps":
+            want64 = log_minmax_f64(torch, wave)
+            err = float((got.double() - want64).abs().max())
+            plain_err = float((want.double() - want64).abs().max())
+            tol = plain_err + B1_CLEAN_SLACK
+            row.update(vs="float64 plain", plain_vs_f64=plain_err)
+        else:
+            err, tol = vs_plain, KERNEL_TOL
+            row.update(vs="fp32 plain")
+        if kind == "noise":
+            assert float(got[0, 0].abs().max()) == 0.0
+        assert err <= tol, f"B1 {kind} {bc}x{length}: differs by {err} (tolerance {tol})"
         ms = time_ms(torch, lambda: ff.fused_mel_frontend(wave))
         plain_ms = time_ms(torch, lambda: ff.fused_mel_frontend_plain(wave))
-        t_frames, win, n_freq, n_mels = got.shape[-1], 64, 257, 32
-        flops = 2.0 * bc * t_frames * (win * 2 * n_freq + n_freq * n_mels)
-        nbytes = 4.0 * (bc * length + bc * n_mels * t_frames
-                        + win * 2 * n_freq + n_freq * n_mels)
-        bound_ms = max(flops / (flops_peak * 1e12), nbytes / (bw_peak * 1e12)) * 1e3
-        row = {"phase": "kernel", "name": ff.fused_mel_frontend.name, "bc": bc,
-               "L": length, "T": t_frames, "max_abs_err": err, "us": ms * 1e3,
-               "plain_us": plain_ms * 1e3, "bound_us": bound_ms * 1e3,
-               "bound_by": "operations" if flops / flops_peak > nbytes / bw_peak else "bytes",
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        bound_us, bound_by, bound_fp32_us = _b1_bounds(bc, got.shape[-1], length, consts, peak)
+        row.update(max_abs_err=err, tol=tol, us=ms * 1e3, plain_us=plain_ms * 1e3,
+                   bound_us=bound_us, bound_by=bound_by, bound_fp32_us=bound_fp32_us)
         emit(row)
+        rows.append(row)
+    return rows
+
+
+def log_minmax_f64(torch, wave):
+    """The plain front end in float64 (the reference of the clean-chirp row)."""
+    from audiodepth_tpu_torch.ops.stft import log_minmax_per_channel, mel_spectrogram
+
+    return log_minmax_per_channel(mel_spectrogram(wave.double(), n_fft=512, win_length=64,
+                                                  hop_length=32, n_mels=32,
+                                                  dtype=torch.float64))
+
+
+def phase_b1_before_after(torch, np, ff, before_lib):
+    """B1 against its previous design (the parent commit's source, built from
+    B1_BEFORE) on the same card in one call, at the serving shapes, timed in
+    turns (before, after, after, before); the new design must not be slower
+    at any of them. Skipped, and said so, where no earlier source was put
+    there."""
+    if before_lib is None:
+        emit({"phase": "b1_before_after", "skipped": f"no earlier source at {B1_BEFORE}"})
+        return None
+    import ctypes
+
+    from audiodepth_tpu_torch.ops.stft import basis_tensor, mel_tensor
+
+    lib = ctypes.CDLL(before_lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.adepth_fused_mel_frontend.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.adepth_fused_mel_frontend.restype = i
+    basis = basis_tensor(512, 64, torch.float32, torch.device("cuda", 0))
+    fb = mel_tensor(257, 32, 44100, 20.0, 20000.0, torch.float32, torch.device("cuda", 0))
+    rows = []
+    for bc in (2, 8, 32):
+        wave = torch.from_numpy(_b1_input(np, "noise", bc, 7782, None)).cuda()
+        t_frames = 1 + 7782 // 32
+        out = torch.empty((bc // 2, 2, 32, t_frames), device="cuda")
+
+        def before():
+            err = lib.adepth_fused_mel_frontend(
+                wave.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(), bc, 7782,
+                t_frames, 64, 257, 32, 32, -32, 0, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+
+        before()
+        got = ff.fused_mel_frontend(wave)
+        torch.cuda.synchronize()
+        agree = float((got - out).abs().max())
+        times = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            fn = before if which == "before" else (lambda: ff.fused_mel_frontend(wave))
+            times[which].append(time_ms(torch, fn) * 1e3)
+        row = {"phase": "b1_before_after", "bc": bc, "L": 7782,
+               "before_us": statistics.mean(times["before"]),
+               "after_us": statistics.mean(times["after"]), "turns_us": times,
+               "max_abs_before_vs_after": agree}
+        row["speedup"] = row["before_us"] / row["after_us"]
+        emit(row)
+        assert agree <= 2 * KERNEL_TOL, f"B1 before and after differ by {agree}"
+        assert row["after_us"] < row["before_us"], f"B1 is slower than before at B*C={bc}"
         rows.append(row)
     return rows
 
@@ -860,24 +1025,25 @@ PTXAS_PREFIX = {"fused_mel_frontend": "fused_mel", "flash_cross_attention_fwd": 
                 "flash_cross_attention_bwd": "flash_bwd"}
 
 
-def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name, ptxas, hgmma):
+def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name, ptxas, sass):
     """One entry of the `kernels` line: numbers at the kernel's main shape,
     the largest error over all its shapes, launches summed over the paths
     (and by plan variant), ptxas's registers and spills of each of its
-    instantiations, and their HGMMA count in the SASS."""
+    instantiations, and their HGMMA and HMMA counts in the SASS."""
     mine = [r for r in rows if r["name"] == wrapper.name]
     prefix = PTXAS_PREFIX[wrapper.name]
-    by_function = {k: v for k, v in hgmma.items() if k.startswith(prefix)}
+    by_function = {k: v for k, v in sass.items() if k.startswith(prefix)}
     entry = {
         "name": wrapper.name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(counts[wrapper.name] for counts, _ in launches.values()),
         "launches_by_path": {p: counts[wrapper.name] for p, (counts, _) in launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                    "library", "main_shape")},
+                                    "library", "main_shape") + tuple(main_row.get("extra", ()))},
         "peak": peak_name,
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith(prefix)},
-        "sass": {"HGMMA": sum(by_function.values()), "HGMMA_by_function": by_function}}
+        "sass": {op: sum(v[op] for v in by_function.values()) for op in ("HGMMA", "HMMA")}}
+    entry["sass"]["by_function"] = by_function
     if hasattr(wrapper, "variant_launches"):
         entry["launches_by_variant"] = {p: by_variant[wrapper.name]
                                         for p, (_, by_variant) in launches.items()}
@@ -905,8 +1071,9 @@ def main() -> int:
     configure_precision()
     smi, ex2_rate = phase_env(torch)
     peak_name, peak = peak_for(torch.cuda.get_device_name(0))
-    ptxas, hgmma = phase_build(_build)
-    b1_rows = phase_kernel(torch, np, ff, peak)
+    ptxas, sass, b1_before = phase_build(_build)
+    b1_rows = phase_kernel(torch, np, ff, peak, configs)
+    b1_turns = phase_b1_before_after(torch, np, ff, b1_before)
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
     phase_autograd(torch, fa, blockwise_cross_attention)
@@ -917,22 +1084,27 @@ def main() -> int:
     launches["train binaural_attention"] = phase_train(torch, np, train_cli, KERNELS)
     phase_f32_train_vs_cpu(torch, np, configs, models)
 
-    b1 = next(r for r in b1_rows if r["bc"] == 32 and r["L"] == 7782)
-    b1_main = dict(b1, main_shape="B*C=32, L=7782", ms=b1["us"] / 1e3,
+    b1 = next(r for r in b1_rows if (r["input"], r["bc"], r["L"]) == B1_MAIN)
+    b1_main = dict(b1, main_shape="B*C=32, L=7782, noise", ms=b1["us"] / 1e3,
                    plain_ms=b1["plain_us"] / 1e3, bound_ms=b1["bound_us"] / 1e3,
+                   bound_fp32_ms=b1["bound_fp32_us"] / 1e3,
                    # no single PyTorch call computes the fused STFT→mel→log→min-max
-                   library_ms=None, library=None)
+                   library_ms=None, library=None,
+                   us_by_bc={r["bc"]: r["us"] for r in b1_rows if r["input"] == "noise"
+                             and r["L"] == 7782},
+                   before_after=b1_turns,
+                   extra=("bound_fp32_ms", "plan", "us_by_bc", "before_after"))
     level2 = "level 2: 2B=32, N=M=16384, dk=16, dv=128, bf16"
     b2_main = dict(next(r for r in b2_rows if r["shape"] == B2_MAIN), main_shape=level2)
     b3_main = dict(next(r for r in b3_rows if r["shape"] == B2_MAIN), main_shape=level2)
     main_rows = {ff.fused_mel_frontend.name: (b1_rows, b1_main),
                  fa.flash_cross_attention.name: (b2_rows, b2_main),
                  fa.flash_cross_attention_bwd.name: (b3_rows, b3_main)}
-    kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas, hgmma)
+    kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas, sass)
                for w, src, rep in KERNELS]
-    for entry in kernels:  # the wgmma designs of B2 and B3 must be in the binary
-        if entry["name"] != ff.fused_mel_frontend.name:
-            assert entry["sass"]["HGMMA"] > 0, f"{entry['name']}: no HGMMA in its SASS"
+    for entry in kernels:  # the tensor-core designs must be in the binary
+        op = "HMMA" if entry["name"] == ff.fused_mel_frontend.name else "HGMMA"
+        assert entry["sass"][op] > 0, f"{entry['name']}: no {op} in its SASS"
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
