@@ -8,9 +8,12 @@
   * Micro-batching: concurrent requests are collected for up to
     --batch_wait_ms, padded to the smallest ladder size, and run as one
     device batch.
-  * Weights: --random_init (seeded torch.Generator) or a reference torch
-    .pth (--torch_checkpoint), which is the port's native format. Restoring
-    the JAX package's orbax checkpoints waits for the checkpoint slice.
+  * Weights: a checkpoint that `cli.train` saved (`ckpt/`: --checkpoint_path
+    DIR[/EPOCH], or --ckpt_dir ROOT with the experiment's name; --use_best,
+    --checkpoints EPOCH, else the latest), a reference torch .pth
+    (--torch_checkpoint; a port checkpoint is one too), or --random_init
+    (seeded torch.Generator). The JAX package's orbax checkpoints are not
+    read: convert them with `tools/import_jax.py`.
 
 Protocol (the JAX server's):
   POST /predict   body = raw little-endian float32 waveform, C-order
@@ -288,26 +291,18 @@ def make_server(batcher: MicroBatcher, host: str, port: int):
 # ---------------------------------------------------------------------------
 # flags → (cfg, task, source)
 # ---------------------------------------------------------------------------
-# flags of the JAX server that restore orbax checkpoints
-_ORBAX_FLAGS = ("checkpoint_path", "checkpoints", "use_best", "ckpt_dir")
-
-
 def load_serving_state(args):
     """Build (cfg, task, source) from parsed flags: a task on args.device
-    with random or reference-checkpoint weights."""
-    from ..configs import load_config
+    with the weights of a reference .pth, of random init, or of a
+    checkpoint `cli.train` saved (the JAX server's resolution of
+    --checkpoint_path, --ckpt_dir, --checkpoints and --use_best)."""
+    import os
+
+    from ..ckpt import CheckpointManager
+    from ..configs import experiment_name, load_config
     from ..models import init_weights, make_task
     from ..tools.import_jax import load_torch_state_dict
     from .common import model_shape_overrides
-
-    given = [f"--{f}" for f in _ORBAX_FLAGS if getattr(args, f, None)]
-    if given:
-        raise SystemExit(
-            f"{', '.join(given)}: restoring an orbax checkpoint is not ported "
-            "yet (ROADMAP.md A6); serve --random_init or --torch_checkpoint")
-    if not (args.random_init or args.torch_checkpoint):
-        raise SystemExit("pass --random_init or --torch_checkpoint PATH "
-                         "(orbax checkpoints are not ported yet)")
 
     overrides = model_shape_overrides(args)
     if args.compute_dtype:
@@ -324,9 +319,32 @@ def load_serving_state(args):
         task.model.load_state_dict(sd, strict=True)
         return cfg, task, f"torch:{args.torch_checkpoint}"
 
-    gen = torch.Generator().manual_seed(int(args.seed))
-    init_weights(task.model, gen)
-    return cfg, task, "random-init"
+    if args.random_init:
+        gen = torch.Generator().manual_seed(int(args.seed))
+        init_weights(task.model, gen)
+        return cfg, task, "random-init"
+
+    epoch_req = args.checkpoints
+    ckpt_dir = args.ckpt_dir
+    if args.checkpoint_path:
+        path = os.path.abspath(args.checkpoint_path).rstrip("/")
+        if os.path.basename(path).isdigit():
+            epoch_req = int(os.path.basename(path))
+            path = os.path.dirname(path)
+        ckpt_dir, exp = os.path.dirname(path), os.path.basename(path)
+    else:
+        exp = (experiment_name(cfg) if args.experiment_name == "default"
+               else args.experiment_name)
+    if args.use_best and epoch_req is None:
+        epoch_req = "best"
+    mgr = CheckpointManager(ckpt_dir, exp, create=False)
+    try:
+        sd, _, epoch = mgr.restore_eval(epoch=epoch_req)
+    except FileNotFoundError:
+        raise SystemExit(f"checkpoint not found under {mgr.directory}; "
+                         f"available epochs: {mgr.all_epochs()}")
+    task.model.load_state_dict(sd, strict=True)
+    return cfg, task, f"{exp}@{epoch}"
 
 
 # ---------------------------------------------------------------------------
@@ -396,14 +414,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--experiment_name", default="default")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, cpu)")
-    p.add_argument("--ckpt_dir", default=None,
-                   help="orbax checkpoints: not ported yet (rejected)")
+    p.add_argument("--ckpt_dir", default="./checkpoints",
+                   help="root of the checkpoints cli.train saved (with the experiment name)")
     p.add_argument("--checkpoint_path", default=None,
-                   help="orbax checkpoints: not ported yet (rejected)")
-    p.add_argument("--checkpoints", type=int, default=None,
-                   help="orbax checkpoints: not ported yet (rejected)")
+                   help="one experiment's checkpoint directory, or DIR/EPOCH")
+    p.add_argument("--checkpoints", type=int, default=None, help="epoch")
     p.add_argument("--use_best", action="store_true",
-                   help="orbax checkpoints: not ported yet (rejected)")
+                   help="the epoch best.json names")
     p.add_argument("--torch_checkpoint", default=None,
                    help="serve a reference .pth directly (no retraining)")
     p.add_argument("--random_init", action="store_true",

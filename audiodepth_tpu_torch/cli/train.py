@@ -8,6 +8,15 @@ task on --device (default cuda; it raises without a card) with a seeded
 init, and the Engine, then runs `Engine.fit` and prints one JSON line per
 epoch with its record. Flags of parts that are not ported yet exit with
 the ROADMAP.md item that ports them.
+
+Checkpoints (`ckpt/`): with --ckpt_dir ROOT the run saves under
+ROOT/<experiment name>/ every --saving_checkpoints epochs, at each new best
+--best_metric and at its last epoch (the JAX CLI saves under ./checkpoints
+by default; the port saves only where it is asked to). --resume continues
+from the latest epoch there, --checkpoints N from epoch N, both with the
+optimizer state and the step; --init_from_torch PTH warm-starts the model
+from a reference .pth (weights only, a fresh optimizer, from the epoch
+after the one it names).
 """
 
 from __future__ import annotations
@@ -18,11 +27,10 @@ from typing import Optional, Sequence
 
 import torch
 
+# the families `cli.train` trains
+TRAINED_MODELS = ("unet_baseline", "binaural_attention")
 # flag → the ROADMAP.md item that ports what it needs
 _UNPORTED = {
-    "resume": "checkpoints (ROADMAP.md A6)",
-    "checkpoints": "checkpoints (ROADMAP.md A6)",
-    "init_from_torch": "warm starts from a checkpoint (ROADMAP.md A6)",
     "use_wandb": "observability (ROADMAP.md A6)",
     "profile_dir": "the profiler hook (ROADMAP.md A7)",
     "device_cache": "the device cache (ROADMAP.md A6)",
@@ -76,10 +84,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dotted config override, repeatable, applied after every named flag")
     p.add_argument("--num_devices", type=int, default=None,
                    help="1 only: several devices are ROADMAP.md A8")
-    # parts not ported yet: accepted by the parser, refused by main
+    p.add_argument("--ckpt_dir", default=None,
+                   help="save checkpoints under CKPT_DIR/<experiment name> (default: none)")
+    p.add_argument("--saving_checkpoints", type=int, default=None,
+                   help="checkpoint every N epochs (train.py:1005 cadence)")
+    p.add_argument("--best_metric", default="rmse",
+                   choices=["rmse", "abs_rel", "delta1", "mae", "loss"])
+    p.add_argument("--checkpoints", type=int, default=None,
+                   help="epoch to resume from (default with --resume: the latest)")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--checkpoints", type=int, default=None)
-    p.add_argument("--init_from_torch", default=None, metavar="PTH")
+    p.add_argument("--init_from_torch", default=None, metavar="PTH",
+                   help="warm-start the model from a reference .pth (weights only, "
+                        "a fresh optimizer; the reference's own resume semantics)")
+    # parts not ported yet: accepted by the parser, refused by main
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--profile_dir", default=None)
     p.add_argument("--device_cache", action="store_true")
@@ -122,6 +139,7 @@ def config_from_args(args):
         "mode.seed": args.seed,
         "mode.validation": args.validation,
         "mode.validation_iter": args.validation_iter,
+        "mode.saving_checkpoints": args.saving_checkpoints,
         "mode.weight_decay": args.weight_decay,
         "mode.l1_weight": args.l1_weight,
         "mode.silog_weight": args.silog_weight,
@@ -155,9 +173,26 @@ def _refuse_unported(args) -> None:
     if args.dataset != "synthetic":
         raise SystemExit(f"--dataset {args.dataset}: the real corpora's loaders are not "
                          "ported yet (ROADMAP.md A6); use --dataset synthetic")
-    if args.model != "binaural_attention":
-        raise SystemExit(f"--model {args.model}: training is ported for binaural_attention "
-                         "only (unet_baseline is ROADMAP.md A3, the other families A5)")
+    if args.model not in TRAINED_MODELS:
+        raise SystemExit(f"--model {args.model}: training is ported for "
+                         f"{' and '.join(TRAINED_MODELS)} only (the other families are "
+                         "ROADMAP.md A5)")
+    if (args.resume or args.checkpoints is not None) and not args.ckpt_dir:
+        raise SystemExit("--resume/--checkpoints restore from --ckpt_dir, which is not given")
+    if args.init_from_torch and (args.resume or args.checkpoints is not None):
+        raise SystemExit("--init_from_torch conflicts with --resume/--checkpoints: a torch "
+                         "warm-start is the reference's resume (weights only); drop one")
+
+
+def _warm_start(task, path: str) -> int:
+    """Load a reference .pth into the model (strict); the epoch to start
+    from: the one after the epoch the file names, else 1."""
+    from ..tools.import_jax import torch_state_dict
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    task.model.load_state_dict(torch_state_dict(payload), strict=True)
+    epoch = payload.get("epoch") if isinstance(payload, dict) else None
+    return int(epoch) + 1 if epoch is not None else 1
 
 
 def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
@@ -166,6 +201,8 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     `Engine.fit`."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    from ..ckpt import BestTracker, CheckpointManager
+    from ..configs import experiment_name
     from ..data.batvision import make_dataset
     from ..models import init_weights, make_task
     from ..train.engine import Engine
@@ -180,8 +217,30 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     steps_per_epoch = max(len(train_ds) // cfg.mode.batch_size, 1)
     eng = Engine(cfg, task, steps_per_epoch=steps_per_epoch)
     state = eng.init_state()
-    # per-epoch reshuffle stream, offset by mode.seed
-    epoch_seed = [int(cfg.mode.seed) * 100_003]
+    exp = experiment_name(cfg)
+    mgr = CheckpointManager(args.ckpt_dir, exp) if args.ckpt_dir else None
+    resuming = args.resume or args.checkpoints is not None
+    if mgr is not None and not resuming and mgr.all_epochs():
+        # a new run would keep the old run's files (saves are idempotent per
+        # epoch) under its own best.json
+        raise SystemExit(f"{mgr.directory} holds epochs {mgr.all_epochs()} of an earlier "
+                         "run: continue it with --resume, or give a new --ckpt_dir")
+    start_epoch = 1
+    if args.init_from_torch:
+        start_epoch = _warm_start(task, args.init_from_torch)
+    elif resuming:
+        try:
+            state, _, restored = mgr.restore(state, epoch=args.checkpoints)
+            start_epoch = restored + 1
+            print(json.dumps({"resumed_from_epoch": restored, "step": state.step}), flush=True)
+        except FileNotFoundError:
+            if args.checkpoints is not None:
+                raise SystemExit(f"no checkpoint of epoch {args.checkpoints} under "
+                                 f"{mgr.directory}; available: {mgr.all_epochs()}")
+            print(json.dumps({"resumed_from_epoch": None}), flush=True)
+    # the reshuffle stream: epoch e draws seed mode.seed * 100003 + e, so a
+    # resumed run sees the batches the uninterrupted one would
+    epoch_seed = [int(cfg.mode.seed) * 100_003 + start_epoch - 1]
 
     def train_batches():
         epoch_seed[0] += 1
@@ -195,9 +254,12 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
 
     print(json.dumps({"train": len(train_ds), "val": len(val_ds), "model": cfg.model.name,
                       "device": str(task.device), "compute_dtype": cfg.mode.compute_dtype,
-                      "steps_per_epoch": steps_per_epoch}), flush=True)
-    state = eng.fit(state, train_batches, val_batches,
-                    log=lambda rec: print(json.dumps(rec), flush=True), on_step=on_step)
+                      "steps_per_epoch": steps_per_epoch, "experiment": exp,
+                      "checkpoints": mgr.directory if mgr else None,
+                      "start_epoch": start_epoch}), flush=True)
+    state = eng.fit(state, train_batches, val_batches, start_epoch=start_epoch,
+                    log=lambda rec: print(json.dumps(rec), flush=True), on_step=on_step,
+                    ckpt_manager=mgr, best_tracker=BestTracker(args.best_metric))
     return eng, state
 
 

@@ -275,6 +275,28 @@ def resolve_compute_dtype(cfg_or_name):
         name, torch.float32)
 
 
+def experiment_name(cfg: Config, suffix: str = "") -> str:
+    """Experiment identity string keying checkpoints/logs/results dirs.
+
+    Mirrors the reference's assembly (train.py:288-313):
+    {generator}_{dataset}_BS{bs}_Lr{lr}_{optim}[...]_{name}.
+    """
+    parts = [
+        cfg.model.generator if cfg.model.name == "unet_baseline" else cfg.model.name,
+        cfg.dataset.name,
+        f"BS{cfg.mode.batch_size}",
+        f"Lr{cfg.mode.learning_rate}",
+        cfg.mode.optimizer,
+    ]
+    if cfg.dataset.depth_norm:
+        parts.append(f"MD{cfg.dataset.max_depth:g}")
+    if suffix:
+        parts.append(suffix)
+    if cfg.mode.experiment_name:
+        parts.append(cfg.mode.experiment_name)
+    return "_".join(parts)
+
+
 def validate(cfg: Config) -> None:
     """Reject illegal combinations (the reference train.py guards)."""
     if cfg.mode.mode == "train":

@@ -46,9 +46,18 @@
 // the O rescale 11 % (tools/flash_ablation.py, same card): neither alone is
 // the limit; the chain of waits inside each warpgroup is (PERF.md).
 //
+// Widths. The TPU kernel zero-pads dk to 128 lanes and takes any width.
+// Here the wrapper zero-pads q, k (and v) to a multiple of 8 columns, since
+// a TMA row stride must be a multiple of 16 bytes (zero columns change no
+// score), and dk is padded again in the tile to DKP = 16, 32, 64 or 128
+// (QkRows): up to 64 a q/k row is one swizzle span, at 128 a tile is two
+// 64-column boxes with the k-steps crossing from one to the other, the
+// layout V's sub-tiles already had. dv is sliced (<= 256 a block), so it
+// has no limit.
+//
 // fp32 runs a CUDA-core tiling (256 threads, 4 q rows x 4 keys of S and 4
-// rows x 8 columns of O a thread, P through shared memory), unchanged from
-// the first port: it serves the parity checks only.
+// rows x 8 columns of O a thread, P through shared memory, dk in chunks of
+// 64 through shared memory): it serves the parity checks only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,6 +83,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
+
+// q/k rows: dk padded to DKP = 16, 32, 64 or 128 columns. Up to 64 a row is
+// one swizzle span of 2*DKP bytes and a 64-row tile one TMA box; at 128 a
+// row is wider than the 128-byte swizzle, so a tile is two boxes of 64
+// columns, 64 rows x 128 bytes = 8 KB apart (the layout of V's sub-tiles).
+template <int DKP>
+struct QkRows {
+  static constexpr int SW = DKP <= 64 ? 2 * DKP : 128;  // swizzle span, bytes
+  static constexpr int BOXES = 2 * DKP / SW;            // boxes of SW / 2 columns a tile
+  static constexpr int BOX_BYTES = 64 * SW;             // one box of a 64-row tile
+  // bytes from a K-major descriptor's start to k-step ks (16 columns)
+  __host__ __device__ static constexpr uint32_t kstep(int ks) { return (32 * ks / SW) * BOX_BYTES + (32 * ks) % SW; }
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -117,8 +139,8 @@ __host__ __device__ inline FwdLayout fwd_layout(int dkp, int dvs, int stages) {
 }
 
 // grid (q_tiles * n_slices, B); block 128 (one warpgroup). DKP = dk padded
-// to 16, 32 or 64 (the q/k swizzle is one row: 2*DKP bytes), DVS = the dv
-// slice padded to a multiple of 64.
+// to 16, 32, 64 or 128 (QkRows), DVS = the dv slice padded to a multiple of
+// 64.
 template <int DKP, int DVS>
 __global__ void __launch_bounds__(128, DVS <= 128 ? 3 : 2)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -126,7 +148,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
                        float* __restrict__ lse, int N, int M, int dv, int n_slices, int stages,
                        float c /* scale * log2(e) */) {
   using namespace sm90;
-  constexpr int SW = 2 * DKP;
+  using R = QkRows<DKP>;
+  constexpr int SW = R::SW;
   constexpr uint32_t kTileBytes = kBK * DKP * 2, vTileBytes = kBK * DVS * 2;
   const FwdLayout L = fwd_layout(DKP, DVS, stages);
   extern __shared__ uint8_t smem_raw[];
@@ -144,7 +167,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   auto issue = [&](int tile, int st) {
     uint64_t* bar = bars + 1 + st;
     mbar_arrive_expect_tx(bar, kTileBytes + vTileBytes);
-    tma_load_3d(sm + L.k_off + st * L.k_stage, &tk, bar, 0, tile * kBK, b);
+#pragma unroll
+    for (int h = 0; h < R::BOXES; ++h)
+      tma_load_3d(sm + L.k_off + st * L.k_stage + h * R::BOX_BYTES, &tk, bar, h * SW / 2,
+                  tile * kBK, b);
 #pragma unroll
     for (int j = 0; j < DVS / 64; ++j)
       tma_load_3d(sm + L.v_off + st * L.v_stage + j * 8192, &tv, bar, col0 + 64 * j, tile * kBK, b);
@@ -153,7 +179,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     for (int s = 0; s <= stages; ++s) mbar_init(bars + s, 1);
     fence_mbar_init();
     mbar_arrive_expect_tx(bars, kBQ * DKP * 2);
-    tma_load_3d(sm, &tq, bars, 0, q0, b);
+    for (int h = 0; h < R::BOXES; ++h) tma_load_3d(sm + h * R::BOX_BYTES, &tq, bars, h * SW / 2, q0, b);
     for (int s = 0; s < stages && s < n_tiles; ++s) issue(s, s);
   }
   __syncthreads();
@@ -164,7 +190,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     const uint64_t k_desc = make_desc(sm + L.k_off + st * L.k_stage, 16, 8 * SW, SW);
 #pragma unroll
     for (int ks = 0; ks < DKP / 16; ++ks)
-      wgmma_ss<64, 0, 0>(s, desc_advance(q_desc, 32 * ks), desc_advance(k_desc, 32 * ks), ks > 0);
+      wgmma_ss<64, 0, 0>(s, desc_advance(q_desc, R::kstep(ks)), desc_advance(k_desc, R::kstep(ks)),
+                         ks > 0);
   };
   float acc[DVS / 2];
 #pragma unroll
@@ -296,9 +323,10 @@ template <int DKP, int DVS>
 cudaError_t launch_fwd_wgmma(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
                              const void* k, const void* v, void* o, float* lse, int B, int N,
                              int M, int dk, int dv, int n_slices, int stages, float c) {
+  constexpr int SW = QkRows<DKP>::SW;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBQ, DKP, 2 * DKP);
-  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBK, DKP, 2 * DKP);
+  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBQ, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBK, SW / 2, SW);
   if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, B, M, dv, kBK, 64, 128);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DKP, DVS>,
@@ -328,8 +356,9 @@ cudaError_t launch_fwd_wgmma_dvs(int dvs, dim3 grid, size_t smem, cudaStream_t s
 // ---------------------------------------------------------------------------
 
 constexpr int kThreadsF32 = 256;  // 16 x 16: ty owns rows 4ty..4ty+3
-constexpr int kMaxDk = 64;
-constexpr int kRowStride = kMaxDk + 1;  // q/k/p rows in floats (odd: no bank conflicts)
+constexpr int kDkChunk = 64;      // q/k columns a shared-memory tile holds (fp32 paths)
+constexpr int kRowStride = kDkChunk + 1;  // q/k/p rows in floats (odd: no bank conflicts)
+constexpr int kMaxHeadDk = 128;   // the largest dk: the wgmma paths' dkp
 
 struct F32Smem {
   static constexpr int q = 0;
@@ -339,6 +368,19 @@ struct F32Smem {
   static constexpr size_t bytes = size_t(v + kBK * kDVS) * sizeof(float);
 };
 
+// rows [r0, r0 + rows) x columns [d0, d0 + kDkChunk) of a row-major [n, dk]
+// matrix into s[rows][kRowStride], zeros outside it
+__device__ __forceinline__ void load_chunk(float* s, const float* x, int rows, int r0, int n,
+                                           int d0, int dk, int tid, int threads) {
+  const int w = min(kDkChunk, dk - d0);
+  for (int i = tid; i < rows * kDkChunk; i += threads) {
+    const int r = i / kDkChunk, d = i - r * kDkChunk;
+    s[r * kRowStride + d] = r0 + r < n && d < w ? x[size_t(r0 + r) * dk + d0 + d] : 0.f;
+  }
+}
+
+// S sums over dk in chunks of 64 columns (the q tile stays in shared memory
+// when dk <= 64, else each chunk of q is loaded again beside k's).
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -358,11 +400,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + b * N * dk;
   const float* kb = k + b * M * dk;
   const float* vb = v + b * M * dv;
+  const bool one_chunk = dk <= kDkChunk;
 
-  for (int i = tid; i < kBQ * dk; i += kThreadsF32) {
-    const int r = i / dk, d = i - r * dk;
-    qs[r * kRowStride + d] = q0 + r < N ? qb[size_t(q0 + r) * dk + d] : 0.f;
-  }
+  if (one_chunk) load_chunk(qs, qb, kBQ, q0, N, 0, dk, tid, kThreadsF32);
 
   float acc[4][8];
   float m_run[4], l_run[4];
@@ -375,33 +415,35 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int kv0 = 0; kv0 < M; kv0 += kBK) {
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    for (int i = tid; i < kBK * dk; i += kThreadsF32) {
-      const int r = i / dk, d = i - r * dk;
-      kts[r * kRowStride + d] = kv0 + r < M ? kb[size_t(kv0 + r) * dk + d] : 0.f;
-    }
-    for (int i = tid; i < kBK * kDVS; i += kThreadsF32) {
-      const int r = i / kDVS, cc = i - r * kDVS;
-      vts[i] = kv0 + r < M && col0 + cc < dv ? vb[size_t(kv0 + r) * dv + col0 + cc] : 0.f;
-    }
-    __syncthreads();
-
     // S: rows 4ty+i, keys tx+16j
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dk; ++d) {
-      float qv[4], kv[4];
+    for (int d0 = 0; d0 < dk; d0 += kDkChunk) {
+      __syncthreads();  // the previous chunk (and tile's k, v and p) is consumed
+      if (!one_chunk) load_chunk(qs, qb, kBQ, q0, N, d0, dk, tid, kThreadsF32);
+      load_chunk(kts, kb, kBK, kv0, M, d0, dk, tid, kThreadsF32);
+      if (d0 == 0) {
+        for (int i = tid; i < kBK * kDVS; i += kThreadsF32) {
+          const int r = i / kDVS, cc = i - r * kDVS;
+          vts[i] = kv0 + r < M && col0 + cc < dv ? vb[size_t(kv0 + r) * dv + col0 + cc] : 0.f;
+        }
+      }
+      __syncthreads();
+      const int w = min(kDkChunk, dk - d0);
+      for (int d = 0; d < w; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * kRowStride + d];
+        for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * kRowStride + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kts[(tx + 16 * j) * kRowStride + d];
+        for (int j = 0; j < 4; ++j) kv[j] = kts[(tx + 16 * j) * kRowStride + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -417,13 +459,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      // the accurate exp2f, and no rescale while the max holds: with
+      // ex2.approx's rounding compounding once a tile, lse at M = 16384 was
+      // 3.2e-4 off float64 on an H100 (4.5e-6 now; the plain fp32
+      // version's 3.2e-6)
       const float sc = mx * c;
-      const float alpha = fast_exp2(m_run[i] * c - sc);
+      const float alpha = mx == m_run[i] ? 1.f : exp2f(m_run[i] * c - sc);
       m_run[i] = mx;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = fast_exp2(fmaf(s[i][j], c, -sc));
+        const float p = exp2f(fmaf(s[i][j], c, -sc));
         ps[(4 * ty + i) * kRowStride + tx + 16 * j] = p;
         sum += p;
       }
@@ -433,7 +479,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // O += P.V: rows 4ty+i, columns col0 + tx + 16j
+    // O += P.V: rows 4ty+i, columns col0 + tx + 16j; the tile's 64 keys sum
+    // apart first, so that no sum runs over more than 64 terms in sequence
+    float part[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
     for (int kk = 0; kk < kBK; ++kk) {
       float pv[4], vv[8];
 #pragma unroll
@@ -443,8 +495,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) part[i][j] = fmaf(pv[i], vv[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += part[i][j];
   }
 
   float* ob = o + b * N * dv;
@@ -523,9 +579,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // exp2 B3 would save 2 % at level 2, without the dq reduce 3 % (9 % at
 // level 3; tools/flash_ablation.py).
 //
-// fp32 runs on the CUDA cores in full fp32: a 256-thread block owns 32 keys
-// and the whole of dv, sweeps 32-row q tiles, and passes P and dS through
-// shared memory; dq takes scalar atomics.
+// Beyond dkp 64 or dv 512 a block cannot hold dK, dV and the score tiles in
+// registers: flash_bwd_split_kernel (below) splits a key tile's work over
+// dV blocks and one dK/dQ block. bwd_plan picks the design by shape.
+//
+// fp32 runs on the CUDA cores in full fp32 (flash_bwd_f32_kernel, any
+// width): a 256-thread block owns 32 keys and 64 output columns, sweeps
+// 32-row q tiles, and passes P and dS through shared memory; dq takes
+// scalar atomics.
 // ===========================================================================
 
 constexpr int kBwdBK = 64;        // keys per block
@@ -888,131 +949,517 @@ cudaError_t launch_bwd_wgmma_dvs(int dvs, int wgs, dim3 grid, size_t smem, cudaS
   }
 }
 
-// fp32 backward on the CUDA cores
+// ---------------------------------------------------------------------------
+// B3, bf16, split: q/k rows of 128 columns, or dv above 512
+// ---------------------------------------------------------------------------
+//
+// flash_bwd_wgmma_kernel keeps dK, dV (all of dv, over one or two
+// warpgroups) and the score tiles in registers at once, which holds up to
+// dkp 64 and dv 512. Past either, the work of a key tile is split over
+// blocks of two classes (grid (key_tiles * (n_slices + 1), B), one
+// warpgroup each), so that no block holds more than one of dK and dV:
+//   - n_slices dV blocks, one per dv slice of DVS <= 256 columns: each
+//     recomputes S^T = K.Q^T and P^T for every q tile and adds P^T.dO of its
+//     slice into dV (the forward's structure with keys and q rows swapped);
+//   - one dK/dQ block: S^T and P^T likewise, dP^T = V.dO^T as a loop over
+//     dv in chunks of 64 columns (V and dO chunks streamed through a TMA ring
+//     of kChunkStages, so no width of dv needs more shared memory or
+//     registers), then dS^T, dK += dS^T.Q, and dQ = dS.K by halves of <= 64
+//     columns into the bulk reduce-add of flash_bwd_wgmma_kernel.
+// S^T and P^T are computed n_slices + 1 times per key tile: the price of
+// any width. The q/k operand layouts at dkp 128 are those of V and dO
+// (QkRows: two 64-column boxes, K-major k-steps across the pair, MN-major
+// with the 8 KB box step as the leading byte offset).
+
+constexpr int kChunkStages = 2;
+constexpr int kChunkBytes = 2 * kBwdBK * 64 * 2;  // one V chunk, one dO chunk
+
+struct BwdSplitLayout {
+  int q_off, x_off, ds_off, dq_off, stat_off, bar_off, q_stage, do_stage, dq_buf;
+  size_t bytes;
+};
+
+// Shared memory of the split backward, in bytes from the 1024-aligned base:
+// K, `stages` Q tiles, then the class's own part (a dV block's `stages` dO
+// slices; a dK/dQ block's chunk ring, dS^T and two fp32 dq tiles), `stages`
+// lse/D tiles, and the mbarriers: [0] K, [1 + s] q stage s, [1 + stages + r]
+// chunk stage r. The plan mirrors this.
+__host__ __device__ inline BwdSplitLayout bwd_split_layout(int dkp, int dvs, int dk, int stages) {
+  BwdSplitLayout L;
+  L.q_stage = kBwdBQ * dkp * 2;
+  L.do_stage = kBwdBQ * dvs * 2;
+  L.dq_buf = kBwdBQ * dk * 4;
+  L.q_off = kBwdBK * dkp * 2;
+  L.x_off = L.q_off + stages * L.q_stage;
+  L.ds_off = L.x_off + kChunkStages * kChunkBytes;
+  L.dq_off = L.ds_off + kBwdBK * kBwdBQ * 2;
+  const int dv_end = L.x_off + stages * L.do_stage, dq_end = L.dq_off + 2 * L.dq_buf;
+  L.stat_off = dv_end > dq_end ? dv_end : dq_end;
+  L.bar_off = L.stat_off + stages * kStatBytes;
+  L.bytes = size_t(L.bar_off) + 8 * (1 + stages + kChunkStages) + 1024;
+  return L;
+}
+
+template <int DKP, int DVS>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ stat, float* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int N,
+                       int M, int dk, int dv, int n_slices, int stages, float c, float scale) {
+  using namespace sm90;
+  using R = QkRows<DKP>;
+  constexpr int SW = R::SW;
+  constexpr int DKH = DKP / R::BOXES;  // dQ's columns a product: one box
+  constexpr uint32_t qBytes = kBwdBQ * DKP * 2, doBytes = kBwdBQ * DVS * 2;
+  const BwdSplitLayout L = bwd_split_layout(DKP, DVS, dk, stages);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bar_off);
+  uint64_t* chunk_bars = bars + 1 + stages;
+
+  const int role = blockIdx.x % (n_slices + 1);  // < n_slices: dV of that slice; else dK and dQ
+  const bool dv_block = role < n_slices;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = (blockIdx.x / (n_slices + 1)) * kBwdBK;
+  const int b = blockIdx.y;
+  const int col0 = role * DVS;
+  const int n_qt = (N + kBwdBQ - 1) / kBwdBQ;
+  const int n_ch = (dv + 63) / 64;
+  const int n_seq = n_qt * n_ch;  // the dK/dQ block's chunk loads
+  const float* statb = stat + size_t(b) * n_qt * (2 * kBwdBQ);
+
+  auto issue = [&](int tile, int st) {  // Q, lse/D and (dV blocks) the dO slice of q tile `tile`
+    uint64_t* bar = bars + 1 + st;
+    mbar_arrive_expect_tx(bar, qBytes + kStatBytes + (dv_block ? doBytes : 0));
+#pragma unroll
+    for (int h = 0; h < R::BOXES; ++h)
+      tma_load_3d(sm + L.q_off + st * L.q_stage + h * R::BOX_BYTES, &tq, bar, h * SW / 2,
+                  tile * kBwdBQ, b);
+    if (dv_block) {
+#pragma unroll
+      for (int j = 0; j < DVS / 64; ++j)
+        tma_load_3d(sm + L.x_off + st * L.do_stage + j * 8192, &tdo, bar, col0 + 64 * j,
+                    tile * kBwdBQ, b);
+    }
+    bulk_load(sm + L.stat_off + st * kStatBytes, statb + size_t(tile) * (2 * kBwdBQ), kStatBytes,
+              bar);
+  };
+  auto issue_chunk = [&](int seq, int r) {  // V and dO columns 64 * (seq % n_ch) of q tile seq / n_ch
+    uint64_t* bar = chunk_bars + r;
+    uint8_t* dst = sm + L.x_off + r * kChunkBytes;
+    mbar_arrive_expect_tx(bar, kChunkBytes);
+    tma_load_3d(dst, &tv, bar, 64 * (seq % n_ch), k0, b);
+    tma_load_3d(dst + 8192, &tdo, bar, 64 * (seq % n_ch), (seq / n_ch) * kBwdBQ, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < 1 + stages + kChunkStages; ++s) mbar_init(bars + s, 1);
+    fence_mbar_init();
+    mbar_arrive_expect_tx(bars, kBwdBK * DKP * 2);
+    for (int h = 0; h < R::BOXES; ++h)
+      tma_load_3d(sm + h * R::BOX_BYTES, &tk, bars, h * SW / 2, k0, b);
+    for (int s = 0; s < stages && s < n_qt; ++s) issue(s, s);
+    if (!dv_block)
+      for (int r = 0; r < kChunkStages && r < n_seq; ++r) issue_chunk(r, r);
+  }
+  __syncthreads();
+
+  const uint64_t k_desc = make_desc(sm, 16, 8 * SW, SW);
+  const int krow = warp * 16 + g;  // this thread's keys: krow, krow + 8
+  const bool key_lo_ok = k0 + krow < M, key_hi_ok = k0 + krow + 8 < M;
+  const int key_lo = k0 + krow, key_hi = key_lo + 8;
+
+  // S^T = K.Q^T of the q tile in stage st (issued, not waited for), both K-major
+  auto scores = [&](float (&s)[32], const uint8_t* q_s) {
+    const uint64_t q_desc = make_desc(q_s, 16, 8 * SW, SW);
+#pragma unroll
+    for (int ks = 0; ks < DKP / 16; ++ks)
+      wgmma_ss<64, 0, 0>(s, desc_advance(k_desc, R::kstep(ks)), desc_advance(q_desc, R::kstep(ks)),
+                         ks > 0);
+  };
+  // P^T = exp2(S^T*c - lse*log2e) in place; keys past M get none
+  auto probs = [&](float (&s)[32], const float* l2) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      const float l0 = l2[col], l1 = l2[col + 1];
+      s[4 * j] = key_lo_ok ? fast_exp2(fmaf(s[4 * j], c, -l0)) : 0.f;
+      s[4 * j + 1] = key_lo_ok ? fast_exp2(fmaf(s[4 * j + 1], c, -l1)) : 0.f;
+      s[4 * j + 2] = key_hi_ok ? fast_exp2(fmaf(s[4 * j + 2], c, -l0)) : 0.f;
+      s[4 * j + 3] = key_hi_ok ? fast_exp2(fmaf(s[4 * j + 3], c, -l1)) : 0.f;
+    }
+  };
+
+  mbar_wait(bars, 0);
+  if (dv_block) {
+    float dv_acc[DVS / 2];
+#pragma unroll
+    for (int i = 0; i < DVS / 2; ++i) dv_acc[i] = 0.f;
+    for (int it = 0; it < n_qt; ++it) {
+      const int st = it % stages;
+      mbar_wait(bars + 1 + st, (it / stages) & 1);
+      const float* l2 = reinterpret_cast<const float*>(sm + L.stat_off + st * kStatBytes);
+      float s[32];
+      wgmma_fence();
+      scores(s, sm + L.q_off + st * L.q_stage);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      probs(s, l2);
+      uint32_t pa[4][4];
+      acc_to_a(s, pa);
+      // dV += P^T.dO of this slice (dO MN-major, 16 q rows a k-step)
+      const uint64_t do_desc = make_desc(sm + L.x_off + st * L.do_stage, 8192, 1024, 128);
+      fence_regs(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DVS, 1>(dv_acc, pa[kk], desc_advance(do_desc, 2048 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      __syncthreads();  // stage `st` is consumed
+      if (tid == 0 && it + stages < n_qt) issue(it + stages, st);
+    }
+    __nv_bfloat16* dvb = dv_out + size_t(b) * M * dv;
+#pragma unroll
+    for (int j = 0; j < DVS / 8; ++j) {
+      const int col = col0 + j * 8 + 2 * t;
+      if (col < dv) {
+        if (key_lo < M)
+          *reinterpret_cast<uint32_t*>(dvb + size_t(key_lo) * dv + col) =
+              pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+        if (key_hi < M)
+          *reinterpret_cast<uint32_t*>(dvb + size_t(key_hi) * dv + col) =
+              pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
+    }
+    return;
+  }
+
+  // the dK/dQ block
+  uint8_t* ds_s = sm + L.ds_off;
+  const uint64_t ds_desc = make_desc(ds_s, 16, 1024, 128);
+  float dk_acc[DKP / 2];
+#pragma unroll
+  for (int i = 0; i < DKP / 2; ++i) dk_acc[i] = 0.f;
+  int seq = 0;
+  for (int it = 0; it < n_qt; ++it) {
+    const int st = it % stages;
+    mbar_wait(bars + 1 + st, (it / stages) & 1);
+    const uint8_t* q_s = sm + L.q_off + st * L.q_stage;
+    const float* l2 = reinterpret_cast<const float*>(sm + L.stat_off + st * kStatBytes);
+    const float* dd = l2 + kBwdBQ;
+
+    float s[32], dp[32];
+    wgmma_fence();
+    scores(s, q_s);
+    wgmma_commit();
+    // dP^T = V.dO^T over dv, a 64-column chunk of each at a time (both K-major)
+    for (int ch = 0; ch < n_ch; ++ch, ++seq) {
+      const int r = seq % kChunkStages;
+      mbar_wait(chunk_bars + r, (seq / kChunkStages) & 1);
+      const uint8_t* v_c = sm + L.x_off + r * kChunkBytes;
+      const uint64_t v_desc = make_desc(v_c, 16, 1024, 128);
+      const uint64_t do_desc = make_desc(v_c + 8192, 16, 1024, 128);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64, 0, 0>(dp, desc_advance(v_desc, 32 * kk), desc_advance(do_desc, 32 * kk),
+                           ch > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dp);
+      __syncthreads();  // chunk stage r is consumed
+      if (tid == 0 && seq + kChunkStages < n_seq) issue_chunk(seq + kChunkStages, r);
+    }
+    fence_regs(s);
+    probs(s, l2);
+    // dS^T = P^T (dP^T - D)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      const float d0 = dd[col], d1 = dd[col + 1];
+      dp[4 * j] = s[4 * j] * (dp[4 * j] - d0);
+      dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d1);
+      dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d0);
+      dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d1);
+    }
+    uint32_t da[4][4];
+    acc_to_a(dp, da);
+    // dK += dS^T.Q from registers (Q MN-major, 16 q rows a k-step; at dkp
+    // 128 its two boxes are 8 KB apart along N)
+    const uint64_t q_mn = make_desc(q_s, DKP <= 64 ? 16 : R::BOX_BYTES, 8 * SW, SW);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DKP, 1>(dk_acc, da[kk], desc_advance(q_mn, 16 * SW * kk), 1);
+    wgmma_commit();
+    // dS^T (keys x 64 q, bf16) to shared memory in the 128-byte swizzle
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * kk + h;
+        const int r0 = krow, r1 = krow + 8;
+        *reinterpret_cast<uint32_t*>(ds_s + r0 * 128 + ((j ^ (r0 & 7)) << 4) + 4 * t) = da[kk][2 * h];
+        *reinterpret_cast<uint32_t*>(ds_s + r1 * 128 + ((j ^ (r1 & 7)) << 4) + 4 * t) =
+            da[kk][2 * h + 1];
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // dS^T of every warp is in shared memory
+
+    // dQ = dS.K over the block's 64 keys, one box of K's columns at a time
+    // (dS^T and K MN-major), scaled into this tile's fp32 dq buffer
+    float* dq_s = reinterpret_cast<float*>(sm + L.dq_off + (it & 1) * L.dq_buf);
+    const int qr = warp * 16 + g;
+#pragma unroll
+    for (int h = 0; h < R::BOXES; ++h) {
+      float dqa[DKH / 2];
+      const uint64_t k_mn = make_desc(sm + h * R::BOX_BYTES, 16, 8 * SW, SW);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DKH, 1, 1>(dqa, desc_advance(ds_desc, 2048 * kk), desc_advance(k_mn, 16 * SW * kk),
+                            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+#pragma unroll
+      for (int j = 0; j < DKH / 8; ++j) {
+        const int col = h * DKH + j * 8 + 2 * t;
+        if (col < dk) {
+          *reinterpret_cast<float2*>(dq_s + qr * dk + col) =
+              make_float2(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+          *reinterpret_cast<float2*>(dq_s + (qr + 8) * dk + col) =
+              make_float2(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
+        }
+      }
+    }
+    fence_regs(dk_acc);
+    fence_regs(da);
+    fence_proxy_async();
+    __syncthreads();  // the dq tile is written; stage `st` and dS^T are consumed
+    if (tid == 0) {
+      const int rows = min(kBwdBQ, N - it * kBwdBQ);
+      float* dq_tile = dq + (size_t(b) * N + size_t(it) * kBwdBQ) * dk;
+      bulk_reduce_add_f32(dq_tile, dq_s, uint32_t(rows * dk * 4));
+      bulk_commit();
+      bulk_wait_read<1>();  // the other dq buffer is free for the next tile
+      if (it + stages < n_qt) issue(it + stages, st);
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+
+  __nv_bfloat16* dkb = dk_out + size_t(b) * M * dk;
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (col < dk) {
+      if (key_lo < M)
+        *reinterpret_cast<uint32_t*>(dkb + size_t(key_lo) * dk + col) =
+            pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
+      if (key_hi < M)
+        *reinterpret_cast<uint32_t*>(dkb + size_t(key_hi) * dk + col) =
+            pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
+    }
+  }
+}
+
+template <int DKP, int DVS>
+cudaError_t launch_bwd_split(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
+                             const void* k, const void* v, const void* dout, const float* stat,
+                             float* dq, void* dk_out, void* dv_out, int B, int N, int M, int dk,
+                             int dv, int n_slices, int stages, float c, float scale) {
+  constexpr int SW = QkRows<DKP>::SW;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBwdBQ, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBwdBK, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, B, M, dv, kBwdBK, 64, 128);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tdo, dout, B, N, dv, kBwdBQ, 64, 128);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_split_kernel<DKP, DVS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_bwd_split_kernel<DKP, DVS><<<grid, kBwdThreads, smem, stream>>>(
+      tq, tk, tv, tdo, stat, dq, static_cast<__nv_bfloat16*>(dk_out),
+      static_cast<__nv_bfloat16*>(dv_out), N, M, dk, dv, n_slices, stages, c, scale);
+  return cudaGetLastError();
+}
+
+// the (dkp, dv slice) pairs the plan gives the split design: dkp 128 at any
+// slice; dkp <= 64 only above dv 512, where three or more slices of <= 256
+// are each wider than 170 columns
+cudaError_t launch_bwd_split_any(int dkp, int dvs, dim3 grid, size_t smem, cudaStream_t stream,
+                                 const void* q, const void* k, const void* v, const void* dout,
+                                 const float* stat, float* dq, void* dk_out, void* dv_out, int B,
+                                 int N, int M, int dk, int dv, int n_slices, int stages, float c,
+                                 float scale) {
+#define ADEPTH_SPLIT(P, S) \
+  case P * 1000 + S: return launch_bwd_split<P, S>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, n_slices, stages, c, scale);
+  switch (dkp * 1000 + dvs) {
+    ADEPTH_SPLIT(16, 192) ADEPTH_SPLIT(16, 256) ADEPTH_SPLIT(32, 192) ADEPTH_SPLIT(32, 256)
+    ADEPTH_SPLIT(64, 192) ADEPTH_SPLIT(64, 256) ADEPTH_SPLIT(128, 64) ADEPTH_SPLIT(128, 128)
+    ADEPTH_SPLIT(128, 192) ADEPTH_SPLIT(128, 256)
+    default: return cudaErrorInvalidValue;
+  }
+#undef ADEPTH_SPLIT
+}
+
+// ---------------------------------------------------------------------------
+// B3, fp32: the CUDA cores, any width
+// ---------------------------------------------------------------------------
+//
+// A 256-thread block owns 32 keys and one output slice of 64 columns: a
+// slice of dV (slices 0 .. n_dv - 1) or of dK (the rest); slice 0 also adds
+// dQ by scalar atomics. For every 32-row q tile it computes S (over dk) and
+// dP (over dv) in chunks of 64 columns through shared memory, then P and dS,
+// then its slice. The scores are recomputed for every slice: the simplest
+// route at every width; it serves the parity checks only.
 constexpr int kBwdF32BK = 32;   // keys per block
 constexpr int kBwdF32BQ = 32;   // q rows per sweep step
 constexpr int kPStride = kBwdF32BQ + 1;
 
-inline size_t bwd_f32_bytes(int dv) {
-  const int vstr = dv + 1;
-  return sizeof(float) * size_t(2 * kBwdF32BK * kRowStride + 2 * kBwdF32BK * vstr +
-                                2 * kBwdF32BQ * kPStride + 2 * kBwdF32BQ);
-}
+struct BwdF32Smem {
+  static constexpr int k = 0;                                  // [32][kRowStride], a dk chunk
+  static constexpr int q = k + kBwdF32BK * kRowStride;         // [32][kRowStride]
+  static constexpr int v = q + kBwdF32BQ * kRowStride;         // [32][kRowStride], a dv chunk
+  static constexpr int d = v + kBwdF32BK * kRowStride;         // [32][kRowStride], dO's
+  static constexpr int p = d + kBwdF32BQ * kRowStride;         // [q][key]
+  static constexpr int ds = p + kBwdF32BQ * kPStride;          // [q][key]
+  static constexpr int l2 = ds + kBwdF32BQ * kPStride;
+  static constexpr int dd = l2 + kBwdF32BQ;
+  static constexpr size_t bytes = size_t(dd + kBwdF32BQ) * sizeof(float);
+};
 
-// grid (key_tiles, B); block 256: ty = tid / 16 owns rows 2ty, 2ty + 1 (q rows
-// of S, P, dS and dq; keys of dk and dv), tx the columns tx + 16j
+// grid (key_tiles * n_slices, B); block 256: ty = tid / 16 owns rows 2ty,
+// 2ty + 1 (q rows of S, P, dS and dq; keys of the slice), tx the keys tx,
+// tx + 16 of S and the columns tx + 16j of the slice
 __global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ dsum,
                      float* __restrict__ dq, float* __restrict__ dk_out,
-                     float* __restrict__ dv_out, int N, int M, int dk, int dv, float c,
-                     float scale) {
+                     float* __restrict__ dv_out, int N, int M, int dk, int dv, int n_slices,
+                     float c, float scale) {
   extern __shared__ float smem_f[];
-  const int vstr = dv + 1;  // odd: no bank conflicts along keys
-  float* ks = smem_f;                          // [32][kRowStride]
-  float* qs = ks + kBwdF32BK * kRowStride;     // [32][kRowStride]
-  float* vs = qs + kBwdF32BQ * kRowStride;     // [32][vstr]
-  float* dos = vs + kBwdF32BK * vstr;          // [32][vstr]
-  float* ps = dos + kBwdF32BQ * vstr;          // [q][key]
-  float* dss = ps + kBwdF32BQ * kPStride;      // [q][key]
-  float* l2s = dss + kBwdF32BQ * kPStride;
-  float* dds = l2s + kBwdF32BQ;
+  float* ks = smem_f + BwdF32Smem::k;
+  float* qs = smem_f + BwdF32Smem::q;
+  float* vs = smem_f + BwdF32Smem::v;
+  float* dos = smem_f + BwdF32Smem::d;
+  float* ps = smem_f + BwdF32Smem::p;
+  float* dss = smem_f + BwdF32Smem::ds;
+  float* l2s = smem_f + BwdF32Smem::l2;
+  float* dds = smem_f + BwdF32Smem::dd;
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * kBwdF32BK;
+  const int slice = blockIdx.x % n_slices;
+  const int k0 = (blockIdx.x / n_slices) * kBwdF32BK;
+  const int n_dv = (dv + kDkChunk - 1) / kDkChunk;
+  const bool dv_slice = slice < n_dv;
+  const int c0 = (dv_slice ? slice : slice - n_dv) * kDkChunk;  // the slice's first column
   const size_t b = blockIdx.y;
   const float* qb = q + b * N * dk;
   const float* kb = k + b * M * dk;
   const float* vb = v + b * M * dv;
   const float* dob = dout + b * N * dv;
 
-  for (int i = tid; i < kBwdF32BK * dk; i += kThreadsF32) {
-    const int r = i / dk, d = i - r * dk;
-    ks[r * kRowStride + d] = k0 + r < M ? kb[size_t(k0 + r) * dk + d] : 0.f;
-  }
-  for (int i = tid; i < kBwdF32BK * dv; i += kThreadsF32) {
-    const int r = i / dv, d = i - r * dv;
-    vs[r * vstr + d] = k0 + r < M ? vb[size_t(k0 + r) * dv + d] : 0.f;
-  }
-
-  float dva[2][kBwdMaxDv / 16];
-  float dka[2][kMaxDk / 16];
+  float acc[2][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < kBwdMaxDv / 16; ++j) dva[i][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxDk / 16; ++j) dka[i][j] = 0.f;
-  }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int q0 = 0; q0 < N; q0 += kBwdF32BQ) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kBwdF32BQ * dk; i += kThreadsF32) {
-      const int r = i / dk, d = i - r * dk;
-      qs[r * kRowStride + d] = q0 + r < N ? qb[size_t(q0 + r) * dk + d] : 0.f;
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    for (int d0 = 0; d0 < dk; d0 += kDkChunk) {  // S: q rows 2ty + i, keys tx + 16jj
+      __syncthreads();  // the last chunk (or tile) is consumed
+      load_chunk(ks, kb, kBwdF32BK, k0, M, d0, dk, tid, kThreadsF32);
+      load_chunk(qs, qb, kBwdF32BQ, q0, N, d0, dk, tid, kThreadsF32);
+      if (d0 == 0 && tid < kBwdF32BQ) {
+        l2s[tid] = q0 + tid < N ? lse[b * N + q0 + tid] * kLog2e : 0.f;
+        dds[tid] = q0 + tid < N ? dsum[b * N + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          for (int d = 0; d < kDkChunk; ++d)
+            s[i][jj] = fmaf(qs[(2 * ty + i) * kRowStride + d], ks[(tx + 16 * jj) * kRowStride + d],
+                            s[i][jj]);
     }
-    for (int i = tid; i < kBwdF32BQ * dv; i += kThreadsF32) {
-      const int r = i / dv, d = i - r * dv;
-      dos[r * vstr + d] = q0 + r < N ? dob[size_t(q0 + r) * dv + d] : 0.f;
+    for (int d0 = 0; d0 < dv; d0 += kDkChunk) {  // dP = dO.V^T likewise
+      __syncthreads();
+      load_chunk(vs, vb, kBwdF32BK, k0, M, d0, dv, tid, kThreadsF32);
+      load_chunk(dos, dob, kBwdF32BQ, q0, N, d0, dv, tid, kThreadsF32);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          for (int d = 0; d < kDkChunk; ++d)
+            dp[i][jj] = fmaf(dos[(2 * ty + i) * kRowStride + d], vs[(tx + 16 * jj) * kRowStride + d],
+                             dp[i][jj]);
     }
-    if (tid < kBwdF32BQ) {
-      l2s[tid] = q0 + tid < N ? lse[b * N + q0 + tid] * kLog2e : 0.f;
-      dds[tid] = q0 + tid < N ? dsum[b * N + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // P and dS: q rows 2ty + i, keys tx + 16jj
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qr = 2 * ty + i;
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const int key = tx + 16 * jj;
-        float s = 0.f, dp = 0.f;
-        for (int d = 0; d < dk; ++d) s = fmaf(qs[qr * kRowStride + d], ks[key * kRowStride + d], s);
-        for (int d = 0; d < dv; ++d) dp = fmaf(dos[qr * vstr + d], vs[key * vstr + d], dp);
-        const float p = k0 + key < M ? fast_exp2(fmaf(s, c, -l2s[qr])) : 0.f;
+        const float p = k0 + key < M ? exp2f(fmaf(s[i][jj], c, -l2s[qr])) : 0.f;
         ps[qr * kPStride + key] = p;
-        dss[qr * kPStride + key] = p * (dp - dds[qr]);
+        dss[qr * kPStride + key] = p * (dp[i][jj] - dds[qr]);
       }
     }
+    // the slice's operand: dO (for dV) or Q (for dK) at columns c0 .. c0 + 63
     __syncthreads();
-
-    // dv += P^T.dO and dk += dS^T.Q for keys 2ty + i
+    if (dv_slice)
+      load_chunk(dos, dob, kBwdF32BQ, q0, N, c0, dv, tid, kThreadsF32);
+    else
+      load_chunk(qs, qb, kBwdF32BQ, q0, N, c0, dk, tid, kThreadsF32);
+    __syncthreads();
+    const float* w = dv_slice ? ps : dss;
+    const float* x = dv_slice ? dos : qs;
+    float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // this q tile's sum
     for (int qq = 0; qq < kBwdF32BQ; ++qq) {
-      const float p0 = ps[qq * kPStride + 2 * ty], p1 = ps[qq * kPStride + 2 * ty + 1];
-      const float s0 = dss[qq * kPStride + 2 * ty], s1 = dss[qq * kPStride + 2 * ty + 1];
+      const float w0 = w[qq * kPStride + 2 * ty], w1 = w[qq * kPStride + 2 * ty + 1];
 #pragma unroll
-      for (int j = 0; j < kBwdMaxDv / 16; ++j) {
-        if (tx + 16 * j < dv) {
-          const float o = dos[qq * vstr + tx + 16 * j];
-          dva[0][j] = fmaf(p0, o, dva[0][j]);
-          dva[1][j] = fmaf(p1, o, dva[1][j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kMaxDk / 16; ++j) {
-        if (tx + 16 * j < dk) {
-          const float qv = qs[qq * kRowStride + tx + 16 * j];
-          dka[0][j] = fmaf(s0, qv, dka[0][j]);
-          dka[1][j] = fmaf(s1, qv, dka[1][j]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const float xv = x[qq * kRowStride + tx + 16 * j];
+        part[0][j] = fmaf(w0, xv, part[0][j]);
+        part[1][j] = fmaf(w1, xv, part[1][j]);
       }
     }
-    // dq rows 2ty + i: dS.K over the block's keys
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qr = 2 * ty + i;
-      if (q0 + qr >= N) continue;
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < kMaxDk / 16; ++j) {
-        const int d = tx + 16 * j;
-        if (d < dk) {
-          float acc = 0.f;
-          for (int key = 0; key < kBwdF32BK; ++key)
-            acc = fmaf(dss[qr * kPStride + key], ks[key * kRowStride + d], acc);
-          atomicAdd(dq + (b * N + q0 + qr) * dk + d, acc * scale);
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+    if (slice == 0) {  // dq rows 2ty + i: dS.K over the block's keys, chunk by chunk of dk
+      for (int d0 = 0; d0 < dk; d0 += kDkChunk) {
+        __syncthreads();
+        load_chunk(ks, kb, kBwdF32BK, k0, M, d0, dk, tid, kThreadsF32);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qr = 2 * ty + i;
+          if (q0 + qr >= N) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int d = d0 + tx + 16 * j;
+            if (d < dk) {
+              float a = 0.f;
+              for (int key = 0; key < kBwdF32BK; ++key)
+                a = fmaf(dss[qr * kPStride + key], ks[key * kRowStride + tx + 16 * j], a);
+              atomicAdd(dq + (b * N + q0 + qr) * dk + d, a * scale);
+            }
+          }
         }
       }
     }
@@ -1023,12 +1470,135 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int key = k0 + 2 * ty + i;
     if (key >= M) continue;
 #pragma unroll
-    for (int j = 0; j < kBwdMaxDv / 16; ++j)
-      if (tx + 16 * j < dv) dv_out[(b * M + key) * dv + tx + 16 * j] = dva[i][j];
-#pragma unroll
-    for (int j = 0; j < kMaxDk / 16; ++j)
-      if (tx + 16 * j < dk) dk_out[(b * M + key) * dk + tx + 16 * j] = dka[i][j] * scale;
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (dv_slice && col < dv) dv_out[(b * M + key) * dv + col] = acc[i][j];
+      if (!dv_slice && col < dk) dk_out[(b * M + key) * dk + col] = acc[i][j] * scale;
+    }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Layout probe: the q/k operand layouts alone
+// ---------------------------------------------------------------------------
+//
+// On no path. One 64-row tile of q and of k, loaded as B2 and B3 load them
+// (QkRows<DKP>), and the three products that read them with the kernels'
+// descriptors: S = Q.K^T (both K-major: B2's scores, B3's S^T), X =
+// bf16(S).Q (Q MN-major: B3's dK += dS^T.Q) and Y = bf16(S).K (K MN-major a
+// box at a time: B3's dQ = dS.K). chip_smoke.py holds them against
+// torch.matmul, so that a wrong swizzle or descriptor at a dkp shows alone,
+// before the kernels that use it.
+template <int DKP>
+__global__ void __launch_bounds__(128)
+flash_layout_probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          float* __restrict__ s_out, float* __restrict__ x_out,
+                          float* __restrict__ y_out, int dk) {
+  using namespace sm90;
+  using R = QkRows<DKP>;
+  constexpr int SW = R::SW;
+  constexpr int DKH = DKP / R::BOXES;
+  constexpr int kTile = 64 * DKP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + 2 * kTile);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_mbar_init();
+    mbar_arrive_expect_tx(bar, 2 * kTile);
+    for (int h = 0; h < R::BOXES; ++h) {
+      tma_load_3d(sm + h * R::BOX_BYTES, &tq, bar, h * SW / 2, 0, 0);
+      tma_load_3d(sm + kTile + h * R::BOX_BYTES, &tk, bar, h * SW / 2, 0, 0);
+    }
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+
+  float s[32];
+  const uint64_t q_desc = make_desc(sm, 16, 8 * SW, SW);
+  const uint64_t k_desc = make_desc(sm + kTile, 16, 8 * SW, SW);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DKP / 16; ++ks)
+    wgmma_ss<64, 0, 0>(s, desc_advance(q_desc, R::kstep(ks)), desc_advance(k_desc, R::kstep(ks)),
+                       ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  uint32_t a[4][4];
+  acc_to_a(s, a);
+
+  float x[DKP / 2];
+#pragma unroll
+  for (int i = 0; i < DKP / 2; ++i) x[i] = 0.f;
+  const uint64_t q_mn = make_desc(sm, DKP <= 64 ? 16 : R::BOX_BYTES, 8 * SW, SW);
+  fence_regs(x);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DKP, 1>(x, a[kk], desc_advance(q_mn, 16 * SW * kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(x);
+
+  const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    s_out[r_lo * 64 + col] = s[4 * j];
+    s_out[r_lo * 64 + col + 1] = s[4 * j + 1];
+    s_out[r_hi * 64 + col] = s[4 * j + 2];
+    s_out[r_hi * 64 + col + 1] = s[4 * j + 3];
+  }
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (col < dk) {
+      x_out[r_lo * dk + col] = x[4 * j];
+      x_out[r_lo * dk + col + 1] = x[4 * j + 1];
+      x_out[r_hi * dk + col] = x[4 * j + 2];
+      x_out[r_hi * dk + col + 1] = x[4 * j + 3];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < R::BOXES; ++h) {
+    float y[DKH / 2];
+#pragma unroll
+    for (int i = 0; i < DKH / 2; ++i) y[i] = 0.f;
+    const uint64_t k_mn = make_desc(sm + kTile + h * R::BOX_BYTES, 16, 8 * SW, SW);
+    fence_regs(y);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DKH, 1>(y, a[kk], desc_advance(k_mn, 16 * SW * kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(y);
+#pragma unroll
+    for (int j = 0; j < DKH / 8; ++j) {
+      const int col = h * DKH + j * 8 + 2 * t;
+      if (col < dk) {
+        y_out[r_lo * dk + col] = y[4 * j];
+        y_out[r_lo * dk + col + 1] = y[4 * j + 1];
+        y_out[r_hi * dk + col] = y[4 * j + 2];
+        y_out[r_hi * dk + col + 1] = y[4 * j + 3];
+      }
+    }
+  }
+  fence_regs(a);
+}
+
+template <int DKP>
+cudaError_t launch_layout_probe(cudaStream_t stream, const void* q, const void* k, float* s,
+                                float* x, float* y, int dk) {
+  constexpr int SW = QkRows<DKP>::SW;
+  CUtensorMap tq, tk;
+  cudaError_t err = sm90::make_map_bf16(&tq, q, 1, kBQ, dk, kBQ, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, 1, kBK, dk, kBK, SW / 2, SW);
+  if (err != cudaSuccess) return err;
+  const size_t smem = 2 * 64 * DKP * 2 + 8 + 1024;  // two tiles, the mbarrier, alignment slack
+  flash_layout_probe_kernel<DKP><<<1, 128, smem, stream>>>(tq, tk, s, x, y, dk);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1040,15 +1610,16 @@ extern "C" {
 // memory bytes and grid.x; they are checked here against the kernel's own layout
 // and a mismatch returns cudaErrorInvalidValue. Launches on `stream` of
 // `device`; returns cudaGetLastError() (0 on success). The caller checks
-// shapes: dk % 8 == 0, dk <= 64, dv % 8 == 0, 16-byte aligned contiguous
-// tensors, B <= 65535.
+// shapes: dk and dv multiples of 8 (the wrapper zero-pads them), dk <= 128,
+// 16-byte aligned contiguous tensors, B <= 65535.
 int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int B, int N, int M, int dk, int dv, float scale, int variant,
                                int dkp, int dvs, int block, int stages, long long smem,
                                int grid_x, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dk <= 0 || dk > kMaxDk || dk % 8 || dv % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (dk <= 0 || dk > kMaxHeadDk || dk % 8 || dv <= 0 || dv % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float c = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -1075,6 +1646,7 @@ int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void
     case 16: err = launch_fwd_wgmma_dvs<16>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
     case 32: err = launch_fwd_wgmma_dvs<32>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
     case 64: err = launch_fwd_wgmma_dvs<64>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+    case 128: err = launch_fwd_wgmma_dvs<128>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -1082,13 +1654,14 @@ int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void
 
 // Kernel B3. dq is a zeroed fp32 [B, N, dk] buffer the kernel adds into;
 // dk and dv are written in the input dtype; lse is fp32 [B, N]. Variant 0
-// (fp32) reads D from dsum [B, N]; variant 2 (bf16 wgmma, one warpgroup a
-// block for dv <= 256, two above) first runs flash_bwd_prep_kernel from o,
-// dout and lse into `stat` [B, q_tiles, 2, 64] fp32. The plan's dkp, dvs
-// (the dv columns of one warpgroup), block, stages, smem and grid_x are
-// checked as in the forward. The caller checks shapes: dk % 8 == 0, dk <=
-// 64, dv % 8 == 0, dv <= 512, 16-byte aligned contiguous tensors, B <=
-// 65535.
+// (fp32) reads D from dsum [B, N]; variants 2 (bf16 wgmma, one warpgroup a
+// block for dv <= 256, two above, dkp <= 64 and dv <= 512) and 3 (bf16
+// split: dV blocks per dv slice beside a dK/dQ block per key tile) first
+// run flash_bwd_prep_kernel from o, dout and lse into `stat` [B, q_tiles,
+// 2, 64] fp32. The plan's dkp, dvs (the dv columns of one warpgroup),
+// block, stages, smem and grid_x are checked as in the forward. The caller
+// checks shapes: dk and dv multiples of 8, dk <= 128, 16-byte aligned
+// contiguous tensors, B <= 65535.
 int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                const void* o, const void* lse, const void* dsum, void* stat,
                                void* dq, void* dk_out, void* dv_out, int B, int N, int M, int dk,
@@ -1096,16 +1669,18 @@ int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, cons
                                int stages, long long smem, int grid_x, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dk <= 0 || dk > kMaxDk || dk % 8 || dv <= 0 || dv % 8 || dv > kBwdMaxDv)
+  if (dk <= 0 || dk > kMaxHeadDk || dk % 8 || dv <= 0 || dv % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const float c = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dqf = static_cast<float*>(dq);
   const dim3 grid(grid_x, B);
+  const int key_tiles = (M + kBwdBK - 1) / kBwdBK;
   if (variant == 0) {
-    if (block != kThreadsF32 || size_t(smem) != bwd_f32_bytes(dv) ||
-        grid_x != (M + kBwdF32BK - 1) / kBwdF32BK)
+    const int n_slices = (dv + kDkChunk - 1) / kDkChunk + (dk + kDkChunk - 1) / kDkChunk;
+    if (block != kThreadsF32 || size_t(smem) != BwdF32Smem::bytes ||
+        grid_x != (M + kBwdF32BK - 1) / kBwdF32BK * n_slices)
       return static_cast<int>(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -1113,25 +1688,60 @@ int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, cons
     flash_bwd_f32_kernel<<<grid, kThreadsF32, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), l, static_cast<const float*>(dsum), dqf,
-        static_cast<float*>(dk_out), static_cast<float*>(dv_out), N, M, dk, dv, c, scale);
+        static_cast<float*>(dk_out), static_cast<float*>(dv_out), N, M, dk, dv, n_slices, c,
+        scale);
     return static_cast<int>(cudaGetLastError());
   }
   const int q_tiles = (N + kBwdBQ - 1) / kBwdBQ;
   const int wgs = block / kBwdThreads;
-  if (variant != 2 || (wgs != 1 && wgs != 2) || block % kBwdThreads || dkp < dk ||
-      dvs * wgs < dv || (wgs == 2 && dv <= 256) || dvs % 64 || dvs > 256 || stages < 1 ||
-      size_t(smem) != bwd_wg_layout(dkp, dvs * wgs, dk, stages, wgs).bytes ||
-      grid_x != (M + kBwdBK - 1) / kBwdBK)
-    return static_cast<int>(cudaErrorInvalidValue);
+  bool ok;
+  if (variant == 2) {
+    ok = (wgs == 1 || wgs == 2) && block % kBwdThreads == 0 && dkp >= dk && dkp <= 64 &&
+         dvs * wgs >= dv && dv <= kBwdMaxDv && !(wgs == 2 && dv <= 256) && dvs % 64 == 0 &&
+         dvs <= 256 && stages >= 1 &&
+         size_t(smem) == bwd_wg_layout(dkp, dvs * wgs, dk, stages, wgs).bytes &&
+         grid_x == key_tiles;
+  } else {
+    const int n_slices = (dv + 255) / 256;
+    ok = variant == 3 && block == kBwdThreads && dkp >= dk && dvs * n_slices >= dv &&
+         dvs % 64 == 0 && dvs <= 256 && stages >= 1 &&
+         size_t(smem) == bwd_split_layout(dkp, dvs, dk, stages).bytes &&
+         grid_x == key_tiles * (n_slices + 1);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   float* stf = static_cast<float*>(stat);
   flash_bwd_prep_kernel<<<dim3(q_tiles, B), 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), l, stf, N, dv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (variant == 3)
+    return static_cast<int>(launch_bwd_split_any(dkp, dvs, grid, smem, st, q, k, v, dout, stf, dqf,
+                                                 dk_out, dv_out, B, N, M, dk, dv,
+                                                 (dv + 255) / 256, stages, c, scale));
   switch (dkp) {
     case 16: err = launch_bwd_wgmma_dvs<16>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
     case 32: err = launch_bwd_wgmma_dvs<32>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
     case 64: err = launch_bwd_wgmma_dvs<64>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The layout probe (flash_layout_probe_kernel): q and k bf16 [64, dk]
+// contiguous, dk a multiple of 8 up to dkp; s fp32 [64, 64], x and y fp32
+// [64, dk]. Returns cudaGetLastError() (0 on success).
+int adepth_flash_layout_probe(const void* q, const void* k, void* s, void* x, void* y, int dk,
+                              int dkp, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dk <= 0 || dk % 8 || dk > dkp) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float *sf = static_cast<float*>(s), *xf = static_cast<float*>(x), *yf = static_cast<float*>(y);
+  switch (dkp) {
+    case 16: err = launch_layout_probe<16>(st, q, k, sf, xf, yf, dk); break;
+    case 32: err = launch_layout_probe<32>(st, q, k, sf, xf, yf, dk); break;
+    case 64: err = launch_layout_probe<64>(st, q, k, sf, xf, yf, dk); break;
+    case 128: err = launch_layout_probe<128>(st, q, k, sf, xf, yf, dk); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

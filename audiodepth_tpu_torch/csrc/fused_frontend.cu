@@ -68,6 +68,19 @@
 // * Min-max on chip: the channel's min / max across its blocks through
 //   distributed shared memory, and a second cluster.sync before any block
 //   exits. Output [B, C, M, T] fp32, stored row by row.
+// * Long inputs (two passes). A block holds at most 128 frames of log-mel
+//   beside the constants, and a cluster at most 16 blocks, so a channel of
+//   more than 2,048 frames cannot keep its min-max inside one cluster. For
+//   such plans (FrontendPlan.two_pass) a channel's blocks are consecutive
+//   in the grid and clusters only share the constants: each block writes
+//   its raw log-mel to the output and its (min, max) to a small buffer
+//   [B*C, blocks_per_channel, 2], and a second kernel of the same call
+//   (frontend_normalize_kernel, one block a channel) reduces a channel's
+//   pairs and normalises its output in place, with the same formula. The
+//   other option, blocks looping over frame tiles of a channel, would need
+//   the whole channel's log-mel on chip (128 bytes a frame): 47 KB are left
+//   beside the constants. The second pass reads and writes the output once
+//   more, which the one-pass form of the main path's shapes never pays.
 //
 // Traps.
 // * Alignment. A waveform row of 7782 floats is 31,128 bytes, so every
@@ -159,6 +172,7 @@ struct Params {
   float* out;  // [bc, n_mels, T]
   int bc, L, T, hop, start;
   int frames_per_block, blocks_per_channel;
+  float* block_minmax;  // two-pass plans: [bc, blocks_per_channel, 2]; else null
 };
 
 __device__ __forceinline__ int reflect_index(int s, int L) {
@@ -348,7 +362,8 @@ struct SegPrefetch {
 
 // grid (n_clusters * cluster_size); cluster (cluster_size, 1, 1) as a
 // launch attribute; block r of a cluster computes frames
-// [(r % nb) * F, ...) of the cluster's channel r / nb
+// [(r % nb) * F, ...) of the cluster's channel r / nb. Two-pass plans:
+// block i computes frames [(i % nb) * F, ...) of channel i / nb.
 __global__ void __launch_bounds__(kThreads, 1) fused_mel_frontend_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemLayout lay(p.frames_per_block, p.hop, p.const_bytes, p.n_ntiles, p.n_mels);
@@ -365,9 +380,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mel_frontend_kernel(const P
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cs = int(cluster.num_blocks()), rank = int(cluster.block_rank());
   const int nb = p.blocks_per_channel, F = p.frames_per_block;
-  const int ch = int(blockIdx.x) / cs * (cs / nb) + rank / nb;
+  const bool two_pass = p.block_minmax != nullptr;
+  const int ch = two_pass ? int(blockIdx.x) / nb : int(blockIdx.x) / cs * (cs / nb) + rank / nb;
+  const int part = two_pass ? int(blockIdx.x) % nb : rank % nb;
   const bool live = ch < p.bc;  // the last cluster may hold fewer channels
-  const int f_begin = min(p.T, rank % nb * F), f_end = min(p.T, f_begin + F);
+  const int f_begin = min(p.T, part * F), f_end = min(p.T, f_begin + F);
   const float* x = p.wave + (live ? (ch / p.n_c) * p.stride_b + (ch % p.n_c) * p.stride_c : 0);
 
   // Constants: every block's barrier is initialised before any copy can
@@ -456,6 +473,23 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mel_frontend_kernel(const P
       s_block[1] = hi;
     }
   }
+  const int nf = f_end - f_begin;
+  if (two_pass) {  // raw log-mel and this block's (min, max); the second pass normalises
+    __syncthreads();
+    if (live) {
+      if (tid == 0) {
+        p.block_minmax[2 * (size_t(ch) * nb + part)] = s_block[0];
+        p.block_minmax[2 * (size_t(ch) * nb + part) + 1] = s_block[1];
+      }
+      float* y = p.out + size_t(ch) * p.n_mels * p.T + f_begin;
+      for (int i = tid; i < p.n_mels * nf; i += kThreads) {
+        const int j = i / nf, f = i - j * nf;
+        y[size_t(j) * p.T + f] = s_logmel[j * F + f];
+      }
+    }
+    cluster.sync();  // no block exits while its cluster's copies may still land
+    return;
+  }
   cluster.sync();  // every block's s_block is written
   if (warp == 0) {
     lo = INFINITY;
@@ -478,12 +512,41 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mel_frontend_kernel(const P
   // (x - lo) times the IEEE reciprocal of the range: within 1.5 ulp of the
   // plain version's division, without its slow path in every thread
   const float scale = hi > lo ? __frcp_rn(hi - lo) : 0.f;
-  const int nf = f_end - f_begin;
   float* y = p.out + size_t(ch) * p.n_mels * p.T + f_begin;
   for (int i = tid; i < p.n_mels * nf; i += kThreads) {
     const int j = i / nf, f = i - j * nf;
     y[size_t(j) * p.T + f] = (s_logmel[j * F + f] - lo) * scale;
   }
+}
+
+// The second pass of a two-pass plan: grid (bc), block kThreads. The
+// channel's min / max over its blocks' pairs, then (x - lo) * (1 / range)
+// over its [n_mels, T] output in place, as the one-pass kernel writes it.
+__global__ void __launch_bounds__(kThreads) frontend_normalize_kernel(
+    float* __restrict__ out, const float* __restrict__ block_minmax, int nb, int n_mels, int T) {
+  __shared__ float s_warp[2][kWarps];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t ch = blockIdx.x;
+  float lo = INFINITY, hi = -INFINITY;
+  for (int i = tid; i < nb; i += kThreads) {
+    lo = fminf(lo, block_minmax[2 * (ch * nb + i)]);
+    hi = fmaxf(hi, block_minmax[2 * (ch * nb + i) + 1]);
+  }
+  warp_minmax(lo, hi);
+  if (lane == 0) {
+    s_warp[0][warp] = lo;
+    s_warp[1][warp] = hi;
+  }
+  __syncthreads();
+  lo = s_warp[0][0];
+  hi = s_warp[1][0];
+  for (int w = 1; w < kWarps; ++w) {
+    lo = fminf(lo, s_warp[0][w]);
+    hi = fmaxf(hi, s_warp[1][w]);
+  }
+  const float scale = hi > lo ? __frcp_rn(hi - lo) : 0.f;
+  float* y = out + ch * n_mels * T;
+  for (int i = tid; i < n_mels * T; i += kThreads) y[i] = (y[i] - lo) * scale;
 }
 
 cudaError_t prepare(int smem_bytes, int cluster_size) {
@@ -536,18 +599,23 @@ int adepth_fused_mel_max_active_clusters(int cluster_size, int smem_bytes, int d
 // Launches on `stream` of `device` with the wrapper's plan; returns the CUDA
 // error (0 on success). The plan and the constants are checked against the
 // kernel's own layout; the wrapper checks the rest (dtypes, win <= 64, L >
-// -start).
+// -start). A two-pass plan passes `block_minmax`, a float buffer of bc * nb
+// pairs, and launches frontend_normalize_kernel after the first pass; a
+// one-pass plan passes null.
 int adepth_fused_mel_frontend(const void* wave, long long stride_b, long long stride_c, int n_c,
                               const void* consts, int const_bytes, int table_off, int weight_off,
                               int n_ntiles, int n_mels, void* out, int bc, int L, int T, int hop,
                               int start, int frames_per_block, int blocks_per_channel,
-                              int cluster_size, int n_clusters, long long smem_bytes, int device,
-                              void* stream) {
+                              int cluster_size, int n_clusters, long long smem_bytes,
+                              void* block_minmax, int device, void* stream) {
   const int nb = blocks_per_channel, fpb = frames_per_block;
+  const bool two_pass = block_minmax != nullptr;
+  const bool grid_ok = two_pass ? (long long)n_clusters * cluster_size >= (long long)bc * nb
+                                : cluster_size % nb == 0 &&
+                                      (long long)n_clusters * (cluster_size / nb) >= bc;
   const bool ok =
       fpb > 0 && fpb % 16 == 0 && nb > 0 && (long long)nb * fpb >= T && (nb - 1) * fpb < T &&
-      cluster_size > 0 && cluster_size <= kMaxCluster && cluster_size % nb == 0 &&
-      (long long)n_clusters * (cluster_size / nb) >= bc && n_c > 0 && hop > 0 && L > 0 &&
+      cluster_size > 0 && cluster_size <= kMaxCluster && grid_ok && n_c > 0 && hop > 0 && L > 0 &&
       const_bytes > 0 && const_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(consts) % 16 == 0 &&
       n_ntiles > 0 && (long long)n_ntiles * kNTileVec4 * 4 <= table_off &&
       table_off + 4 * n_mels <= weight_off && 4LL * weight_off <= const_bytes &&
@@ -562,9 +630,14 @@ int adepth_fused_mel_frontend(const void* wave, long long stride_b, long long st
                     static_cast<cudaStream_t>(stream), &attr, cluster_size);
   const Params p = {static_cast<const float*>(wave), stride_b, stride_c, n_c,
                     static_cast<const float*>(consts), const_bytes, table_off, weight_off,
-                    n_ntiles, n_mels, static_cast<float*>(out), bc, L, T, hop, start, fpb, nb};
+                    n_ntiles, n_mels, static_cast<float*>(out), bc, L, T, hop, start, fpb, nb,
+                    static_cast<float*>(block_minmax)};
   err = cudaLaunchKernelEx(&config, fused_mel_frontend_kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !two_pass) return static_cast<int>(err);
+  frontend_normalize_kernel<<<bc, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), static_cast<const float*>(block_minmax), nb, n_mels, T);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,15 +16,27 @@ wrapper launches its kernel or raises; nothing falls back. The JAX package
 sent N, M ≤ 256 to XLA because of the TPU's per-grid-step overhead, which
 has no counterpart here, so the kernels take every shape.
 
+Widths: the kernels take every dk up to MAX_HEAD_DK and every dv, as the
+TPU kernel (which zero-pads to 128 lanes) does. A TMA row stride must be a
+multiple of 16 bytes, so the wrapper zero-pads q and k (and v, o, do) to a
+width that is a multiple of 8 (`_aligned`, `fwd_padded`, `bwd_padded`):
+zero columns change no score and no product, the softmax scale stays the
+caller's, and the outputs are cut back to the caller's widths.
+
 Which kernel design runs, with which tiles, is decided by shape alone in
 `fwd_plan` / `bwd_plan` (pure Python, tested on the CPU); the wrappers
 launch what the plan says and the C entry points check it against the
 kernels' own layouts:
   B2 bf16: "wgmma" (wgmma + TMA, one warpgroup per 64 q rows and a dv slice
-           of ≤ 256 columns); B2 f32: "f32" (CUDA cores).
-  B3 bf16: "wgmma" (one warpgroup per 64 keys and all of dv ≤ 256, two
-           warpgroups sharing dv above; dq by bulk reduce-add); B3 f32:
-           "f32".
+           of ≤ 256 columns; q/k rows padded to dkp 16, 32, 64 or 128);
+           B2 f32: "f32" (CUDA cores, dk in chunks of 64).
+  B3 bf16: "wgmma" for dkp ≤ 64 and dv ≤ 512 (one warpgroup per 64 keys and
+           all of dv ≤ 256, two warpgroups sharing dv above; dq by bulk
+           reduce-add); "split" beyond (dkp 128 or dv > 512: per key tile,
+           one block per dv slice of ≤ 256 adds dV, and one block adds dK
+           and dQ, taking dPᵀ over dv in chunks of 64, so that no block
+           holds both dK and dV in registers); B3 f32: "f32" (CUDA cores, a
+           block per 32 keys and 64 output columns, any width).
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import ctypes
 import functools
 from collections import Counter
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -43,8 +55,7 @@ SOURCE = "audiodepth_tpu_torch/csrc/flash_attention.cu"
 # the TPU kernels these replace (file:line of `_fwd_kernel` and `_bwd_kernel`)
 REPLACES = "audiodepth_tpu/ops/pallas/flash_attention.py:103"
 REPLACES_BWD = "audiodepth_tpu/ops/pallas/flash_attention.py:148"
-MAX_HEAD_DK = 64   # the kernels' largest q/k width (the binaural levels use 16..64)
-MAX_HEAD_DV = 512  # B3's largest value width (two warpgroups' registers hold its dv)
+MAX_HEAD_DK = 128  # the kernels' largest q/k width: dkp 128 (dv has no limit)
 
 # shared memory of an H100 SM and the most one block may take (opt-in), and
 # what the runtime keeps of it for each resident block
@@ -82,9 +93,16 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _aligned(width: int) -> int:
+    """The width a row is zero-padded to: a multiple of 8 elements, so that
+    a bf16 row is whole 16-byte units (TMA's stride rule)."""
+    return 8 * _cdiv(width, 8)
+
+
 def _wgmma_dkp(dk: int) -> int:
-    """q/k rows are one swizzle span of 32, 64 or 128 bytes."""
-    return 16 if dk <= 16 else 32 if dk <= 32 else 64
+    """q/k rows are one swizzle span of 32, 64 or 128 bytes, or at dk > 64
+    two 128-byte boxes."""
+    return 16 if dk <= 16 else 32 if dk <= 32 else 64 if dk <= 64 else 128
 
 
 def _fwd_wgmma_bytes(dkp: int, dvs: int, stages: int) -> int:
@@ -103,6 +121,17 @@ def _bwd_wgmma_bytes(dkp: int, dvt: int, dk: int, stages: int, wgs: int) -> int:
     return bar + 8 * (1 + stages) + 1024
 
 
+def _bwd_split_bytes(dkp: int, dvs: int, dk: int, stages: int) -> int:
+    # K, `stages` Q tiles, then the larger of a dV block's `stages` dO slices
+    # and a dK/dQ block's two-stage V/dO chunk ring, dSᵀ and two fp32 dq
+    # tiles; `stages` lse/D tiles, 1 + stages + 2 mbarriers, alignment slack
+    # (bwd_split_layout)
+    x_off = TILE * dkp * 2 * (1 + stages)
+    dq_end = x_off + 2 * 2 * TILE * 64 * 2 + TILE * TILE * 2 + 2 * TILE * dk * 4
+    stat_off = max(x_off + stages * TILE * dvs * 2, dq_end)
+    return stat_off + stages * 2 * TILE * 4 + 8 * (1 + stages + 2) + 1024
+
+
 def _most_stages(bytes_of, options) -> int:
     """The most stages that leave two blocks an SM, else the fewest."""
     for stages in options:
@@ -112,7 +141,9 @@ def _most_stages(bytes_of, options) -> int:
 
 
 def fwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Plan:
-    """B2's design and tiles for q [b, n, dk], k [b, m, dk], v [b, m, dv]."""
+    """B2's design and tiles for q [b, n, dk], k [b, m, dk], v [b, m, dv]
+    (at the widths the wrapper pads them to)."""
+    dk, dv = _aligned(dk), _aligned(dv)
     q_tiles = _cdiv(n, TILE)
     if dtype == torch.float32:
         n_slices = _cdiv(dv, 128)
@@ -127,11 +158,22 @@ def fwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Pl
 
 
 def bwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Plan:
-    """B3's design and tiles for the same shapes (dv ≤ MAX_HEAD_DV)."""
+    """B3's design and tiles for the same shapes."""
+    dk, dv = _aligned(dk), _aligned(dv)
     if dtype == torch.float32:
-        smem = 4 * (2 * 32 * 65 + 2 * 32 * (dv + 1) + 2 * 32 * 33 + 2 * 32)  # bwd_f32_bytes
-        return Plan("f32", 0, dk, dv, 1, 1, smem, (_cdiv(m, 32), b, 1), 256)
+        # k, q, v and dO chunks of [32][65], P and dS [32][33], lse and D
+        # (BwdF32Smem); a block per 32 keys and 64 columns of dv, then of dk
+        smem = 4 * (4 * 32 * 65 + 2 * 32 * 33 + 2 * 32)
+        n_slices = _cdiv(dv, 64) + _cdiv(dk, 64)
+        return Plan("f32", 0, dk, 64, n_slices, 1, smem, (_cdiv(m, 32) * n_slices, b, 1), 256)
     dkp = _wgmma_dkp(dk)
+    if dkp > 64 or dv > 512:
+        # the split design: dV blocks per dv slice of ≤ 256 beside a dK/dQ
+        # block per key tile (their registers hold dV or dK, never both)
+        n_slices = _cdiv(dv, 256)
+        dvs = TILE * _cdiv(_cdiv(dv, n_slices), TILE)
+        return Plan("split", 3, dkp, dvs, n_slices, 2, _bwd_split_bytes(dkp, dvs, dk, 2),
+                    (_cdiv(m, TILE) * (n_slices + 1), b, 1), 128)
     wgs = 1 if dv <= 256 else 2  # one warpgroup's registers hold 256 fp32 columns of dv
     dvs = TILE * _cdiv(_cdiv(dv, wgs), TILE)
     stages = _most_stages(lambda s: _bwd_wgmma_bytes(dkp, dvs * wgs, dk, s, wgs), (2, 1))
@@ -200,8 +242,9 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, 
     return b, n, m, dk, dv
 
 
-def _check_kernel_inputs(tensors, dk: int, dv: int, max_dv: Optional[int] = None) -> None:
-    """What the kernels take on the card, beyond matching shapes."""
+def _check_kernel_inputs(tensors, dk: int) -> None:
+    """What the kernels take on the card, beyond matching shapes (the
+    widths already padded to multiples of 8)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -209,14 +252,42 @@ def _check_kernel_inputs(tensors, dk: int, dv: int, max_dv: Optional[int] = None
         raise TypeError(f"the kernel takes bfloat16 or float32, got {q.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel's inputs must be contiguous")
-    if dk % 8 or dk > MAX_HEAD_DK or dv % 8 or (max_dv is not None and dv > max_dv):
-        limit = "" if max_dv is None else f" up to {max_dv}"
-        raise ValueError(f"the kernel takes Dk in 8, 16, ..., {MAX_HEAD_DK} and Dv a "
-                         f"multiple of 8{limit}; got Dk={dk}, Dv={dv}")
+    if dk > MAX_HEAD_DK:
+        raise ValueError(f"the kernel takes Dk up to {MAX_HEAD_DK}; got Dk={dk}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the kernel's inputs must start on a 16-byte boundary")
     if q.shape[0] > 65535:
         raise ValueError(f"the kernel's grid takes at most 65535 batch rows, got {q.shape[0]}")
+
+
+def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t with zero columns appended up to `width` (a new contiguous tensor),
+    or t itself."""
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _cut_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else t[..., :width].contiguous()
+
+
+def fwd_padded(launch, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`launch(q, k, v, scale)` → (o, lse) on q and k zero-padded to an
+    aligned width and v likewise, with o cut back to v's width."""
+    dkw, dv = _aligned(q.shape[-1]), v.shape[-1]
+    o, lse = launch(_pad_cols(q, dkw), _pad_cols(k, dkw), _pad_cols(v, _aligned(dv)), scale)
+    return _cut_cols(o, dv), lse
+
+
+def bwd_padded(launch, q, k, v, o, lse, do, scale: float):
+    """`launch(q, k, v, o, lse, do, scale)` → (dq, dk, dv) on every operand
+    zero-padded as in `fwd_padded` (o and do like v), with the gradients cut
+    back to the caller's widths."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    dkw, dvw = _aligned(dk), _aligned(dv)
+    dq, dk_, dv_ = launch(_pad_cols(q, dkw), _pad_cols(k, dkw), _pad_cols(v, dvw),
+                          _pad_cols(o, dvw), lse, _pad_cols(do, dvw), scale)
+    return _cut_cols(dq, dk), _cut_cols(dk_, dk), _cut_cols(dv_, dv)
 
 
 def _plan_args(plan: Plan):
@@ -241,11 +312,14 @@ class FlashCrossAttention:
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        b, n, m, dk, dv = _check_qkv(q, k, v)
+        _check_qkv(q, k, v)
         if q.device.type == "cpu":
             return flash_cross_attention_fwd_plain(q, k, v, scale)
-        _check_kernel_inputs((q, k, v), dk, dv)
+        return fwd_padded(self._launch, q, k, v, scale)
 
+    def _launch(self, q, k, v, scale):
+        b, n, m, dk, dv = _check_qkv(q, k, v)
+        _check_kernel_inputs((q, k, v), dk)
         plan = fwd_plan(b, n, m, dk, dv, q.dtype)
         lib = self._library()
         o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
@@ -296,12 +370,14 @@ class FlashCrossAttentionBwd:
             return flash_cross_attention_bwd_plain(q, k, v, o, lse, do, scale)
         if lse.dtype != torch.float32:
             raise TypeError(f"lse must be float32, got {lse.dtype}")
-        do, o = do.contiguous(), o.contiguous()
-        _check_kernel_inputs((q, k, v, do, o, lse), dk, dv, max_dv=MAX_HEAD_DV)
+        return bwd_padded(self._launch, q, k, v, o.contiguous(), lse, do.contiguous(), scale)
 
+    def _launch(self, q, k, v, o, lse, do, scale):
+        b, n, m, dk, dv = _check_qkv(q, k, v)
+        _check_kernel_inputs((q, k, v, do, o, lse), dk)
         plan = bwd_plan(b, n, m, dk, dv, q.dtype)
         lib = self._library()
-        if plan.variant == "wgmma":
+        if plan.variant != "f32":
             dsum = None
             stat = torch.empty((b, _cdiv(n, TILE), 2, TILE), dtype=torch.float32, device=q.device)
         else:
@@ -341,6 +417,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.adepth_flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                                                f, *plan, i, p]
     lib.adepth_flash_attention_bwd.restype = i
+    lib.adepth_flash_layout_probe.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.adepth_flash_layout_probe.restype = i
     lib.adepth_cuda_error_string.argtypes = [i]
     lib.adepth_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,7 +8,11 @@ with the reflect pad and the frame gather folded into it.
 
 `frontend_plan` (pure Python, tested on the CPU) decides how a call runs:
 frames per block, blocks per channel, channels per cluster and the cluster
-size, so that the call fits in one wave of clusters where it can.
+size, so that the call fits in one wave of clusters where it can. A channel
+longer than 16 blocks of 128 frames (2,048 frames, L > 65,535 at hop 32)
+takes the two-pass form: raw log-mel and per-block (min, max) from the
+clusters, then a second kernel that normalises each channel (see
+`csrc/fused_frontend.cu`, "Long inputs").
 `frontend_constants` packs what every block copies into its shared memory:
 the windowed DFT basis for the bins the mel bank reads, each bin's cos and
 −sin columns interleaved, as three bf16 pieces in the kernel's mma fragment
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from dataclasses import dataclass
 from typing import Mapping, Optional, Tuple
 
@@ -206,7 +211,10 @@ class FrontendPlan:
     """How one B1 call runs: each channel is `blocks_per_channel` blocks of
     `frames_per_block` frames in one cluster of `cluster_size` blocks, which
     holds `channels_per_cluster` channels; `n_clusters` clusters run in
-    `waves` waves; each block takes `smem_bytes` of dynamic shared memory."""
+    `waves` waves; each block takes `smem_bytes` of dynamic shared memory.
+    With `two_pass`, a channel's blocks are consecutive in the grid and may
+    span clusters (`channels_per_cluster` is 0), and a second kernel
+    normalises each channel."""
 
     frames_per_block: int
     blocks_per_channel: int
@@ -215,6 +223,7 @@ class FrontendPlan:
     n_clusters: int
     waves: int
     smem_bytes: int
+    two_pass: bool = False
 
     @property
     def blocks(self) -> int:
@@ -252,8 +261,34 @@ def frontend_plan(bc: int, length: int, n_sm: int, max_active_clusters: Mapping[
                 best_key = key
                 best = FrontendPlan(fpb, nb, cpc, size, n_clusters, waves, smem)
     if best is None:
-        raise ValueError(f"L={length} gives {t_frames} frames: no plan fits {MAX_CLUSTER} "
-                         f"blocks a channel within {MAX_DYNAMIC_SMEM} B of shared memory")
+        best = _two_pass_plan(bc, t_frames, n_sm, max_active_clusters, hop_length, consts)
+    return best
+
+
+def _two_pass_plan(bc: int, t_frames: int, n_sm: int, max_active_clusters: Mapping[int, int],
+                   hop_length: int, consts: Constants) -> FrontendPlan:
+    """A channel too long for one cluster: bc·nb blocks in grid order, in
+    clusters of any size the card runs (they share the constants' copy),
+    chosen as in the one-pass plan."""
+    best, best_key = None, None
+    for fpb in range(FRAME_STEP, FRAME_STEP * _cdiv(t_frames, FRAME_STEP) + 1, FRAME_STEP):
+        smem = smem_bytes(fpb, hop_length, consts)
+        if smem > MAX_DYNAMIC_SMEM:
+            break
+        nb = _cdiv(t_frames, fpb)
+        for size in range(1, MAX_CLUSTER + 1):
+            cap = max_active_clusters.get(size, 0)
+            if cap <= 0:
+                continue
+            n_clusters = _cdiv(bc * nb, size)
+            waves = max(_cdiv(n_clusters, cap), _cdiv(n_clusters * size, n_sm))
+            key = (waves, fpb, size > PORTABLE_CLUSTER, n_clusters * size, n_clusters)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = FrontendPlan(fpb, nb, 0, size, n_clusters, waves, smem, True)
+    if best is None:
+        raise ValueError(f"{t_frames} frames: no plan (no cluster size the card runs, or "
+                         f"{FRAME_STEP} frames exceed {MAX_DYNAMIC_SMEM} B of shared memory)")
     return best
 
 
@@ -277,12 +312,16 @@ def _device_constants(device: torch.device, *args) -> torch.Tensor:
 
 
 class FusedMelFrontend:
-    """Callable wrapper of kernel B1; `launches` counts kernel launches."""
+    """Callable wrapper of kernel B1; `launches` counts kernel launches: one
+    for a one-pass call, two for a two-pass call (the clusters, then the
+    normalising pass); `variant_launches` counts calls by form ("one_pass",
+    "two_pass")."""
 
     name = "fused_mel_frontend"
 
     def __init__(self, library=None):
         self.launches = 0
+        self.variant_launches = Counter()
         self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, waveform: torch.Tensor, n_fft: int = 512,
@@ -316,16 +355,20 @@ class FusedMelFrontend:
         packed = _device_constants(torch.device("cuda", index), *args)
         plan = _device_plan(index, b * c, length, hop_length, args)
         lib = self._library()
+        minmax = (torch.empty((b * c, plan.blocks_per_channel, 2), dtype=torch.float32,
+                              device=dev) if plan.two_pass else None)
         err = lib.adepth_fused_mel_frontend(
             waveform.data_ptr(), stride_b, stride_c, n_c, packed.data_ptr(), consts.nbytes,
             consts.table_off, consts.weight_off, consts.n_ntiles, n_mels, out.data_ptr(),
             b * c, length, t_frames, hop_length, (n_fft - win_length) // 2 - n_fft // 2,
             plan.frames_per_block, plan.blocks_per_channel, plan.cluster_size,
-            plan.n_clusters, plan.smem_bytes, index, torch.cuda.current_stream(dev).cuda_stream)
+            plan.n_clusters, plan.smem_bytes, None if minmax is None else minmax.data_ptr(),
+            index, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError("fused_mel_frontend launch failed: "
                                + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
+        self.launches += 2 if plan.two_pass else 1
+        self.variant_launches["two_pass" if plan.two_pass else "one_pass"] += 1
         return out
 
 
@@ -368,7 +411,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.adepth_fused_mel_max_active_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.adepth_fused_mel_max_active_clusters.restype = i
     lib.adepth_fused_mel_frontend.argtypes = [p, ll, ll, i, p, i, i, i, i, i, p, i, i, i, i, i,
-                                              i, i, i, i, ll, i, p]
+                                              i, i, i, i, ll, p, i, p]
     lib.adepth_fused_mel_frontend.restype = i
     lib.adepth_cuda_error_string.argtypes = [i]
     lib.adepth_cuda_error_string.restype = ctypes.c_char_p

@@ -166,7 +166,12 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     prefixes. Loads with ``weights_only=True``: tensors and plain containers
     only, no arbitrary pickled objects.
     """
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return torch_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def torch_state_dict(obj) -> Dict[str, torch.Tensor]:
+    """The {key: tensor} of a loaded reference checkpoint (see
+    `load_torch_state_dict`)."""
     if isinstance(obj, dict):
         for key in ("state_dict", "model_state_dict"):
             if key in obj and isinstance(obj[key], dict):

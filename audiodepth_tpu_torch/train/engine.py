@@ -13,8 +13,10 @@ device decodes it; in float64 mode (the parity mode) the host ships float32
 batches as they are, since the uint16 depth quantum (0.46 mm at 30 m) would
 perturb gradients at ~1e-5.
 
-Not ported yet: checkpoints and preemption saves, the profiler hook, meshes,
-wandb and device prefetch (ROADMAP.md A6, A7, A8).
+`fit` saves checkpoints through a `ckpt.CheckpointManager` when given one:
+every `saving_checkpoints` epochs, at a new best validation metric, and at
+the final epoch. Not ported yet: preemption saves, holdout evaluation, the
+profiler hook, meshes, wandb and device prefetch (ROADMAP.md A6, A7, A8).
 """
 
 from __future__ import annotations
@@ -109,9 +111,12 @@ class Engine:
         if valid is not None:
             valid = torch.as_tensor(valid, device=self.device)
         batch = decode_batch(self.put_batch(batch), self._depth_units)
-        out = self.task.eval_metrics(batch)
+        # one forward serves the metrics and the criterion (one front end
+        # launch an eval batch)
+        pred = self.task.predict_raw(batch)
+        out = self.task.eval_metrics(batch, pred=pred)
         crit = getattr(self.task, "eval_criterion_loss", None)
-        batch_loss = crit(batch, epoch, valid=valid) if crit is not None else None
+        batch_loss = crit(batch, epoch, pred, valid=valid) if crit is not None else None
         if valid is not None:
             valid = valid.to(torch.float32)
             out = {k: v * valid for k, v in out.items()}
@@ -153,8 +158,8 @@ class Engine:
             val_batches: Optional[Callable[[], Iterable]] = None,
             epochs: Optional[int] = None, start_epoch: int = 1,
             log: Optional[Callable[[Dict[str, object]], None]] = None,
-            on_step: Optional[Callable[[TrainState, Dict[str, torch.Tensor]], None]] = None
-            ) -> TrainState:
+            on_step: Optional[Callable[[TrainState, Dict[str, torch.Tensor]], None]] = None,
+            ckpt_manager=None, best_tracker=None) -> TrainState:
         """The epoch loop. Each epoch's record (appended to `self.history`
         and passed to `log`) holds the per-epoch means of the scalar aux, the
         last step's grad_norm, the lr the epoch started at, its time and
@@ -162,9 +167,20 @@ class Engine:
         epochs. `on_step(state, metrics)` runs after every step, while the
         step's gradients are still on the parameters. train_batches and
         val_batches are zero-argument callables that return a fresh iterator
-        of host batches."""
+        of host batches.
+
+        With a `ckpt_manager`, the state is saved every saving_checkpoints
+        epochs (train.py:1005-1021), when `best_tracker.update` reports a new
+        best validation metric (then marked best, train.py:873-913), and at
+        the final epoch, which the reference's cadence may miss. A resumed
+        run passes the epoch after the restored one as `start_epoch`."""
         mode = self.cfg.mode
         epochs = epochs or mode.epochs
+
+        def save(epoch, metrics=None):
+            aux = getattr(self.task, "checkpoint_aux", lambda: None)()
+            ckpt_manager.save(epoch, state, aux=aux, metrics=metrics)
+
         for epoch in range(start_epoch, epochs + 1):
             t0 = time.perf_counter()
             n_samples = n_steps = 0
@@ -189,8 +205,18 @@ class Engine:
                           samples=n_samples, epoch_time=dt,
                           pairs_per_sec=n_samples / max(dt, 1e-9))
             if val_batches is not None and mode.validation and epoch % mode.validation_iter == 0:
-                record["val"] = self.evaluate(state, val_batches(), epoch=float(epoch - 1))
+                val = self.evaluate(state, val_batches(), epoch=float(epoch - 1))
+                record["val"] = val
+                if best_tracker is not None and val and best_tracker.update(epoch, val):
+                    if ckpt_manager is not None:
+                        save(epoch, val)
+                        ckpt_manager.mark_best(epoch, best_tracker.metric,
+                                               best_tracker.best_value)
+            if ckpt_manager is not None and epoch % mode.saving_checkpoints == 0:
+                save(epoch)
             self.history.append(record)
             if log is not None:
                 log(record)
+        if ckpt_manager is not None and epochs >= start_epoch:
+            save(epochs)  # idempotent where the cadence or a best save wrote it
         return state

@@ -86,10 +86,11 @@ class Task:
     def predict_meters(self, batch: Dict[str, object]) -> torch.Tensor:
         return self.pred_to_meters(self.predict_raw(batch))
 
-    def eval_metrics(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def eval_metrics(self, batch: Dict[str, torch.Tensor],
+                     pred: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Per-sample metric tensors [B] (train.py:782-844 validation
-        semantics) and the per-sample masked-L1 'loss' in model units."""
-        pred = self.predict_raw(batch)
+        semantics) and the per-sample masked-L1 'loss' in model units, of
+        `pred`, the batch's `predict_raw`."""
         gt = batch["depth"]
         # EVAL_PRED_MIN, one f32 ulp above the 1e-3 eps, keeps every clipped
         # pixel on the common branch of both metric versions
@@ -108,8 +109,13 @@ class Task:
 
 
 class UNetBaselineTask(Task):
-    """unet_baseline: UNet-256 (or -128) on the mel front end. Its training
-    half (its loss and validation criterion) is ROADMAP.md A3."""
+    """unet_baseline: UNet-256 (or -128) on the mel front end, with the
+    masked Combined/L1/SIlog loss in meters.
+
+    Loss semantics (train.py:646-669): the valid mask is gt != 0; when
+    depth_norm, the loss is computed on denormalized (meter-scale) pred and
+    gt, with no clamping of predictions.
+    """
 
     name = "unet_baseline"
     pred_is_normalized = True
@@ -120,3 +126,25 @@ class UNetBaselineTask(Task):
         # already in this layout, so cuDNN runs NHWC kernels without copies
         self.model = build_unet(cfg).to(
             self.device, memory_format=torch.channels_last)
+
+    def loss_fn(self, batch, epoch):
+        pred = self.apply_train(self.prepare(batch))
+        gt = batch["depth"]
+        loss = self.criterion(self.pred_to_meters(pred), self.to_meters(gt), gt != 0)
+        return loss, {"loss": loss}
+
+    @torch.no_grad()
+    def eval_criterion_loss(self, batch, epoch, pred: torch.Tensor,
+                            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The reference training script's per-batch validation loss: the training
+        criterion on the eval-mode forward `pred` (the batch's
+        `predict_raw`), pooled over the valid pixels of the whole batch, in
+        meters, mask gt > 0 (train.py:744-771); `Engine.evaluate` takes the
+        equal-weight mean over batches (train.py:842). `valid` is the ragged
+        tail's row mask: pad rows repeat row 0 and would otherwise add
+        fabricated pixels."""
+        gt = batch["depth"]
+        mask = gt > 0
+        if valid is not None:
+            mask = mask & (valid.reshape((-1,) + (1,) * (gt.dim() - 1)) > 0)
+        return self.criterion(self.pred_to_meters(pred), self.to_meters(gt), mask)

@@ -9,11 +9,15 @@ non-zero:
              maximum SM clock;
   build      compile every CUDA kernel of the port from `csrc/` (nvcc, one
              process per source, all started together), its seconds,
-             ptxas's registers and spills per kernel, and the count of
+             ptxas's registers and spills per kernel (no instantiation but
+             those of KNOWN_SPILLS may spill), and the count of
              HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel in
              `cuobjdump -sass` of the built libraries (B1 must have HMMA,
              B2 and B3 HGMMA); with it, B1's earlier source where one was
              put at B1_BEFORE (not in the repository);
+  layout_probe  the q/k operand layouts of B2 and B3 alone, at each dkp
+             (16, 32, 64, 128 and 128 part filled): S = Q·Kᵀ and the two
+             MN-major products of B3 against torch.matmul in float64;
   kernel     each kernel against its plain PyTorch version on the card at
              the shapes its path gives it, max |Δ| asserted, and its time,
              the plain version's time, the card's bound for the same work
@@ -26,7 +30,11 @@ non-zero:
              a batch of 1, float32, and ragged shapes that reach every
              branch of the plan (`fwd_plan` / `bwd_plan`: dk 8 and 40
              padded, dv 136 and 320, N and M not multiples of 64, N = 1),
-             each row naming the plan it ran;
+             the level shapes of base 16 and 128 and dk 12 and dv 768 in
+             bf16 and f32 (the widths the wrapper zero-pads, dkp 128, B3's
+             split design), each row naming the plan it ran; B1 also at
+             B·C = 2, L = 100,000 (its two-pass form: each B1 row asserts
+             the form its call took and its launches, 1 or 2);
   b1_before_after  B1 against its earlier design in turns on the same
              card, where that source was built (else a line saying so);
   autograd   `cross_attention` gradients through FlashCrossAttentionFn
@@ -65,6 +73,22 @@ non-zero:
              CPU's float32 gradients are;
   profile    one bf16 train step at batch 16: host wall, device time, busy
              share, top items, B2's and B3's shares;
+  train_unet the main training path: `cli/train.py`'s main in-process,
+             unet_baseline (unet_256, ngf 64, 54,408,833 params), 256²,
+             bf16, batch 16, 64 synthetic samples (4 steps), one validation
+             pass, checkpoints into a temporary directory; every loss and
+             grad_norm finite, every parameter moved, val metrics finite,
+             B1 launched once a step and once an eval batch, B2 and B3 never;
+  ckpt_round_trip  `serve` restores that checkpoint (--checkpoint_path,
+             --use_best) and answers HTTP requests within SERVED_TOL of the
+             trained task's own answers; `--resume` takes one more step;
+  train_unet_steps  8 steps on one repeated batch of 16 (the loss must
+             fall), timed, a profile of one (B1's share), then one timed
+             step at UNET_BIG_BATCH with its peak memory;
+  f32_train_vs_cpu  the same rule for one float32 unet step at full width;
+  train_width  one bf16 binaural train step at base 16 and at base 128
+             (widths dk 4 and dk 128 / dv 1024 that B2 and B3 refused
+             before), B2 and B3 launched 4 times each;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -79,9 +103,11 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -96,7 +122,9 @@ B1_CLEAN_SLACK = 1e-5      # B1 vs float64 on clean chirps, beyond the fp32 plai
 # B1's rows (input, B·C, L); the first port's source, where one was put
 # here, for the same-call before/after (phase_b1_before_after)
 B1_ROWS = [("noise", 2, 7782), ("noise", 8, 7782), ("noise", 32, 7782), ("noise", 8, 4000),
-           ("synthetic", 32, 7782), ("clean chirps", 8, 7782)]
+           ("synthetic", 32, 7782), ("clean chirps", 8, 7782),
+           # a channel of 3,126 frames: the two-pass form (more than 16 blocks a channel)
+           ("noise", 2, 100_000)]
 B1_MAIN = ("noise", 32, 7782)
 B1_BEFORE = os.path.join("build", "b1_before", "fused_frontend.cu")
 F32_VS_CPU_TOL = 1e-3      # relative to max |cpu|
@@ -120,14 +148,32 @@ B2_SHAPES = [
     ("dk 40, dv 136, ragged", 2, 333, 129, 40, 136, "bfloat16"),
     ("dk 24, dv 320, ragged", 2, 200, 150, 24, 320, "bfloat16"),
     ("N 1", 2, 1, 70, 16, 128, "bfloat16"),
+    # the widths of other base channels c (dk = C/8, dv = C, C = 2c, 4c, 8c,
+    # 8c at levels 2-5), each in bf16 at a batch of 16 and in f32 at a batch
+    # of 1: dk below 8 and not a multiple of 8 (zero-padded by the wrapper),
+    # dkp 128 (two 64-column boxes a row) and dv above 512 (B3's split design)
+    ("base 16 level 2", 32, 16384, 16384, 4, 32, "bfloat16"),
+    ("base 16 level 2, float32", 2, 16384, 16384, 4, 32, "float32"),
+    ("base 128 level 3", 32, 4096, 4096, 64, 512, "bfloat16"),
+    ("base 128 level 3, float32", 2, 4096, 4096, 64, 512, "float32"),
+    ("base 128 level 4", 32, 1024, 1024, 128, 1024, "bfloat16"),
+    ("base 128 level 4, float32", 2, 1024, 1024, 128, 1024, "float32"),
+    ("dk 12 (base 48 level 2)", 32, 16384, 16384, 12, 96, "bfloat16"),
+    ("dk 12 (base 48 level 2), float32", 2, 16384, 16384, 12, 96, "float32"),
+    ("dv 768 (base 96 level 4)", 32, 1024, 1024, 96, 768, "bfloat16"),
+    ("dv 768 (base 96 level 4), float32", 2, 1024, 1024, 96, 768, "float32"),
+    # the split design's other branches: dkp 128 with one slice of 64, dkp 64
+    # with three slices of 192; dv not a multiple of 8
+    ("dk 128, dv 64, ragged", 2, 300, 200, 128, 64, "bfloat16"),
+    ("dk 64, dv 520, ragged", 2, 300, 200, 64, 520, "bfloat16"),
+    ("dk 12, dv 36, ragged", 2, 333, 129, 12, 36, "bfloat16"),
 ]
 B2_MAIN = "level 2"
 # B3 vs its plain version, relative to the plain version's max |·| of each
 # of dq, dk, dv: in bf16, p and ds are rounded to bf16 before their products
 # (2^-9 relative each) and the outputs to bf16 (2^-9), in sums of up to
 # 16384 terms whose rounding errors partly cancel: 2^-6; in f32 the path is
-# full fp32 with an approximate exp2 (2^-22 relative) and atomics in
-# another order: 1e-4
+# full fp32 (the accurate exp2f) with atomics in another order: 1e-4
 B3_TOL = {"bfloat16": 2 ** -6, "float32": 1e-4}  # also the autograd phase's
 F32_TRAIN_TOL = 1e-3   # train loss, card vs CPU in float32, relative
 F32_GRAD_FACTOR = 2.0  # card's f32 gradient error vs the CPU's, both against f64 (see phase)
@@ -179,7 +225,8 @@ def phase_env(torch):
 def kernel_name(text: str) -> str:
     """`flash_bwd_wgmma_kernel<16,128>` from a line holding its mangled name
     (the line itself where there is none)."""
-    m = re.search(r"((?:flash_fwd|flash_bwd|fused_mel)\w*?_kernel)(I(?:Li\d+E)+E)?", text)
+    m = re.search(r"((?:flash_fwd|flash_bwd|fused_mel|frontend_normalize)\w*?_kernel)"
+                  r"(I(?:Li\d+E)+E)?", text)
     if not m:
         return text.strip()
     args = re.findall(r"Li(\d+)E", m.group(2) or "")
@@ -212,7 +259,7 @@ def ptxas_report(logs) -> dict:
         for ln in log.splitlines():
             if "entry function" in ln:
                 name = kernel_name(ln)
-            elif name and ("registers" in ln or "spill" in ln):
+            elif name and (re.search(r"Used \d+ registers", ln) or "spill stores" in ln):
                 part = ln.split("Used ")[-1].strip() if "registers" in ln else ln.strip()
                 report[name] = f"{report[name]}; {part}" if name in report else part
     return report
@@ -229,6 +276,22 @@ def _build_before(build):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
+# instantiations that spill, all from before the C1 repair (B3's two-warpgroup
+# variants at dv 384-512): any other spill fails the build phase
+KNOWN_SPILLS = {"flash_bwd_wgmma_kernel<64,256,2>", "flash_bwd_wgmma_kernel<64,192,2>",
+                "flash_bwd_wgmma_kernel<32,256,2>"}
+
+
+def spills(report) -> dict:
+    """{kernel: spill store bytes} of every instantiation that spills."""
+    out = {}
+    for name, text in report.items():
+        m = re.search(r"(\d+) bytes spill stores", text)
+        if m and int(m.group(1)):
+            out[name] = int(m.group(1))
+    return out
+
+
 def phase_build(build):
     # one library per source; B2 and B3 share csrc/flash_attention.cu
     names = ["fused_frontend", "flash_attention"]
@@ -243,8 +306,11 @@ def phase_build(build):
     seconds = time.perf_counter() - t0
     report = ptxas_report(logs)
     sass = sass_mma(build, names)
+    spilled = spills(report)
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": report,
-          "sass_mma": sass, "b1_before": before_lib})
+          "sass_mma": sass, "b1_before": before_lib, "spills": spilled})
+    new = set(spilled) - KNOWN_SPILLS
+    assert not new, f"instantiations that spill: {sorted(new)}"
     return report, sass, before_lib
 
 
@@ -326,15 +392,20 @@ def phase_kernel(torch, np, ff, peak, configs):
     for kind, bc, length in B1_ROWS:
         wave_np = _b1_input(np, kind, bc, length, configs)
         wave = torch.from_numpy(wave_np).cuda()[..., :length]
+        plan = ff.frontend_plan(bc, length, n_sm, caps)
+        reset_launches([(ff.fused_mel_frontend, None, None)])
         got = ff.fused_mel_frontend(wave)
         want = ff.fused_mel_frontend_plain(wave)
         torch.cuda.synchronize()
+        # the call took the plan's form: a two-pass call launches both kernels
+        form = "two_pass" if plan.two_pass else "one_pass"
+        assert dict(ff.fused_mel_frontend.variant_launches) == {form: 1}
+        assert ff.fused_mel_frontend.launches == (2 if plan.two_pass else 1)
         assert got.shape == want.shape and torch.isfinite(got).all()
         vs_plain = float((got - want).abs().max())
         row = {"phase": "kernel", "name": ff.fused_mel_frontend.name, "input": kind, "bc": bc,
                "L": length, "T": got.shape[-1], "strided": not wave.is_contiguous(),
-               "plan": dataclasses.asdict(ff.frontend_plan(bc, length, n_sm, caps)),
-               "max_abs_err_vs_plain": vs_plain}
+               "plan": dataclasses.asdict(plan), "max_abs_err_vs_plain": vs_plain}
         if kind == "clean chirps":
             want64 = log_minmax_f64(torch, wave)
             err = float((got.double() - want64).abs().max())
@@ -451,6 +522,45 @@ def _sdpa_ms(torch, q, k, v, scale):
     return None, f"no fused SDPA backend takes these shapes: {refused}"
 
 
+# q/k widths of the layout probe: each dkp whole, and dkp 128 part filled
+PROBE_DK = (16, 32, 64, 128, 72)
+PROBE_TOL = 1e-5  # relative to the largest |entry| of the float64 product
+
+
+def phase_layout_probe(torch, fa):
+    """The q/k operand layouts of B2 and B3 alone, before the kernels that
+    use them (csrc/flash_attention.cu, flash_layout_probe_kernel): one
+    64-row tile each of q and k as the kernels load them, S = Q·Kᵀ with both
+    K-major, bf16(S)·Q with Q MN-major (B3's dK), bf16(S)·K with K MN-major
+    a box at a time (B3's dQ), against torch.matmul in float64 of the same
+    bf16 values (of the kernel's own S rounded to bf16 for the last two).
+    The products are exact in fp32 and only the summation order differs, so
+    PROBE_TOL; a wrong swizzle or descriptor moves whole entries."""
+    lib = fa._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dk in PROBE_DK:
+        dkp = fa._wgmma_dkp(dk)
+        g = torch.Generator(device="cuda").manual_seed(dk)
+        q = torch.randn(64, dk, device="cuda", generator=g).bfloat16()
+        k = torch.randn(64, dk, device="cuda", generator=g).bfloat16()
+        s = torch.empty(64, 64, device="cuda")
+        x = torch.empty(64, dk, device="cuda")
+        y = torch.empty(64, dk, device="cuda")
+        err = lib.adepth_flash_layout_probe(q.data_ptr(), k.data_ptr(), s.data_ptr(),
+                                            x.data_ptr(), y.data_ptr(), dk, dkp, 0, stream)
+        assert err == 0, lib.adepth_cuda_error_string(err).decode()
+        torch.cuda.synchronize()
+        sb = s.bfloat16().double()
+        pairs = {"Q.K^T": (s, torch.matmul(q.double(), k.double().T)),
+                 "bf16(S).Q": (x, torch.matmul(sb, q.double())),
+                 "bf16(S).K": (y, torch.matmul(sb, k.double()))}
+        errs = {name: float((got.double() - want).abs().max() / want.abs().max())
+                for name, (got, want) in pairs.items()}
+        emit({"phase": "layout_probe", "dk": dk, "dkp": dkp, "rel_err": errs, "tol": PROBE_TOL})
+        bad = {name: e for name, e in errs.items() if not e <= PROBE_TOL}
+        assert not bad, f"layout probe dk {dk} (dkp {dkp}): {bad}"
+
+
 def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
     """B2 against its plain version on the card at the binaural shapes.
 
@@ -458,9 +568,9 @@ def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
     over several units and the online softmax rescales often. Tolerances:
     o in bf16 within 2^-7·max|v| (P is rounded to bf16 before P·V, about
     2^-9 relative per weight, and o to bf16, 2^-9); o in f32 within
-    1e-5·max|v| (the f32 path is full fp32 with an approximate exp2 of
-    about 2^-22 relative); lse within 1e-4·max(1, |lse|) (fp32 statistics
-    in another summation order)."""
+    1e-5·max|v| (the f32 path is full fp32 with the accurate exp2f, sums
+    of at most 64 terms in sequence); lse within 1e-4·max(1, |lse|) (fp32
+    statistics in another summation order)."""
     flops_peak, bw_peak, tensor_peak = peak
     rows = []
     for label, b, n, m, dk, dv, dtype in B2_SHAPES:
@@ -914,10 +1024,12 @@ def phase_train(torch, np, train_cli, kernels):
     return launches, by_variant
 
 
-def profile_train_step(torch, eng, state, batch):
+def profile_train_step(torch, eng, state, batch, model="binaural_attention",
+                       tags=("flash_fwd", "flash_bwd")):
     """Host wall and device time of one bf16 train step (torch.profiler:
     kernel time summed over CUDA activities), the top items, and the shares
-    of B2 (flash_fwd) and B3 (flash_bwd)."""
+    of the kernels named by `tags` (B2: flash_fwd, B3: flash_bwd, B1:
+    fused_mel)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -931,23 +1043,24 @@ def profile_train_step(torch, eng, state, batch):
          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
         reverse=True)
     device_us = sum(d for d, _ in kernels)
-    row = {"phase": "profile", "model": "binaural_attention", "what": "one bf16 train step",
+    row = {"phase": "profile", "model": model, "what": "one bf16 train step",
            "batch": TRAIN_BATCH, "wall_ms": wall * 1e3,
            "device_ms": device_us / 1e3 if device_us else "not measured",
            "device_busy_share": device_us / 1e6 / wall if device_us else "not measured",
            "n_kernel_names": len(kernels),
            "top_ms": [[k[:60], d / 1e3] for d, k in kernels[:12]]}
-    for tag in ("flash_fwd", "flash_bwd"):
+    for tag in tags:
         mine = sum(d for d, k in kernels if tag in k)
         row[f"{tag}_ms"] = mine / 1e3
         row[f"{tag}_share"] = mine / device_us if device_us else "not measured"
     return row
 
 
-def phase_f32_train_vs_cpu(torch, np, configs, models):
+def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
     """One seeded float32 train step (TF32 off) at full width, 256², batch
-    2, every γ non-zero, on the card and on the CPU from one state_dict, and
-    the same step in float64 on the CPU as the reference.
+    2 (the binaural net with every γ non-zero), on the card and on the CPU
+    from one state_dict, and the same step in float64 on the CPU as the
+    reference.
 
     The loss: card within F32_TRAIN_TOL of the CPU's float32 loss. The
     gradients: this step's float32 gradient field is ill-conditioned (the
@@ -962,12 +1075,13 @@ def phase_f32_train_vs_cpu(torch, np, configs, models):
     from audiodepth_tpu_torch.data.batvision import make_dataset
 
     def cfg_for(dtype):
-        return configs.load_config("synthetic", "train", model_name="binaural_attention",
+        return configs.load_config("synthetic", "train", model_name=model_name,
                                    overrides={"mode.compute_dtype": dtype})
 
     cpu = models.make_task(cfg_for("float32"), device="cpu")
     models.init_weights(cpu.model, torch.Generator().manual_seed(0))
-    set_gammas(torch, np, cpu.model)
+    if model_name == "binaural_attention":
+        set_gammas(torch, np, cpu.model)
     state_dict = cpu.model.state_dict()
     gpu = models.make_task(cfg_for("float32"), device="cuda")
     gpu.model.load_state_dict(state_dict, strict=True)
@@ -1007,8 +1121,10 @@ def phase_f32_train_vs_cpu(torch, np, configs, models):
     # the per-tensor measure card vs CPU float32, as reported before the f64 reference
     vs_cpu32 = max(float((got[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * gmax)
                    for n, g in cpu_grads.items())
-    attention = max(v for n, v in card_per.items() if n.startswith("attention_modules."))
-    emit({"phase": "f32_train_vs_cpu", "loss_f64": want_loss, "loss_cpu_f32": cpu_loss,
+    attention = max((v for n, v in card_per.items() if n.startswith("attention_modules.")),
+                    default=None)
+    emit({"phase": "f32_train_vs_cpu", "model": model_name, "loss_f64": want_loss,
+          "loss_cpu_f32": cpu_loss,
           "loss_card_f32": got_loss, "loss_tol_rel": F32_TRAIN_TOL,
           "card_vs_f64_global_l2_rel": card_l2, "cpu_f32_vs_f64_global_l2_rel": cpu_l2,
           "card_vs_f64_worst_tensor": [worst, card_per[worst]],
@@ -1020,8 +1136,220 @@ def phase_f32_train_vs_cpu(torch, np, configs, models):
                                 "of": len(card_per)},
           "largest_grad_max": gmax, "cpu_f64_seconds": cpu_s, "cpu_f32_seconds": cpu32_s})
 
+# the main training path: unet_baseline (unet_256, ngf 64) on BatVision
+# V2's shapes, bf16, batch 16, with checkpoints; B1 runs once a step and
+# once an eval batch, B2 and B3 never
+UNET_NGF, UNET_PARAMS = 64, 54_408_833
+UNET_TRAIN_ARGV = ["--dataset", "synthetic", "--model", "unet_baseline",
+                   "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+                   "--num_samples", "64", "--epochs", "1", "--validation", "true",
+                   "--validation_iter", "1", "--seed", "0", "--saving_checkpoints", "1"]
+UNET_PER_TRAIN_STEP = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
+                       "flash_cross_attention_bwd": 0}
+UNET_PER_EVAL_BATCH = UNET_PER_TRAIN_STEP
+# the larger batch of one timed unet step: the config's batch
+# (conf/mode/train.yaml: 256), the largest of 256, 128 and 64 that fits
+UNET_BIG_BATCH = 256
+# the binaural widths the C1 repair opened, one train step each at batch 2
+WIDTH_BASES = (16, 128)
+
+
+def _train_run(torch, train_cli, kernels, argv, on_task=None):
+    """cli/train.py's main with the counts reset just before and read just
+    after: (engine, state, per-step metrics, launches, by variant, seen)."""
+    seen, steps = {}, []
+
+    def task_hook(task):
+        seen["task"] = task
+        seen["before"] = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+        if on_task is not None:
+            on_task(task)
+
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    eng, state = train_cli.main(argv, on_task=task_hook, on_step=lambda s, m: steps.append(m))
+    torch.cuda.synchronize()
+    seen["wall"] = time.perf_counter() - t0
+    launches, by_variant = read_launches(kernels)
+    return eng, state, steps, launches, by_variant, seen
+
+
+def phase_train_unet(torch, np, train_cli, kernels, ckpt_root):
+    """The main training path through cli/train.py's main in-process:
+    unet_baseline at full width on BV2's shapes (synthetic data), bf16,
+    batch 16, 64 samples (4 steps), one validation pass of 64, checkpoints
+    under `ckpt_root`. Every loss and grad_norm finite, every parameter
+    moved, val metrics finite, B1 launched once a step and once an eval
+    batch and B2 and B3 never."""
+    argv = UNET_TRAIN_ARGV + ["--ckpt_dir", ckpt_root]
+    eng, state, steps, launches, by_variant, seen = _train_run(torch, train_cli, kernels, argv)
+    task, record = seen["task"], eng.history[-1]
+    cfg = task.cfg
+    n_params = sum(p.numel() for p in task.model.parameters())
+    assert cfg.dataset.images_size == 256 and cfg.model.generator == "unet_256"
+    assert cfg.model.ngf == UNET_NGF and n_params == UNET_PARAMS, n_params
+    assert cfg.mode.compute_dtype == "bfloat16" and cfg.mode.criterion == "Combined"
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    assert len(steps) == 64 // TRAIN_BATCH, len(steps)
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
+    unmoved = [n for n, p in task.model.named_parameters()
+               if torch.equal(p.detach(), seen["before"][n])]
+    assert not unmoved, f"parameters that did not move: {unmoved[:8]}"
+    n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
+    expected = {name: UNET_PER_TRAIN_STEP[name] * len(steps) + UNET_PER_EVAL_BATCH[name] * n_eval
+                for name in UNET_PER_TRAIN_STEP}
+    assert launches == expected, f"train unet: launches {launches}, expected {expected}"
+    val = record["val"]
+    assert val and all(np.isfinite(v) for v in val.values()), val
+    emit({"phase": "train_unet", "flags": argv, "params": n_params, "steps": len(steps),
+          "eval_batches": n_eval, "losses": losses, "grad_norms": norms,
+          "launches": launches, "launches_by_variant": by_variant, "expected_launches": expected,
+          "epoch_record": record, "main_wall_s": seen["wall"]})
+    return eng, state, (launches, by_variant)
+
+
+def phase_unet_steps(torch, np, eng, state):
+    """REPEATED_STEPS steps of the trained unet on one batch of 16, each timed
+    to its end (the loss must fall), a profile of one, then two steps at
+    UNET_BIG_BATCH, the second timed, with the peak memory of each batch."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+
+    cfg = eng.cfg
+    ds = make_dataset(cfg, "train", num_samples=TRAIN_BATCH)
+    batch = eng.encode(next(ds.batches(TRAIN_BATCH, shuffle=False)))
+    torch.cuda.reset_peak_memory_stats()
+    rep_losses, times = [], []
+    for _ in range(REPEATED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        rep_losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0], rep_losses
+    step_ms = statistics.median(times[1:]) * 1e3
+    peak16 = torch.cuda.max_memory_allocated() / 2**20
+    emit({"phase": "train_unet_steps", "batch": TRAIN_BATCH, "repeated_batch_losses": rep_losses,
+          "step_ms_median": step_ms, "step_ms_all": [t * 1e3 for t in times],
+          "pairs_per_sec": TRAIN_BATCH / (step_ms / 1e3), "peak_mem_mb": peak16})
+    emit(profile_train_step(torch, eng, state, batch, "unet_baseline", ("fused_mel",)))
+
+    big = make_dataset(cfg, "train", num_samples=UNET_BIG_BATCH)
+    big_batch = eng.encode(next(big.batches(UNET_BIG_BATCH, shuffle=False)))
+    torch.cuda.reset_peak_memory_stats()
+    big_times, big_losses = [], []
+    for _ in range(2):  # the first at a new batch size picks cuDNN's algorithms
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = eng.train_step(state, big_batch)
+        torch.cuda.synchronize()
+        big_times.append(time.perf_counter() - t1)
+        big_losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(big_losses)), big_losses
+    emit({"phase": "train_unet_big_batch", "batch": UNET_BIG_BATCH,
+          "step_ms": big_times[1] * 1e3, "first_step_ms": big_times[0] * 1e3,
+          "pairs_per_sec": UNET_BIG_BATCH / big_times[1], "losses": big_losses,
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+          "total_mem_mb": torch.cuda.get_device_properties(0).total_memory / 2**20})
+
+
+def phase_ckpt_round_trip(torch, np, serve, train_cli, kernels, eng, ckpt_root):
+    """The checkpoint phase_train_unet wrote, restored by `serve`
+    (--checkpoint_path, --use_best) on the card: a few HTTP requests, each
+    answer within SERVED_TOL of the trained task's direct answer; then
+    `--resume` takes one more step from the saved step."""
+    from audiodepth_tpu_torch.configs import experiment_name
+
+    exp_dir = os.path.join(ckpt_root, experiment_name(eng.cfg))
+    waves = (np.random.default_rng(21).standard_normal((3, 2, 7782)) * 0.05).astype(np.float32)
+    dev = eng.task.device
+    trained = [np.clip(eng.task.predict_meters({"waveform": torch.from_numpy(w[None]).to(dev)})
+                       .float().cpu().numpy()[0, ..., 0], 0.0, eng.cfg.dataset.max_depth)
+               for w in waves]
+    args = serve.build_parser().parse_args(
+        ["--checkpoint_path", exp_dir, "--use_best", "--device", str(dev),
+         "--generator", eng.cfg.model.generator, "--ngf", str(eng.cfg.model.ngf),
+         "--compute_dtype", eng.cfg.mode.compute_dtype, "--batch_ladder", "1,4"])
+    cfg, task, source = serve.load_serving_state(args)
+    runner = serve.InferenceRunner(cfg, task, ladder=[1, 4])
+    reset_launches(kernels)
+    runner.warmup()
+    batcher = serve.MicroBatcher(runner, wait_ms=args.batch_wait_ms)
+    server = serve.make_server(batcher, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        res = serve.run_loadtest(port, runner, 8, 4)
+        answers = []
+        for w in waves:
+            body, shape = _post(port, w)
+            answers.append(np.frombuffer(body, np.float32).reshape(shape))
+        launches, by_variant = read_launches(kernels)
+        device_batches = len(runner.ladder) + batcher.batches
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+        runner.close()
+        thread.join(timeout=10)
+    assert res["answered"] == res["requests"] == 8 and res["bad_responses"] == 0, res
+    errs = []
+    for got, want in zip(answers, trained):
+        assert got.shape == (256, 256) and np.isfinite(got).all()
+        errs.append(float(np.abs(got - want).max()))
+        assert errs[-1] <= SERVED_TOL * float(np.abs(want).max()), (errs, float(np.abs(want).max()))
+    expected = {name: k * device_batches for name, k in UNET_PER_TRAIN_STEP.items()}
+    assert launches == expected, f"serve checkpoint: launches {launches}, expected {expected}"
+    del task, runner
+
+    # --resume: the latest epoch's state and step, then one more step
+    saved_step = eng.history[-1]["steps"]
+    argv = UNET_TRAIN_ARGV + ["--ckpt_dir", ckpt_root, "--resume", "--epochs", "2",
+                              "--num_samples", str(TRAIN_BATCH), "--validation", "false"]
+    eng2, state2 = train_cli.main(argv)
+    assert [r["epoch"] for r in eng2.history] == [2], eng2.history
+    assert state2.step == saved_step + 1 and np.isfinite(eng2.history[0]["loss"])
+    emit({"phase": "ckpt_round_trip", "checkpoint": source, "files": sorted(os.listdir(exp_dir)),
+          "requests": res["requests"], "bad_responses": res["bad_responses"],
+          "served_vs_trained_max_abs": errs, "tol_rel": SERVED_TOL,
+          "launches": launches, "expected_launches": expected,
+          "resumed_step": state2.step, "resumed_loss": eng2.history[0]["loss"]})
+    del eng2, state2
+    torch.cuda.empty_cache()
+    return launches, by_variant
+
+
+def phase_train_widths(torch, np, train_cli, kernels, base):
+    """One bf16 train step of binaural_attention at `base` (levels 2-5,
+    256², batch 2, every γ set non-zero) through cli/train.py: the widths
+    the C1 repair opened reach B2 and B3 (4 launches each a step)."""
+    argv = ["--dataset", "synthetic", "--model", "binaural_attention",
+            "--base_channels", str(base), "--attention_levels", "2,3,4,5",
+            "--compute_dtype", "bfloat16", "--batch_size", "2", "--num_samples", "2",
+            "--epochs", "1", "--validation", "false", "--seed", "0"]
+    gammas = {}
+    eng, state, steps, launches, by_variant, seen = _train_run(
+        torch, train_cli, kernels, argv,
+        on_task=lambda task: gammas.update(g=set_gammas(torch, np, task.model)))
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    assert len(steps) == 1 and all(np.isfinite(losses)) and all(np.isfinite(norms))
+    expected = {name: PER_TRAIN_STEP[name] for name in PER_TRAIN_STEP}
+    assert launches == expected, f"train base {base}: launches {launches}, expected {expected}"
+    emit({"phase": "train_width", "base_channels": base, "gammas_set_to": gammas["g"],
+          "params": sum(p.numel() for p in seen["task"].model.parameters()),
+          "losses": losses, "grad_norms": norms, "launches": launches,
+          "launches_by_variant": by_variant, "expected_launches": expected})
+    del eng, state, seen
+    torch.cuda.empty_cache()
+    return launches, by_variant
+
+
 # the prefix of each wrapper's kernels in the ptxas report
-PTXAS_PREFIX = {"fused_mel_frontend": "fused_mel", "flash_cross_attention_fwd": "flash_fwd",
+PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
+                "flash_cross_attention_fwd": "flash_fwd",
                 "flash_cross_attention_bwd": "flash_bwd"}
 
 
@@ -1074,6 +1402,7 @@ def main() -> int:
     ptxas, sass, b1_before = phase_build(_build)
     b1_rows = phase_kernel(torch, np, ff, peak, configs)
     b1_turns = phase_b1_before_after(torch, np, ff, b1_before)
+    phase_layout_probe(torch, fa)
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
     phase_autograd(torch, fa, blockwise_cross_attention)
@@ -1082,7 +1411,22 @@ def main() -> int:
     for path in SERVE_PATHS:
         phase_f32_vs_cpu(torch, np, configs, models, path)
     launches["train binaural_attention"] = phase_train(torch, np, train_cli, KERNELS)
-    phase_f32_train_vs_cpu(torch, np, configs, models)
+    phase_f32_train_vs_cpu(torch, np, configs, models, "binaural_attention")
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        eng, state, launches["train unet_baseline"] = phase_train_unet(
+            torch, np, train_cli, KERNELS, ckpt_root)
+        launches["serve unet_baseline from its checkpoint"] = phase_ckpt_round_trip(
+            torch, np, serve, train_cli, KERNELS, eng, ckpt_root)
+        phase_unet_steps(torch, np, eng, state)
+        del eng, state
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_f32_train_vs_cpu(torch, np, configs, models, "unet_baseline")
+    for base in WIDTH_BASES:
+        launches[f"train binaural_attention base {base}"] = phase_train_widths(
+            torch, np, train_cli, KERNELS, base)
 
     b1 = next(r for r in b1_rows if (r["input"], r["bc"], r["L"]) == B1_MAIN)
     b1_main = dict(b1, main_shape="B*C=32, L=7782, noise", ms=b1["us"] / 1e3,

@@ -207,3 +207,131 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch, suffix):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("kern") != first
     assert not list(tmp_path.glob("*.so"))
+
+
+# ---------------------------------------------------------------------------
+# every width the JAX package takes (the binaural levels of other bases)
+# ---------------------------------------------------------------------------
+
+BASES = (8, 16, 48, 96, 128)
+
+
+def level_shape(base, level, batch=16):
+    """(2B, N, M, dk, dv) of binaural level `level` of base `base` at 256²:
+    C = 2c, 4c, 8c, 8c at levels 2-5, dk = C/8, dv = C, N = M = (256/2^(l-1))²."""
+    c = {2: 2, 3: 4, 4: 8, 5: 8}[level] * base
+    n = (256 >> (level - 1)) ** 2
+    return 2 * batch, n, n, c // 8, c
+
+
+def instantiated(pattern):
+    """The template arguments csrc/flash_attention.cu instantiates, read from
+    its launch switches."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fa.__file__).resolve().parents[2] / "csrc" / "flash_attention.cu").read_text()
+    return {tuple(map(int, m if isinstance(m, tuple) else (m,)))
+            for m in re.findall(pattern, src)}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("level", [2, 3, 4, 5])
+@pytest.mark.parametrize("base", BASES)
+def test_fwd_plan_every_width(base, level, dtype):
+    b, n, m, dk, dv = level_shape(base, level)
+    plan = fa.fwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
+    check_plan_limits(plan)
+    dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8  # the wrapper's zero-padded widths
+    if dtype == "float32":
+        assert plan.variant == "f32" and plan.n_slices == -(-dvw // 128)
+        return
+    assert plan.variant == "wgmma" and plan.dkp == min(w for w in (16, 32, 64, 128) if w >= dkw)
+    assert dvw <= plan.dvs * plan.n_slices < dvw + 64 * plan.n_slices
+    dkps = {p for (p,) in instantiated(r"launch_fwd_wgmma_dvs<(\d+)>")}
+    dvss = {s for (s,) in instantiated(r"launch_fwd_wgmma<DKP, (\d+)>")}
+    assert plan.dkp in dkps and plan.dvs in dvss
+
+
+@pytest.mark.parametrize("shape", [level_shape(64, lv) for lv in (2, 3, 4, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_base64_plans_unchanged(shape):
+    """The main path's plans, as the parent design planned them."""
+    want_fwd = {16384: (16, 128, 1, 3, 58400, 256), 4096: (32, 256, 1, 2, 78872, 64),
+                1024: (64, 256, 2, 2, 91160, 32), 256: (64, 256, 2, 2, 91160, 8)}
+    want_bwd = {16384: (16, 128, 2, 73752, 256, 128), 4096: (32, 256, 1, 99856, 64, 128),
+                1024: (64, 256, 1, 206352, 16, 256), 256: (64, 256, 1, 206352, 4, 256)}
+    b, n, m, dk, dv = shape
+    dkp, dvs, n_slices, stages, smem, gx = want_fwd[n]
+    assert fa.fwd_plan(*shape, torch.bfloat16) == fa.Plan(
+        "wgmma", 1, dkp, dvs, n_slices, stages, smem, (gx, 32, 1), 128)
+    dkp, dvs, stages, smem, gx, block = want_bwd[n]
+    assert fa.bwd_plan(*shape, torch.bfloat16) == fa.Plan(
+        "wgmma", 2, dkp, dvs, 1, stages, smem, (gx, 32, 1), block)
+
+
+@pytest.mark.parametrize("dk,dv", [(4, 32), (12, 96), (12, 36), (100, 20), (2, 16)])
+def test_padding_helper_matches_plain_f64(dk, dv):
+    """`fwd_padded` / `bwd_padded` (zero columns to a multiple of 8, cut
+    back) around the plain versions give the plain versions' own answer."""
+    rng = np.random.default_rng(dk * 1000 + dv)
+    q, k, v = (torch.from_numpy(rng.normal(size=s)) for s in ((2, 70, dk), (2, 50, dk), (2, 50, dv)))
+    do = torch.from_numpy(rng.normal(size=(2, 70, dv)))
+    scale = 1.0 / np.sqrt(dk)
+    o, lse = fa.fwd_padded(fa.flash_cross_attention_fwd_plain, q, k, v, scale)
+    want_o, want_lse = fa.flash_cross_attention_fwd_plain(q, k, v, scale)
+    assert o.shape == want_o.shape and o.is_contiguous()
+    np.testing.assert_allclose(o.numpy(), want_o.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=0, atol=1e-12)
+    got = fa.bwd_padded(fa.flash_cross_attention_bwd_plain, q, k, v, want_o, want_lse, do, scale)
+    want = fa.flash_cross_attention_bwd_plain(q, k, v, want_o, want_lse, do, scale)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0, atol=1e-12)
+
+
+def test_padding_helper_matches_pallas_interpret():
+    """At dk 4 and dv 12 the padded plain forward gives the TPU kernel's
+    answer (which pads to 128 lanes itself), f32 at 1e-5 as above."""
+    q, k, v = _qkv(11, 2, 96, 64, 4, 12)
+    scale = 0.5
+    want_o, want_lse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                                      block_q=32, block_k=32, interpret=True)
+    got_o, got_lse = fa.fwd_padded(fa.flash_cross_attention_fwd_plain, torch.from_numpy(q),
+                                   torch.from_numpy(k), torch.from_numpy(v), scale)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("base", BASES)
+def test_kernel_check_takes_every_level_width(base):
+    """`_check_kernel_inputs` refuses none of the padded widths of the
+    binaural levels (on a stand-in for CUDA tensors), and only dk > 128."""
+    from types import SimpleNamespace
+
+    def cuda_like(*shape):
+        return SimpleNamespace(device=torch.device("cuda", 0), dtype=torch.bfloat16, shape=shape,
+                               is_contiguous=lambda: True, data_ptr=lambda: 0)
+
+    for level in (2, 3, 4, 5):
+        b, n, m, dk, dv = level_shape(base, level)
+        dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8
+        fa._check_kernel_inputs((cuda_like(b, n, dkw), cuda_like(b, m, dkw),
+                                 cuda_like(b, m, dvw)), dkw)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa._check_kernel_inputs((cuda_like(2, 8, 136),), 136)
+
+
+@pytest.mark.parametrize("tool,source", [("flash_ablation", "flash_attention.cu"),
+                                         ("frontend_ablation", "fused_frontend.cu")])
+def test_ablation_patches_match_once(tool, source):
+    """The ablation tools patch the kernel sources by text and stop on a
+    patch that does not match exactly once: every patch still does."""
+    import importlib
+    from pathlib import Path
+
+    mod = importlib.import_module(f"audiodepth_tpu_torch.tools.{tool}")
+    src = (Path(fa.__file__).resolve().parents[2] / "csrc" / source).read_text()
+    for name, patches in mod.VARIANTS.items():
+        for old, _ in patches:
+            assert src.count(old) == 1, (name, old)

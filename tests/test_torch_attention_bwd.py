@@ -35,7 +35,8 @@ from audiodepth_tpu_torch.models.binaural_attention import BinauralCrossAttentio
 from audiodepth_tpu_torch.ops.attention import blockwise_cross_attention
 from audiodepth_tpu_torch.ops.cuda import KERNELS
 from audiodepth_tpu_torch.ops.cuda import flash_attention as fa
-from tests.test_torch_attention import PLAN_SHAPES, check_plan_limits
+from tests.test_torch_attention import (BASES, PLAN_SHAPES, check_plan_limits, instantiated,
+                                        level_shape)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -203,13 +204,15 @@ def test_gamma_trap(gamma):
 def test_bwd_plan(shape, dtype):
     """B3's plan at every model level, the chip-smoke shapes and the edges:
     wgmma for bf16 (one warpgroup per 64 keys and all of dv ≤ 256, two
-    warpgroups splitting dv above), f32 for f32; shared memory, grid and
-    padding."""
+    warpgroups splitting dv above), f32 for f32 (a block per 32 keys and
+    64 output columns); shared memory, grid and padding."""
     b, n, m, dk, dv = shape
     plan = fa.bwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
     check_plan_limits(plan)
     if dtype == "float32":
-        assert plan.variant == "f32" and plan.grid == (-(-m // 32), b, 1)
+        # a block per 32 keys and 64 output columns of dv, then of dk
+        n_slices = -(-dv // 64) + -(-dk // 64)
+        assert plan.variant == "f32" and plan.grid == (-(-m // 32) * n_slices, b, 1)
         return
     wgs = 1 if dv <= 256 else 2
     assert plan.variant == "wgmma" and plan.block == 128 * wgs and plan.n_slices == 1
@@ -221,3 +224,42 @@ def test_bwd_plan(shape, dtype):
     # the most stages (of 2, 1) that leave two blocks an SM
     assert plan.stages in (1, 2)
     assert plan.blocks_per_sm >= 2 or plan.stages == 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("level", [2, 3, 4, 5])
+@pytest.mark.parametrize("base", BASES)
+def test_bwd_plan_every_width(base, level, dtype):
+    """B3's plan at the binaural levels of base 8-128: wgmma up to dkp 64 and
+    dv 512, the split design beyond (dV blocks per dv slice of ≤ 256 beside
+    a dK/dQ block per key tile), f32 at any width; every (dkp, dv slice) of a
+    split plan is one that the launch switch instantiates."""
+    b, n, m, dk, dv = level_shape(base, level)
+    plan = fa.bwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
+    check_plan_limits(plan)
+    dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8
+    if dtype == "float32":
+        n_slices = -(-dvw // 64) + -(-dkw // 64)
+        assert plan.variant == "f32" and plan.grid == (-(-m // 32) * n_slices, b, 1)
+        return
+    dkp = min(w for w in (16, 32, 64, 128) if w >= dkw)
+    assert plan.dkp == dkp
+    if dkp <= 64 and dvw <= 512:
+        assert plan.variant == "wgmma" and plan.n_slices == 1
+        return
+    assert plan.variant == "split" and plan.code == 3 and plan.block == 128
+    assert plan.n_slices == -(-dvw // 256) and dvw <= plan.dvs * plan.n_slices
+    assert plan.dvs % 64 == 0 and plan.dvs <= 256
+    assert plan.grid == (-(-m // fa.TILE) * (plan.n_slices + 1), b, 1)
+    assert (plan.dkp, plan.dvs) in instantiated(r"ADEPTH_SPLIT\((\d+), (\d+)\)")
+
+
+@pytest.mark.parametrize("dk,dv", [(128, 64), (64, 520), (64, 768), (96, 768), (128, 1024),
+                                   (16, 1280), (72, 300)])
+def test_bwd_split_plan_edges(dk, dv):
+    """Every reachable (dkp, dv slice) of the split design is instantiated,
+    and its shared memory fits one block an SM."""
+    plan = fa.bwd_plan(2, 300, 200, dk, dv, torch.bfloat16)
+    assert plan.variant == "split"
+    assert (plan.dkp, plan.dvs) in instantiated(r"ADEPTH_SPLIT\((\d+), (\d+)\)")
+    check_plan_limits(plan)

@@ -5,7 +5,8 @@ surrounds it is checked here:
   * `frontend_plan`: every frame covered once, a channel's blocks in one
     cluster, one wave at B·C ≤ 32 on 132 SMs, shared memory within a
     block's limit, frames per block a multiple of 16 (the blocks laid out
-    as the kernel maps them);
+    as the kernel maps them); the plans at L = 7782 unchanged; a channel
+    of more than 2,048 frames (L = 100,000) in the two-pass form;
   * the constants: in float64 the interleaved, bin-limited basis and the
     sparse bank give `mel_spectrogram`'s dense result to 1e-12, the bins
     outside the read range carry no weight, and the packed buffer holds
@@ -111,11 +112,53 @@ def test_frontend_plan_smem_and_limits():
     # 180,448 B of constants + 4,736 of segment + 29,824 of magnitudes + 8,192 of log-mel
     assert consts.nbytes == 180_448
     assert ff.smem_bytes(64, 32, consts) == 180_448 + 4_736 + 29_824 + 8_192
-    # a long channel runs several tiles a block; one too long for 16 blocks raises
+    # a long channel runs several tiles a block; one too long for 16 blocks
+    # takes the two-pass form, whose blocks span clusters
     plan = ff.frontend_plan(64, 7782, N_SM, H100_CLUSTERS)
-    assert plan.frames_per_block == 128 and plan.waves == 1
-    with pytest.raises(ValueError, match="no plan"):
-        ff.frontend_plan(2, 400_000, N_SM, H100_CLUSTERS)
+    assert plan.frames_per_block == 128 and plan.waves == 1 and not plan.two_pass
+    plan = ff.frontend_plan(2, 400_000, N_SM, H100_CLUSTERS)
+    assert plan.two_pass and plan.blocks_per_channel > ff.MAX_CLUSTER
+    assert plan.smem_bytes <= ff.MAX_DYNAMIC_SMEM
+
+
+@pytest.mark.parametrize("bc,plan", [
+    (2, ff.FrontendPlan(16, 16, 1, 16, 2, 1, 199_840)),
+    (8, ff.FrontendPlan(32, 8, 1, 8, 8, 1, 219_104)),
+    (32, ff.FrontendPlan(96, 3, 2, 6, 16, 1, 227_296)),
+])
+def test_frontend_plan_at_7782_unchanged(bc, plan):
+    """The serving and training shapes plan as before the two-pass form."""
+    assert ff.frontend_plan(bc, 7782, N_SM, H100_CLUSTERS) == plan
+    assert not plan.two_pass
+
+
+@pytest.mark.parametrize("bc", [2, 8, 32])
+def test_frontend_plan_two_pass_at_100000(bc):
+    """L = 100,000 (3,126 frames, more than 16 blocks of 128): the two-pass
+    form. Block i takes frames (i % nb)·F .. of channel i // nb, every frame
+    of every channel once, whatever cluster holds it; the grid is whole
+    clusters of a size the card runs, in the fewest waves."""
+    length = 100_000
+    t_frames = stft.num_frames(length, 32)
+    plan = ff.frontend_plan(bc, length, N_SM, H100_CLUSTERS)
+    assert plan.two_pass and plan.channels_per_cluster == 0
+    assert plan.blocks_per_channel > ff.MAX_CLUSTER and plan.frames_per_block % 16 == 0
+    assert plan.smem_bytes == ff.smem_bytes(plan.frames_per_block, 32, ff.frontend_constants())
+    assert plan.smem_bytes <= ff.MAX_DYNAMIC_SMEM
+    nb, fpb = plan.blocks_per_channel, plan.frames_per_block
+    frames = np.zeros((bc, t_frames), int)
+    for i in range(plan.blocks):
+        ch, part = divmod(i, nb)
+        if ch < bc:
+            assert part * fpb < t_frames  # every block has frames
+            frames[ch, part * fpb:min((part + 1) * fpb, t_frames)] += 1
+        else:  # the last cluster's spare blocks still have frames to wait on
+            assert part * fpb < t_frames
+    assert (frames == 1).all()
+    assert plan.n_clusters <= plan.waves * H100_CLUSTERS[plan.cluster_size]
+    assert plan.blocks <= plan.waves * N_SM
+    if bc == 2:
+        assert plan == ff.FrontendPlan(48, 66, 0, 2, 66, 1, 221_152, True)
 
 
 def _reference_parts(dtype):

@@ -9,7 +9,8 @@
   * the fused front end's wrapper sends a CPU tensor to the plain version
     and launches nothing;
   * the port's own copy of the config system gives the JAX package's
-    configs, field for field.
+    configs, field for field, and the experiment names that key
+    checkpoints.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ _TRAINING_SLICE = {
     "cli.train", "data.batvision", "data.codec", "data.synthetic", "losses",
     "losses.basic", "losses.binaural", "metrics", "metrics.errors", "train.engine",
     "train.optim", "train.tasks", "train.tasks_extra", "ops.cuda.flash_attention",
+    "ckpt", "cli.serve", "configs.config", "ops.cuda.fused_frontend",
 }
 
 
@@ -64,7 +66,7 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     walked = {n.split(".", 1)[1] for n in out.stdout.split()}
-    assert len(walked) >= 37  # every module was walked
+    assert len(walked) >= 38  # every module was walked
     assert _TRAINING_SLICE <= walked, _TRAINING_SLICE - walked
 
 
@@ -123,3 +125,18 @@ def test_config_copy_matches_jax(dataset, mode, model):
     assert resolve_compute_dtype(got) == torch.float64
     assert resolve_compute_dtype("bfloat16") == torch.bfloat16
     assert resolve_compute_dtype("float32") == torch.float32
+
+
+@pytest.mark.parametrize("dataset,model,overrides", [
+    ("batvisionv2", "unet_baseline", {}), ("batvisionv1", "unet_baseline", {}),
+    ("synthetic", "binaural_attention", {"mode.batch_size": 16}),
+])
+def test_experiment_name_copy_matches_jax(dataset, model, overrides):
+    from audiodepth_tpu.configs import experiment_name as jax_experiment_name
+    from audiodepth_tpu.configs import load_config as jax_load_config
+    from audiodepth_tpu_torch.configs import experiment_name
+
+    want = jax_load_config(dataset, "train", "x", model, overrides=overrides)
+    got = load_config(dataset, "train", "x", model, overrides=overrides)
+    assert experiment_name(got, "IMG") == jax_experiment_name(want, "IMG")
+    assert experiment_name(got) == jax_experiment_name(want)

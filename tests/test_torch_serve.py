@@ -10,6 +10,7 @@ its --random_init is the family's own init.
 """
 
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -177,12 +178,20 @@ def test_torch_checkpoint_round_trip(tmp_path):
     assert all(torch.equal(v, want[k]) for k, v in loaded.model.state_dict().items())
 
 
-@pytest.mark.parametrize("flags", [["--use_best"], ["--checkpoint_path", "x/5"],
-                                   ["--checkpoints", "5"], []])
-def test_orbax_flags_rejected(flags):
-    args = serve_mod.build_parser().parse_args(["--device", "cpu"] + flags)
-    with pytest.raises(SystemExit):
+@pytest.mark.parametrize("flags", [["--use_best"], ["--checkpoint_path", "{tmp}/x/5"],
+                                   ["--checkpoints", "5"], [],
+                                   ["--checkpoint_path", "{tmp}/x"],
+                                   ["--checkpoint_path", "{tmp}/x", "--use_best"]])
+def test_orbax_flags_rejected(flags, tmp_path):
+    """Each way of naming a checkpoint exits when there is none: with no
+    weights flag serve looks under --ckpt_dir (./checkpoints by default, as
+    the JAX server does), here an empty directory."""
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    args = serve_mod.build_parser().parse_args(
+        ["--device", "cpu", "--ckpt_dir", str(tmp_path)] + flags)
+    with pytest.raises(SystemExit, match="checkpoint not found"):
         serve_mod.load_serving_state(args)
+    assert os.listdir(tmp_path) == []  # looking creates nothing
 
 
 def _binaural_task():
