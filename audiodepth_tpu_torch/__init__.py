@@ -6,8 +6,11 @@ mirrors its counterpart's path and is held against it by the
 `tests/test_torch_*.py` parity tests.
 
 Rules the package keeps:
-  * it imports torch and numpy, never jax/flax/optax or `audiodepth_tpu`;
-  * entry points (`make_task`, `InferenceRunner`, `cli.serve`) run on
+  * it imports torch and numpy (scipy for the Python WAV decoder), never
+    jax/flax/optax or `audiodepth_tpu`, and needs neither pandas, OpenCV
+    nor matplotlib to train (matplotlib only to draw);
+  * entry points (`make_task`, `InferenceRunner`, `cli.serve`, `cli.train`,
+    `cli.evaluate`) run on
     ``cuda`` unless the caller passes ``device="cpu"``, and raise when no
     card is present rather than carrying on on the CPU;
   * every Pallas kernel of the JAX package on a ported path is a CUDA C++

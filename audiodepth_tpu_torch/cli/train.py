@@ -1,41 +1,60 @@
 """Training CLI (port of `cli/train.py`, the flags of the ported path).
 
-    python -m audiodepth_tpu_torch.cli.train --dataset synthetic \
-        --model binaural_attention --epochs 2 --batch_size 16
+    python -m audiodepth_tpu_torch.cli.train --dataset batvisionv2 \
+        --dataset_dir /data/BatvisionV2 --holdout_locations <location> \
+        --log_dir logs --ckpt_dir checkpoints
 
-Builds the config from the flags, the synthetic train and val splits, the
-task on --device (default cuda; it raises without a card) with a seeded
-init, and the Engine, then runs `Engine.fit` and prints one JSON line per
-epoch with its record. Flags of parts that are not ported yet exit with
-the ROADMAP.md item that ports them.
+Builds the config from the flags, the train and val splits (BatVision V2 or
+V1 from --dataset_dir, or the synthetic corpus), the task on --device
+(default cuda; it raises without a card) with a seeded init, and the
+Engine, then runs `Engine.fit` and prints one JSON line per epoch with its
+record. Flags of parts that are not ported yet exit with the ROADMAP.md
+item that ports them.
+
+Data: BatVision V2 batches decode in the native thread pool and reach the
+card through `data/prefetch.py`; --device_cache uploads each split once
+and gathers batches on the card. --holdout_locations (or the reference's
+--holdout_test_seq/--holdout_eval_seq) blacklists locations from train and
+val, and evaluates each on its own at every validation, from the full train
+split.
+
+Observability (`obs/`): the JAX fit's metric keys go to stdout and, with
+--log_dir, to {log_dir}/{experiment}.jsonl (and wandb with --use_wandb);
+--log_dir also gets {experiment}_architecture.txt. The first validation
+batch is drawn to {results_dir or log_dir}/{experiment}/val_epoch<N>.png
+unless --no_visualize; a run given neither directory draws nothing. Where
+it would draw and matplotlib does not import, the CLI exits before
+training.
 
 Checkpoints (`ckpt/`): with --ckpt_dir ROOT the run saves under
 ROOT/<experiment name>/ every --saving_checkpoints epochs, at each new best
---best_metric and at its last epoch (the JAX CLI saves under ./checkpoints
-by default; the port saves only where it is asked to). --resume continues
-from the latest epoch there, --checkpoints N from epoch N, both with the
-optimizer state and the step; --init_from_torch PTH warm-starts the model
-from a reference .pth (weights only, a fresh optimizer, from the epoch
-after the one it names).
+--best_metric, at its last epoch and on SIGTERM (the JAX CLI saves under
+./checkpoints by default; the port saves only where it is asked to).
+--resume continues from the latest epoch there, --checkpoints N from epoch
+N, both with the optimizer state and the step; --init_from_torch PTH
+warm-starts the model from a reference .pth (weights only, a fresh
+optimizer, from the epoch after the one it names).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 # the families `cli.train` trains
 TRAINED_MODELS = ("unet_baseline", "binaural_attention")
 # flag → the ROADMAP.md item that ports what it needs
 _UNPORTED = {
-    "use_wandb": "observability (ROADMAP.md A6)",
     "profile_dir": "the profiler hook (ROADMAP.md A7)",
-    "device_cache": "the device cache (ROADMAP.md A6)",
-    "holdout_locations": "the real corpora's location holdout (ROADMAP.md A6)",
     "sparse_method": "the sparse-depth coarse workflow (ROADMAP.md A5)",
+    "eval_img": "training on camera images (the image loaders come with "
+                "rgb_depth and adabins_distillation, ROADMAP.md A5)",
 }
 
 
@@ -49,6 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to train on (cuda, cuda:1, cpu)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--dataset_dir", default=None,
+                   help="root of the BatVision corpus (default: the dataset config's)")
     p.add_argument("--num_samples", type=int, default=256, help="synthetic train split size")
     p.add_argument("--learning_rate", type=float, default=None)
     p.add_argument("--optimizer", default=None, choices=[None, "Adam", "AdamW", "SGD"])
@@ -96,12 +117,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_from_torch", default=None, metavar="PTH",
                    help="warm-start the model from a reference .pth (weights only, "
                         "a fresh optimizer; the reference's own resume semantics)")
+    p.add_argument("--holdout_locations", nargs="*", default=None,
+                   help="locations kept out of train and val and evaluated on their own")
+    # the reference's sequence-holdout spelling (train.py:76-82): both named
+    # sequences are blacklisted from train and val and get holdout loaders
+    p.add_argument("--sequence_holdout", action="store_true",
+                   help="the reference's flag; the sequences come from "
+                        "--holdout_test_seq/--holdout_eval_seq or --holdout_locations")
+    p.add_argument("--holdout_test_seq", default=None,
+                   help="sequence held out of training (train.py:78)")
+    p.add_argument("--holdout_eval_seq", default=None,
+                   help="sequence held out and evaluated each validation (train.py:80)")
+    p.add_argument("--device_cache", action="store_true",
+                   help="upload each split to the card once and gather batches there")
+    p.add_argument("--log_dir", default=None,
+                   help="write {experiment}.jsonl and {experiment}_architecture.txt here")
+    p.add_argument("--results_dir", default=None,
+                   help="validation PNGs under RESULTS_DIR/<experiment> (default: --log_dir)")
+    p.add_argument("--no_visualize", action="store_true")
+    p.add_argument("--use_wandb", action="store_true",
+                   help="also log to wandb (its WANDB_* variables pick project and mode)")
     # parts not ported yet: accepted by the parser, refused by main
-    p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--profile_dir", default=None)
-    p.add_argument("--device_cache", action="store_true")
-    p.add_argument("--holdout_locations", nargs="*", default=None)
     p.add_argument("--sparse_method", default=None)
+    p.add_argument("--eval_img", action="store_true")
     return p
 
 
@@ -146,6 +185,7 @@ def config_from_args(args):
         "mode.silog_lambda": args.silog_lambda,
         "model.base_channels": args.base_channels,
         "model.attention_levels": args.attention_levels,
+        "dataset.dataset_dir": args.dataset_dir,
     }
     overrides = {k: v for k, v in direct.items() if v is not None}
     # an explicit loss weight implies Combined (train.py:394-399)
@@ -163,6 +203,18 @@ def config_from_args(args):
     return cfg
 
 
+def fold_holdout_args(args) -> None:
+    """Fold the reference's sequence-holdout spelling into holdout_locations
+    (train.py:76-82: both named sequences are blacklisted from train and
+    val; here each held-out location gets its own holdout loader)."""
+    seq_holdouts = [s for s in (args.holdout_test_seq, args.holdout_eval_seq) if s]
+    if seq_holdouts:
+        args.holdout_locations = list(args.holdout_locations or []) + seq_holdouts
+    elif args.sequence_holdout and not args.holdout_locations:
+        raise SystemExit("--sequence_holdout needs --holdout_test_seq/"
+                         "--holdout_eval_seq or --holdout_locations")
+
+
 def _refuse_unported(args) -> None:
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
@@ -170,9 +222,8 @@ def _refuse_unported(args) -> None:
     if args.num_devices is not None and args.num_devices > 1:
         raise SystemExit("--num_devices > 1: several devices are not ported yet "
                          "(ROADMAP.md A8)")
-    if args.dataset != "synthetic":
-        raise SystemExit(f"--dataset {args.dataset}: the real corpora's loaders are not "
-                         "ported yet (ROADMAP.md A6); use --dataset synthetic")
+    if args.holdout_locations and args.dataset == "synthetic":
+        raise SystemExit("--holdout_locations: the synthetic corpus has no locations")
     if args.model not in TRAINED_MODELS:
         raise SystemExit(f"--model {args.model}: training is ported for "
                          f"{' and '.join(TRAINED_MODELS)} only (the other families are "
@@ -195,21 +246,85 @@ def _warm_start(task, path: str) -> int:
     return int(epoch) + 1 if epoch is not None else 1
 
 
+def _vis_dir(args) -> Optional[str]:
+    """Where validation PNGs go: --results_dir, else --log_dir; None when
+    --no_visualize or neither is given."""
+    if args.no_visualize:
+        return None
+    return args.results_dir or args.log_dir
+
+
+def _require_matplotlib() -> None:
+    from ..obs.visualize import pyplot
+
+    try:
+        pyplot()
+    except ImportError as e:
+        raise SystemExit(f"visualization needs matplotlib, which does not import ({e}); "
+                         "install it or pass --no_visualize") from e
+
+
+def _make_vis_callback(cfg, out_dir: str, logger):
+    """The first validation batch's GT/pred grid, a PNG an epoch (the
+    reference's visualization at train.py:861-871), logged as an image."""
+    from ..data.codec import depth_storage_units
+    from ..obs import save_batch_visualization
+
+    def vis_callback(epoch, first_batch, pred_m):
+        gt = first_batch["depth"]
+        gt = np.asarray(gt.cpu() if isinstance(gt, torch.Tensor) else gt)
+        if gt.dtype == np.uint16:  # compact transport form
+            gt = gt.astype(np.float32) * (depth_storage_units(cfg) / 65535.0)
+        if cfg.dataset.depth_norm:
+            gt = gt * cfg.dataset.max_depth
+        png = os.path.join(out_dir, f"val_epoch{epoch}.png")
+        save_batch_visualization(gt, pred_m, png, max_depth=cfg.dataset.max_depth)
+        logger.log_image("val/visualization", png, step=epoch)
+
+    return vis_callback
+
+
+def _write_architecture(path: str, exp: str, cfg, task) -> None:
+    """The reference's architecture.txt (train.py:576-597): the config, the
+    parameter count and the module tree."""
+    n_params = sum(p.numel() for p in task.model.parameters())
+    with open(path, "w") as f:
+        f.write(f"experiment: {exp}\nconfig: {dataclasses.asdict(cfg)}\n")
+        f.write(f"model: {type(task.model).__name__}\nparams: {n_params:,}\n\n")
+        f.write(repr(task.model) + "\n")
+
+
 def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     """Train from the flags; returns (engine, state). `on_task(task)` runs
     after the seeded init, before the first step; `on_step` goes to
     `Engine.fit`."""
     args = build_parser().parse_args(argv)
+    fold_holdout_args(args)
     _refuse_unported(args)
+    vis_dir = _vis_dir(args)
+    if vis_dir is not None:
+        _require_matplotlib()
     from ..ckpt import BestTracker, CheckpointManager
     from ..configs import experiment_name
     from ..data.batvision import make_dataset
+    from ..data.codec import depth_storage_units
     from ..models import init_weights, make_task
+    from ..obs import MetricLogger
     from ..train.engine import Engine
 
     cfg = config_from_args(args)
-    train_ds = make_dataset(cfg, "train", num_samples=args.num_samples)
-    val_ds = make_dataset(cfg, "val")
+    holdout_locs = list(args.holdout_locations or [])
+    if cfg.dataset.name == "synthetic":
+        train_ds = make_dataset(cfg, "train", num_samples=args.num_samples)
+        val_ds = make_dataset(cfg, "val")
+    else:
+        if not os.path.isdir(cfg.dataset.dataset_dir):
+            raise SystemExit(f"--dataset_dir {cfg.dataset.dataset_dir!r} is not a directory")
+        # held-out locations leave train AND val (train.py:326,330), so
+        # neither the val metrics nor the best epoch see them
+        kwargs = {"location_blacklist": holdout_locs} if holdout_locs else {}
+        train_ds = make_dataset(cfg, "train", **kwargs)
+        val_ds = make_dataset(cfg, "val", **kwargs)
     task = make_task(cfg, device=args.device)
     init_weights(task.model, torch.Generator().manual_seed(int(cfg.mode.seed)))
     if on_task is not None:
@@ -217,7 +332,8 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     steps_per_epoch = max(len(train_ds) // cfg.mode.batch_size, 1)
     eng = Engine(cfg, task, steps_per_epoch=steps_per_epoch)
     state = eng.init_state()
-    exp = experiment_name(cfg)
+    exp = experiment_name(cfg, suffix="holdout_" + "_".join(holdout_locs) if holdout_locs
+                          else "")
     mgr = CheckpointManager(args.ckpt_dir, exp) if args.ckpt_dir else None
     resuming = args.resume or args.checkpoints is not None
     if mgr is not None and not resuming and mgr.all_epochs():
@@ -238,28 +354,62 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
                 raise SystemExit(f"no checkpoint of epoch {args.checkpoints} under "
                                  f"{mgr.directory}; available: {mgr.all_epochs()}")
             print(json.dumps({"resumed_from_epoch": None}), flush=True)
-    # the reshuffle stream: epoch e draws seed mode.seed * 100003 + e, so a
-    # resumed run sees the batches the uninterrupted one would
-    epoch_seed = [int(cfg.mode.seed) * 100_003 + start_epoch - 1]
+
+    train_src, val_src, cache_bytes = train_ds, val_ds, None
+    if args.device_cache:
+        from ..data.device_cache import DeviceDatasetCache
+
+        units = depth_storage_units(cfg)
+        train_src = DeviceDatasetCache(train_ds, units, task.device)
+        val_src = DeviceDatasetCache(val_ds, units, task.device)
+        cache_bytes = {"train": train_src.nbytes(), "val": val_src.nbytes()}
+
+    # the reshuffle stream: epoch e draws seed mode.seed * 100003 + e + 1,
+    # the JAX CLI's (its init sample draws + 1, its epoch 1 + 2), so a run
+    # sees the JAX CLI's batch order and a resumed run the uninterrupted one's
+    epoch_seed = [int(cfg.mode.seed) * 100_003 + start_epoch]
 
     def train_batches():
         epoch_seed[0] += 1
-        return train_ds.batches(cfg.mode.batch_size, shuffle=cfg.mode.shuffle,
-                                seed=epoch_seed[0])
+        return train_src.batches(cfg.mode.batch_size, shuffle=cfg.mode.shuffle,
+                                 seed=epoch_seed[0])
 
     def val_batches():
         # keep the ragged tail: a val split smaller than the batch would
         # otherwise evaluate nothing
-        return val_ds.batches(cfg.mode.batch_size, shuffle=False, drop_last=False)
+        return val_src.batches(cfg.mode.batch_size, shuffle=False, drop_last=False)
 
+    # each held-out location's rows of the full train split
+    full = make_dataset(cfg, "train") if holdout_locs else None
+    held_out = {loc: full.filter_by_audio_path(loc) for loc in holdout_locs}
+    # drop_last=False: a location with fewer samples than the batch still
+    # evaluates (train.py:915-999)
+    holdout = {loc: (lambda sub=sub: sub.batches(cfg.mode.batch_size, shuffle=False,
+                                                 drop_last=False))
+               for loc, sub in held_out.items()} or None
+
+    logger = MetricLogger(args.log_dir, exp, use_wandb=args.use_wandb,
+                          config=dataclasses.asdict(cfg))
+    if args.log_dir:
+        _write_architecture(os.path.join(args.log_dir, f"{exp}_architecture.txt"),
+                            exp, cfg, task)
+    vis_callback = (_make_vis_callback(cfg, os.path.join(vis_dir, exp), logger)
+                    if vis_dir is not None else None)
     print(json.dumps({"train": len(train_ds), "val": len(val_ds), "model": cfg.model.name,
                       "device": str(task.device), "compute_dtype": cfg.mode.compute_dtype,
                       "steps_per_epoch": steps_per_epoch, "experiment": exp,
                       "checkpoints": mgr.directory if mgr else None,
+                      "holdout": {loc: len(sub) for loc, sub in held_out.items()} or None,
+                      "device_cache_bytes": cache_bytes, "log": logger.path,
+                      "visualize": os.path.join(vis_dir, exp) if vis_dir else None,
                       "start_epoch": start_epoch}), flush=True)
-    state = eng.fit(state, train_batches, val_batches, start_epoch=start_epoch,
-                    log=lambda rec: print(json.dumps(rec), flush=True), on_step=on_step,
-                    ckpt_manager=mgr, best_tracker=BestTracker(args.best_metric))
+    try:
+        state = eng.fit(state, train_batches, val_batches, start_epoch=start_epoch,
+                        log=lambda rec: print(json.dumps(rec), flush=True), on_step=on_step,
+                        ckpt_manager=mgr, best_tracker=BestTracker(args.best_metric),
+                        logger=logger, holdout_batches=holdout, vis_callback=vis_callback)
+    finally:
+        logger.close()
     return eng, state
 
 

@@ -43,3 +43,14 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     wh = _weight_tensor(x.shape[-2], out_h, x.dtype, x.device)
     ww = _weight_tensor(x.shape[-1], out_w, x.dtype, x.device)
     return torch.matmul(torch.matmul(wh, x), ww.T)
+
+
+def resize_nearest_cv2_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2 INTER_NEAREST resize of the last two axes of a numpy array: output
+    pixel (i, j) takes source pixel (floor(i·in_h/out_h), floor(j·in_w/out_w)),
+    clamped to the last row and column. The host loaders' depth resize
+    (port of `ops/resize.py::resize_nearest_cv2_np`); OpenCV is not needed."""
+    in_h, in_w = x.shape[-2], x.shape[-1]
+    ys = np.minimum(np.floor(np.arange(out_h) * (in_h / out_h)).astype(np.int64), in_h - 1)
+    xs = np.minimum(np.floor(np.arange(out_w) * (in_w / out_w)).astype(np.int64), in_w - 1)
+    return x[..., ys, :][..., xs]

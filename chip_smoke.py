@@ -63,8 +63,9 @@ non-zero:
              pass of 64, with every γ set non-zero after init; every loss
              and grad_norm finite, every parameter moved, every attention
              projection's first-step gradient non-zero, and the launches
-             per train step (B1 1, B2 4, B3 4) and per eval batch (B1 1,
-             B2 4, B3 0); then 8 steps on one repeated batch, whose last
+             per train step (B1 1, B2 4, B3 4) and per eval batch and per
+             detector forward (one a validated epoch; B1 1, B2 4, B3 0);
+             then 8 steps on one repeated batch, whose last
              loss must be below its first, timed step by step;
   f32_train_vs_cpu  one seeded float32 train step (TF32 off) at full
              width, 256², batch 2, γ non-zero, on the card and on the CPU
@@ -78,7 +79,8 @@ non-zero:
              bf16, batch 16, 64 synthetic samples (4 steps), one validation
              pass, checkpoints into a temporary directory; every loss and
              grad_norm finite, every parameter moved, val metrics finite,
-             B1 launched once a step and once an eval batch, B2 and B3 never;
+             B1 launched once a step, once an eval batch and once for the
+             detectors' forward, B2 and B3 never;
   ckpt_round_trip  `serve` restores that checkpoint (--checkpoint_path,
              --use_best) and answers HTTP requests within SERVED_TOL of the
              trained task's own answers; `--resume` takes one more step;
@@ -89,6 +91,33 @@ non-zero:
   train_width  one bf16 binaural train step at base 16 and at base 128
              (widths dk 4 and dk 128 / dv 1024 that B2 and B3 refused
              before), B2 and B3 launched 4 times each;
+  corpus     a fabricated BatVision V2 tree in a temporary directory (three
+             locations, 64 / 16 / 16 rows, 16-bit 44.1 kHz stereo WAVs of
+             9,000 samples, 480×640 depth .npy in mm with values below 0
+             and above 30 m, a '__pycache__' and an 'X_unzipped' directory);
+             the native decoder's build seconds, one batch of 16 decoded by
+             the native pool and by the Python decoder (bit-equal in the
+             compact dtypes, each timed), and its copy to the card from
+             pinned and from pageable memory, timed; which of pandas,
+             OpenCV, matplotlib and scipy import on the machine;
+  train_corpus  the main path from disk: `cli/train.py`'s main on that
+             tree, unet_256 / ngf 64 / 256² / bf16 / batch 16, 2 epochs, one
+             location held out, the JSONL log and checkpoints in the
+             temporary directory; then the same with --device_cache. Every
+             loss and grad_norm finite, every parameter moved, no held-out
+             row in a train step or the val split, the holdout evaluated
+             alone and logged, B1 once per step, per eval batch and per
+             detector forward (B2 and B3 never), the batches the steps got
+             on the card bit-equal to the host loader's (and, cached, to the
+             streamed ones), the first-step losses of the two runs within
+             LOSS_REL_TOL; each run's steps timed and profiled (busy share;
+             each streamed batch copy from pinned memory on a stream no
+             kernel uses; no batch copy when cached), the preemption
+             snapshot's seconds and the cache's bytes;
+  evaluate   `cli/evaluate.py` on the card against the streamed run's best
+             checkpoint (--use_best --eval_on val --save_tensors): its means
+             equal that epoch's val record within EVAL_REL_TOL, B1 once per
+             batch, one artifact row a sample;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -990,7 +1019,8 @@ def phase_train(torch, np, train_cli, kernels):
     zero = [n for n, g in seen["first_grads"].items() if not g > 0]
     assert len(seen["first_grads"]) == 4 * 8 and not zero, f"zero attention gradients: {zero}"
     n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
-    expected = {name: PER_TRAIN_STEP[name] * len(steps) + PER_EVAL_BATCH[name] * n_eval
+    # + 1: the detectors' forward on the first val batch of the validated epoch
+    expected = {name: PER_TRAIN_STEP[name] * len(steps) + PER_EVAL_BATCH[name] * (n_eval + 1)
                 for name in PER_TRAIN_STEP}
     assert launches == expected, f"train: launches {launches}, expected {expected}"
     val = record["val"]
@@ -1197,8 +1227,9 @@ def phase_train_unet(torch, np, train_cli, kernels, ckpt_root):
                if torch.equal(p.detach(), seen["before"][n])]
     assert not unmoved, f"parameters that did not move: {unmoved[:8]}"
     n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
-    expected = {name: UNET_PER_TRAIN_STEP[name] * len(steps) + UNET_PER_EVAL_BATCH[name] * n_eval
-                for name in UNET_PER_TRAIN_STEP}
+    # + 1: the detectors' forward on the first val batch of the validated epoch
+    expected = {name: UNET_PER_TRAIN_STEP[name] * len(steps)
+                + UNET_PER_EVAL_BATCH[name] * (n_eval + 1) for name in UNET_PER_TRAIN_STEP}
     assert launches == expected, f"train unet: launches {launches}, expected {expected}"
     val = record["val"]
     assert val and all(np.isfinite(v) for v in val.values()), val
@@ -1347,6 +1378,407 @@ def phase_train_widths(torch, np, train_cli, kernels, base):
     return launches, by_variant
 
 
+# ---------------------------------------------------------------------------
+# the corpus path: a fabricated BatVision V2 tree on disk, trained from and
+# evaluated through the CLIs
+# ---------------------------------------------------------------------------
+
+# (location, train rows, val rows, test rows): 64 / 16 / 16 rows. The held-out
+# location has no val or test CSV (the scan warns and skips it), so the val
+# split the train CLI validates on is the one the evaluate CLI scores.
+CORPUS_LOCATIONS = (("lobby", 24, 8, 8), ("lab", 24, 8, 8), ("stairs", 16, 0, 0))
+CORPUS_HOLDOUT = "stairs"
+CORPUS_WAVE_SAMPLES = 9000         # 16-bit 44.1 kHz stereo, longer than the 7,782 kept
+CORPUS_DEPTH_HW = (480, 640)       # depth .npy in mm, resized to 256² by the loader
+CORPUS_EPOCHS = 2
+CORPUS_ARGV = ["--dataset", "batvisionv2", "--model", "unet_baseline",
+               "--holdout_locations", CORPUS_HOLDOUT, "--no_visualize",
+               "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+               "--epochs", str(CORPUS_EPOCHS), "--validation", "true", "--validation_iter", "1",
+               "--seed", "0", "--saving_checkpoints", "1"]
+CORPUS_TIMED_EPOCHS = 2            # epochs of the timed and profiled step loop
+LOSS_REL_TOL = 1e-6                # first-step loss, streamed vs device cache
+EVAL_REL_TOL = 1e-6                # evaluate CLI means vs the engine's val record
+
+
+def _write_wav(path, pcm):
+    import wave
+
+    with wave.open(path, "wb") as f:
+        f.setnchannels(pcm.shape[0])
+        f.setsampwidth(2)
+        f.setframerate(44100)
+        f.writeframes(pcm.T.tobytes())
+
+
+def write_corpus(np, root):
+    """The fabricated BV2 tree: per location audio/ WAVs and depth/ .npy in
+    mm (values below 0 and above 30 m), a CSV per split it has rows in,
+    and a '__pycache__' and an 'X_unzipped' directory the scan skips."""
+    rng = np.random.default_rng(7)
+    header = "audio path,audio file name,depth path,depth file name,camera path,camera file name"
+    for loc, *counts in CORPUS_LOCATIONS:
+        for sub in ("audio", "depth"):
+            os.makedirs(os.path.join(root, loc, sub))
+        for split, n in zip(("train", "val", "test"), counts):
+            if not n:
+                continue
+            lines = []
+            for i in range(n):
+                name = f"{split}{i:03d}"
+                depth = rng.uniform(-500.0, 40_000.0, CORPUS_DEPTH_HW).astype(np.float32)
+                np.save(os.path.join(root, loc, "depth", f"{name}.npy"), depth)
+                pcm = np.clip(rng.normal(0.0, 3000.0, (2, CORPUS_WAVE_SAMPLES)),
+                              -32768, 32767).astype(np.int16)
+                _write_wav(os.path.join(root, loc, "audio", f"{name}.wav"), pcm)
+                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{name}.npy,{loc}/cam,{name}.png")
+            with open(os.path.join(root, loc, f"{split}.csv"), "w") as f:
+                f.write(header + "\n" + "\n".join(lines) + "\n")
+    os.makedirs(os.path.join(root, "__pycache__"))
+    os.makedirs(os.path.join(root, "X_unzipped"))
+
+
+def _median_s(fn, runs):
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_corpus(torch, np, configs, root, smi):
+    """Write the fabricated tree, build the native decoder (its seconds),
+    time one batch of 16 decoded by the native pool against the Python
+    decoder (bit-equal in the compact dtypes), and time that batch's copy
+    to the card from pinned against pageable memory."""
+    import importlib.util
+
+    from audiodepth_tpu_torch.data import native_io
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.codec import encode_batch
+
+    t0 = time.perf_counter()
+    write_corpus(np, root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = native_io.build()
+    build_s = time.perf_counter() - t0
+    cfg = configs.load_config("batvisionv2", "train", overrides={"dataset.dataset_dir": root})
+    ds = make_dataset(cfg, "train")
+    assert len(ds) == sum(c[1] for c in CORPUS_LOCATIONS), len(ds)
+
+    def native():
+        return next(ds.batches(TRAIN_BATCH, shuffle=False))
+
+    def python():
+        return encode_batch(next(ds.batches(TRAIN_BATCH, shuffle=False, native=False)),
+                            float(cfg.dataset.max_depth))
+
+    nat, py = native(), python()
+    for k in ("waveform", "depth"):
+        assert nat[k].dtype == py[k].dtype and np.array_equal(nat[k], py[k]), k
+    native_s, python_s = _median_s(native, 5), _median_s(python, 3)
+
+    dev = torch.device("cuda")
+    host = {k: np.ascontiguousarray(nat[k]) for k in ("waveform", "depth")}
+    nbytes = sum(a.nbytes for a in host.values())
+    pinned = {k: torch.from_numpy(a).pin_memory() for k, a in host.items()}
+    dst = {k: torch.empty(a.shape, dtype=pinned[k].dtype, device=dev) for k, a in host.items()}
+
+    def pageable_copy():
+        for k, a in host.items():
+            dst[k].copy_(torch.from_numpy(a), non_blocking=True)
+        torch.cuda.synchronize()
+
+    def pinned_copy():
+        for k, t in pinned.items():
+            dst[k].copy_(t, non_blocking=True)
+        torch.cuda.synchronize()
+
+    for fn in (pageable_copy, pinned_copy):
+        fn()
+    pageable_ms, pinned_ms = (_median_s(fn, 50) * 1e3 for fn in (pageable_copy, pinned_copy))
+    for k in host:
+        assert np.array_equal(dst[k].cpu().numpy(), host[k]), k
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("pandas", "cv2", "matplotlib", "scipy")}
+    emit({"phase": "corpus", "root_rows": {loc: c for loc, *c in CORPUS_LOCATIONS},
+          "depth_hw_on_disk": CORPUS_DEPTH_HW, "wave_samples_on_disk": CORPUS_WAVE_SAMPLES,
+          "write_s": write_s, "native_build_s": build_s, "native_library": lib.name,
+          "batch": TRAIN_BATCH, "decode_ms_native": native_s * 1e3,
+          "decode_ms_python": python_s * 1e3, "native_equals_python": True,
+          "batch_bytes": nbytes, "h2d_ms_pageable": pageable_ms, "h2d_ms_pinned": pinned_ms,
+          "h2d_gbps_pageable": nbytes / pageable_ms / 1e6,
+          "h2d_gbps_pinned": nbytes / pinned_ms / 1e6, "nvidia_smi": smi,
+          "importable": found})
+
+
+class spy:
+    """Wrap `cls.name` so that `record(self, *args)` runs before each call;
+    the original is put back on exit."""
+
+    def __init__(self, cls, name, record):
+        self.cls, self.name, self.record = cls, name, record
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.cls, self.name)
+        record = self.record
+
+        def wrapper(obj, *args, **kwargs):
+            record(obj, *args, **kwargs)
+            return orig(obj, *args, **kwargs)
+
+        setattr(self.cls, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def _gpu_activity(trace_path):
+    """From a torch.profiler chrome trace: the GPU events (kernels, copies,
+    memsets) as (cat, name, stream, ts_us, dur_us, bytes)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = []
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        args = e.get("args", {})
+        out.append((cat, e.get("name", ""), args.get("stream"), float(e["ts"]),
+                    float(e["dur"]), args.get("bytes")))
+    return out
+
+
+def _busy_union_us(acts):
+    """Time the device had any kernel or copy running (intervals merged)."""
+    total, end = 0.0, None
+    for ts, dur in sorted((a[3], a[4]) for a in acts):
+        if end is None or ts > end:
+            total += dur
+            end = ts + dur
+        elif ts + dur > end:
+            total += ts + dur - end
+            end = ts + dur
+    return total
+
+
+def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
+    """CORPUS_TIMED_EPOCHS epochs of train steps fed by `make_batches()`
+    through `device_prefetch`, as `Engine.fit` feeds them: one warm-up
+    pass, a timed pass (host clock, ending in a synchronize), then a
+    profiled pass: the device's busy share (kernels and copies, merged
+    over streams) and, for host batches, where each batch copy ran (it
+    must come from pinned memory on a stream no kernel of the step uses)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiodepth_tpu_torch.data.prefetch import device_prefetch
+
+    def run():
+        marks = []
+        for batch in device_prefetch(make_batches(), eng.device,
+                                     encode_units=eng._encode_units):
+            eng.train_step(state, batch)
+            marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        return marks
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks = run()
+    wall = time.perf_counter() - t0
+    steps = len(marks)
+    intervals = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        pwall = time.perf_counter() - t1
+    trace = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"), "trace.json")
+    prof.export_chrome_trace(trace)
+    acts = _gpu_activity(trace)
+    shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
+    kernel_streams = {a[2] for a in acts if a[0] == "kernel"}
+    copies = [a for a in acts if a[0] == "gpu_memcpy" and "HtoD" in a[1]
+              and a[5] in batch_bytes]
+    kernel_us = sum(a[4] for a in acts if a[0] == "kernel")
+    row = {"phase": "profile", "what": what, "steps": steps, "wall_ms": wall * 1e3,
+           "step_ms": wall / steps * 1e3,
+           "step_interval_ms_median": statistics.median(intervals) * 1e3,
+           "profiled_wall_ms": pwall * 1e3, "kernel_ms": kernel_us / 1e3,
+           "device_busy_share": (_busy_union_us(acts) / 1e6 / pwall if acts
+                                 else "not measured"),
+           "kernel_busy_share": kernel_us / 1e6 / pwall if acts else "not measured",
+           "batch_copies": [[name, stream, b] for _, name, stream, _, _, b in copies],
+           "kernel_streams": sorted(map(str, kernel_streams))}
+    assert acts, f"{what}: the profiler recorded no device activity"
+    return row, copies, kernel_streams
+
+
+def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
+    """cli/train.py's main in-process on the fabricated tree (the main path:
+    unet_256, ngf 64, 256², bf16, batch 16, 2 epochs, one location held
+    out, the JSONL log and checkpoints in `work`), then the same run with
+    --device_cache. Checks: finite losses and grad norms, every parameter
+    moved, the held-out rows absent from train and val and evaluated on
+    their own, the holdout record in the JSONL, B1 once per step, per eval
+    batch and per detector forward (B2 = B3 = 0), the batches the steps
+    received on the card bit-equal to the host loader's (streamed) and to
+    the streamed ones (cached), and the first-step losses of the two runs
+    within LOSS_REL_TOL. Each run's steps are then timed and profiled."""
+    import itertools
+
+    from audiodepth_tpu_torch.configs import experiment_name
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.device_cache import DeviceDatasetCache
+    from audiodepth_tpu_torch.train.engine import Engine
+
+    cfg0 = configs.load_config("batvisionv2", "train", overrides={"dataset.dataset_dir": root})
+    full = make_dataset(cfg0, "train")
+    holdout_rows = {b["depth"][0].tobytes()
+                    for b in full.filter_by_audio_path(CORPUS_HOLDOUT).batches(1, shuffle=False)}
+    n_train = sum(c[1] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
+    n_val = sum(c[2] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
+    steps_per_epoch = n_train // TRAIN_BATCH
+    eval_batches = -(-n_val // TRAIN_BATCH) + -(-len(holdout_rows) // TRAIN_BATCH)
+    per_epoch = steps_per_epoch + eval_batches + 1  # + the detectors' forward
+    expected = {"fused_mel_frontend": per_epoch * CORPUS_EPOCHS,
+                "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0}
+    out = {}
+    for name, extra in (("streamed", []), ("cached", ["--device_cache"])):
+        log_dir, ckpt_dir = os.path.join(work, f"logs_{name}"), os.path.join(work, f"ck_{name}")
+        argv = CORPUS_ARGV + ["--dataset_dir", root, "--log_dir", log_dir,
+                              "--ckpt_dir", ckpt_dir] + extra
+        received, evaluated, caches = [], [], []
+        with spy(Engine, "train_step", lambda eng, state, batch, epoch=0.0: received.append(
+                     {k: v.clone() for k, v in batch.items()})), \
+             spy(Engine, "eval_step", lambda eng, state, batch, epoch=0.0: evaluated.append(
+                     np.array(batch["depth"].cpu() if hasattr(batch["depth"], "cpu")
+                              else batch["depth"]))), \
+             spy(DeviceDatasetCache, "__init__", lambda c, *a, **k: caches.append(c)):
+            eng, state, steps, launches, by_variant, seen = _train_run(
+                torch, train_cli, kernels, argv)
+        task = seen["task"]
+        cfg = task.cfg
+        assert cfg.model.generator == "unet_256" and cfg.model.ngf == UNET_NGF
+        assert cfg.dataset.images_size == 256 and cfg.mode.compute_dtype == "bfloat16"
+        losses = [float(m["loss"]) for m in steps]
+        norms = [float(m["grad_norm"]) for m in steps]
+        assert len(steps) == steps_per_epoch * CORPUS_EPOCHS, len(steps)
+        assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
+        unmoved = [n for n, p in task.model.named_parameters()
+                   if torch.equal(p.detach(), seen["before"][n])]
+        assert not unmoved, f"{name}: parameters that did not move: {unmoved[:8]}"
+        assert launches == expected, f"train corpus {name}: launches {launches}, expected {expected}"
+        for rec in eng.history:
+            assert set(rec["holdout"]) == {CORPUS_HOLDOUT}, rec
+            assert all(np.isfinite(v) for v in (*rec["val"].values(),
+                                                *rec["holdout"][CORPUS_HOLDOUT].values()))
+        exp = experiment_name(cfg, f"holdout_{CORPUS_HOLDOUT}")
+        with open(os.path.join(log_dir, f"{exp}.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        assert sum(f"holdout/{CORPUS_HOLDOUT}/rmse" in r for r in logged) == CORPUS_EPOCHS
+        received = [{k: v.cpu().numpy() for k, v in b.items()} for b in received]
+        rows = [b["depth"][i].tobytes() for b in received for i in range(len(b["depth"]))]
+        assert not holdout_rows & set(rows), f"{name}: a held-out row reached a train step"
+        if name == "streamed":
+            # per epoch: one val batch (no held-out row), then the holdout's
+            assert len(evaluated) == 2 * CORPUS_EPOCHS, len(evaluated)
+            for val, hold in zip(evaluated[0::2], evaluated[1::2]):
+                assert not holdout_rows & {r.tobytes() for r in val}
+                assert {r.tobytes() for r in hold} == holdout_rows
+            ds = make_dataset(cfg, "train", location_blacklist=[CORPUS_HOLDOUT])
+            host = list(ds.batches(TRAIN_BATCH, shuffle=True, seed=2))  # epoch 1: seed·100003+2
+            for got, want in zip(received[:steps_per_epoch], host):
+                for k in want:
+                    assert np.array_equal(got[k], want[k]), f"prefetched {k} != host batch"
+        else:
+            for got, want in zip(received, out["streamed"]["received"]):
+                for k in ("waveform", "depth"):
+                    assert np.array_equal(got[k], want[k]), f"cached {k} != streamed"
+            first = out["streamed"]["losses"][0]
+            assert abs(losses[0] - first) <= LOSS_REL_TOL * abs(first), (losses[0], first)
+        state_bytes = sum(v.numel() * v.element_size() for v in state.model.state_dict().values())
+        if name == "streamed":
+            make = lambda: itertools.chain.from_iterable(  # noqa: E731
+                ds.batches(TRAIN_BATCH, seed=e) for e in range(CORPUS_TIMED_EPOCHS))
+        else:
+            cache = caches[0]
+            make = lambda: itertools.chain.from_iterable(  # noqa: E731
+                cache.batches(TRAIN_BATCH, seed=e) for e in range(CORPUS_TIMED_EPOCHS))
+        batch_bytes = {received[0][k].nbytes for k in ("waveform", "depth")}
+        prof_row, copies, kernel_streams = profile_corpus_steps(
+            torch, eng, state, make, f"unet_256 corpus steps, {name}", batch_bytes)
+        if name == "streamed":
+            # the trace may drop some copy records; every one it keeps must
+            # be a pinned copy on a stream no kernel of the steps ran on
+            issued = 2 * steps_per_epoch * CORPUS_TIMED_EPOCHS
+            prof_row["batch_copies_issued"] = issued
+            assert 2 <= len(copies) <= issued, prof_row
+            bad = [c for c in copies if "Pinned" not in c[1] or c[2] in kernel_streams]
+            assert not bad, f"batch copies not from pinned memory on a side stream: {bad}"
+        else:
+            assert not copies, f"the cached run copied batches: {copies}"
+        emit(prof_row)
+        out[name] = {"losses": losses, "received": received}
+        emit({"phase": "train_corpus", "run": name, "flags": argv, "steps": len(steps),
+              "losses": losses, "grad_norms": norms, "launches": launches,
+              "expected_launches": expected, "epoch_records": eng.history,
+              "main_wall_s": seen["wall"],
+              "epoch_step_ms": [r["epoch_time"] / r["steps"] * 1e3 for r in eng.history],
+              "device_cache_nbytes": {s: c.nbytes() for s, c in zip(("train", "val"), caches)},
+              "preemption_snapshot_s": eng.snapshot_seconds,
+              "snapshot_state_mb": state_bytes / 2**20,
+              "holdout_rows": len(holdout_rows), "jsonl_records": len(logged)})
+        out[name].update(launches=(launches, by_variant), eng=eng, exp=exp, ckpt_dir=ckpt_dir)
+        del state, seen, task, received
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_evaluate(torch, np, evaluate_cli, kernels, root, work, run):
+    """cli/evaluate.py on the card against the best checkpoint of the
+    streamed corpus run (--use_best --eval_on val --save_tensors): its
+    means equal the engine's val record of that epoch within EVAL_REL_TOL,
+    B1 launches once per batch, and the artifact holds one row a sample."""
+    from audiodepth_tpu_torch.ckpt import CheckpointManager
+
+    eng, exp = run["eng"], run["exp"]
+    best = CheckpointManager(run["ckpt_dir"], exp, create=False).best_epoch()
+    stat_dir = os.path.join(work, "eval")
+    argv = ["--dataset", "batvisionv2", "--dataset_dir", root, "--checkpoint_path",
+            os.path.join(run["ckpt_dir"], exp), "--use_best", "--eval_on", "val",
+            "--save_tensors", "--stat_dir", stat_dir, "--batch_size", str(TRAIN_BATCH),
+            "--compute_dtype", "bfloat16"]
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    means = evaluate_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_variant = read_launches(kernels)
+    n_val = sum(c[2] for c in CORPUS_LOCATIONS)
+    batches = -(-n_val // TRAIN_BATCH)
+    expected = {"fused_mel_frontend": batches, "flash_cross_attention_fwd": 0,
+                "flash_cross_attention_bwd": 0}
+    assert launches == expected, f"evaluate: launches {launches}, expected {expected}"
+    val = eng.history[best - 1]["val"]
+    diffs = {k: abs(means[k] - val[k]) / max(abs(val[k]), 1e-12) for k in means}
+    assert all(d <= EVAL_REL_TOL for d in diffs.values()), (means, val)
+    artifact = os.path.join(stat_dir, "batvisionv2", "val", f"stats_on_{exp}_epoch{best}.npz")
+    stats = np.load(artifact)
+    assert all(stats[k].shape == (n_val,) for k in means), {k: stats[k].shape for k in stats}
+    assert stats["pred"].shape == stats["gt"].shape == (n_val, 256, 256, 1)
+    assert np.isfinite(stats["pred"]).all()
+    emit({"phase": "evaluate", "flags": argv, "best_epoch": best, "seconds": seconds,
+          "means": means, "val_record": val, "rel_diff": diffs, "tol_rel": EVAL_REL_TOL,
+          "launches": launches, "expected_launches": expected,
+          "artifact_keys": sorted(stats.files), "rows": n_val})
+    return launches, by_variant
+
+
 # the prefix of each wrapper's kernels in the ptxas report
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
@@ -1389,6 +1821,7 @@ def main() -> int:
 
     from audiodepth_tpu_torch import configs, models
     from audiodepth_tpu_torch._device import configure_precision
+    from audiodepth_tpu_torch.cli import evaluate as evaluate_cli
     from audiodepth_tpu_torch.cli import serve
     from audiodepth_tpu_torch.cli import train as train_cli
     from audiodepth_tpu_torch.ops.attention import blockwise_cross_attention
@@ -1427,6 +1860,19 @@ def main() -> int:
     for base in WIDTH_BASES:
         launches[f"train binaural_attention base {base}"] = phase_train_widths(
             torch, np, train_cli, KERNELS, base)
+    work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        root = os.path.join(work, "BatvisionV2")
+        phase_corpus(torch, np, configs, root, smi)
+        runs = phase_train_corpus(torch, np, configs, train_cli, KERNELS, root, work)
+        launches["train unet_baseline corpus"] = runs["streamed"]["launches"]
+        launches["train unet_baseline corpus --device_cache"] = runs["cached"]["launches"]
+        launches["evaluate unet_baseline"] = phase_evaluate(
+            torch, np, evaluate_cli, KERNELS, root, work, runs["streamed"])
+        del runs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     b1 = next(r for r in b1_rows if (r["input"], r["bc"], r["L"]) == B1_MAIN)
     b1_main = dict(b1, main_shape="B*C=32, L=7782, noise", ms=b1["us"] / 1e3,

@@ -4,6 +4,9 @@
     and the JAX package blocked (by exact top-level name: a prefix check on
     "audiodepth_tpu" would also match the port), the training slice's
     modules among them;
+  * the corpus path's modules (the loaders, the native decoder, prefetch,
+    the device cache, the metric sink and both CLIs) import with pandas,
+    OpenCV and matplotlib blocked as well: the card's machine may lack them;
   * an entry point called without device="cpu" raises here rather than
     running on the CPU;
   * the fused front end's wrapper sends a CPU tensor to the plain version
@@ -35,6 +38,7 @@ _IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "audiodepth_tpu", "triton"}
+BLOCKED |= set(sys.argv[1:])
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -59,6 +63,11 @@ _TRAINING_SLICE = {
     "train.optim", "train.tasks", "train.tasks_extra", "ops.cuda.flash_attention",
     "ckpt", "cli.serve", "configs.config", "ops.cuda.fused_frontend",
 }
+# the corpus path's modules
+_CORPUS_SLICE = {
+    "data.batvision", "data.native_io", "data.prefetch", "data.device_cache", "obs",
+    "obs.logging", "obs.visualize", "cli.train", "cli.evaluate",
+}
 
 
 def test_imports_without_jax():
@@ -66,8 +75,16 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     walked = {n.split(".", 1)[1] for n in out.stdout.split()}
-    assert len(walked) >= 38  # every module was walked
-    assert _TRAINING_SLICE <= walked, _TRAINING_SLICE - walked
+    assert len(walked) >= 45  # every module was walked
+    assert _TRAINING_SLICE | _CORPUS_SLICE <= walked, (_TRAINING_SLICE | _CORPUS_SLICE) - walked
+
+
+def test_corpus_path_imports_without_pandas_opencv_matplotlib():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, "pandas", "cv2", "matplotlib"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    walked = {n.split(".", 1)[1] for n in out.stdout.split()}
+    assert _CORPUS_SLICE <= walked, _CORPUS_SLICE - walked
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu():

@@ -45,7 +45,9 @@ Each case names its tolerance and why:
     `Engine.evaluate` over a ragged tail, its `criterion_loss` included
     (the training criterion on gt > 0 over the valid rows), at 1e-6;
   * `cli.train.main` trains two steps and validates on the CPU, and the
-    flags of parts that are not ported exit naming their ROADMAP.md item.
+    flags of parts that are not ported exit naming their ROADMAP.md item
+    (the real corpora, the holdout, the device cache and wandb are ported:
+    tests/test_torch_corpus.py drives them).
 """
 
 from __future__ import annotations
@@ -183,9 +185,12 @@ def test_make_dataset_defaults_and_refusals():
     cfg = load_config("synthetic")
     assert [(len(make_dataset(cfg, s)), make_dataset(cfg, s).seed)
             for s in ("train", "val", "test")] == [(256, 0), (64, 1), (64, 2)]
+    # the real corpora's loaders read the config's dataset_dir, absent
+    # here, and fall back to nothing
     for name in ("batvisionv1", "batvisionv2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            make_dataset(load_config(name), "train")
+        with pytest.raises(FileNotFoundError):
+            make_dataset(load_config(name, overrides={"dataset.dataset_dir": "/nonexistent"}),
+                         "train")
 
 
 # ---------------------------------------------------------------------------
@@ -613,11 +618,11 @@ def test_cli_config_from_flags():
 
 @pytest.mark.parametrize("flags,item", [
     (["--model", "base_residual"], "A5"), (["--model", "unet_cvae"], "A5"),
-    (["--model", "adabins_distillation"], "A5"), (["--use_wandb"], "A6"),
-    (["--profile_dir", "p"], "A7"), (["--device_cache"], "A6"),
-    (["--holdout_locations", "a"], "A6"), (["--sparse_method", "downup_015"], "A5"),
-    (["--num_devices", "2"], "A8"), (["--dataset", "batvisionv2"], "A6"),
-    (["--dataset", "batvisionv1"], "A6"),
+    (["--model", "adabins_distillation"], "A5"), (["--model", "rgb_depth"], "A5"),
+    (["--profile_dir", "p"], "A7"), (["--model", "coarse_depth"], "A5"),
+    (["--eval_img"], "A5"), (["--sparse_method", "downup_015"], "A5"),
+    (["--num_devices", "2"], "A8"), (["--num_devices", "4"], "A8"),
+    (["--dataset", "batvisionv2", "--eval_img"], "A5"),
 ])
 def test_cli_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
