@@ -10,7 +10,10 @@ or takes a reference .pth (--torch_checkpoint; a port checkpoint is one
 too). It evaluates the --eval_on split (test or val) on --device (default
 cuda) in batches of --batch_size (default 16, the ragged tail kept), one
 forward a batch, and prints the means of the per-sample metrics
-(test.py:322-332). It writes
+(test.py:322-332). rgb_depth and --eval_img (input_nc 3) checkpoints are
+scored on camera images (BatVision V2 and the synthetic corpus); an
+adabins_distillation checkpoint, which holds the teacher, is scored by its
+student alone on audio. It writes
 {stat_dir}/{dataset}/{eval_on}/stats_on_{experiment}_epoch{epoch}.npz with
 one vector a metric, one row a sample (and the gt and pred tensors in
 meters under --save_tensors); --visualize writes one PNG per
@@ -45,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the best validation epoch (best.json) instead of the latest")
     p.add_argument("--torch_checkpoint", default=None,
                    help="a reference .pth (checkpoint['state_dict']); a port checkpoint is one")
-    p.add_argument("--eval_img", action="store_true")
+    p.add_argument("--eval_img", action="store_true",
+                   help="a model trained on camera images (input_nc 3): score it on images")
     p.add_argument("--ckpt_dir", default="./checkpoints")
     p.add_argument("--stat_dir", default="./eval/")
     p.add_argument("--batch_size", type=int, default=None)
@@ -101,10 +105,6 @@ def _restore(args, cfg, task):
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Evaluate from the flags; returns the metric means."""
     args = build_parser().parse_args(argv)
-    if args.eval_img:
-        raise SystemExit("--eval_img: evaluating on camera images is not ported yet (the "
-                         "image loaders come with rgb_depth and adabins_distillation, "
-                         "ROADMAP.md A5)")
     from ..configs import apply_overrides, load_config
     from ..data.batvision import make_dataset
     from ..models import make_task
@@ -118,13 +118,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                      "mode.compute_dtype": args.compute_dtype}.items():
         if val is not None:
             overrides[key] = val
+    if args.eval_img:
+        overrides["model.input_nc"] = 3
     cfg = load_config(args.dataset, "test", args.experiment_name, args.model,
                       overrides=overrides)
     if args.override:
         cfg = apply_overrides(cfg, dict(_parse_override(s) for s in args.override))
+    # the image families read camera images; adabins validates its student
+    # alone on audio (train_adabins_distillation.py:481-522)
+    ds_kwargs = {}
+    if args.eval_img or cfg.model.name == "rgb_depth":
+        if cfg.dataset.name == "batvisionv1":
+            raise SystemExit("image-input evaluation is not supported on batvisionv1 "
+                             "(no camera images)")
+        ds_kwargs = ({"with_image": True} if cfg.dataset.name == "synthetic"
+                     else {"use_image": True})
     task = make_task(cfg, device=args.device)
     exp, epoch = _restore(args, cfg, task)
-    ds = make_dataset(cfg, args.eval_on)
+    ds = make_dataset(cfg, args.eval_on, **ds_kwargs)
     return _run_eval(args, cfg, Engine(cfg, task), ds, exp, epoch, args.batch_size or 16)
 
 

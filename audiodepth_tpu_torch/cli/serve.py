@@ -2,9 +2,12 @@
 `cli/serve.py`).
 
   * One forward per batch — TOF-fix → mel front end (kernel B1 on the card)
-    → model (UNet, or the binaural attention net with kernel B2 on the
-    card) → meters + clip to [0, max_depth] — run once per size of a batch
-    ladder at startup (`warmup`), so no size is first seen mid-serving.
+    → model (UNet, the binaural attention net with kernel B2 on the card,
+    base_residual, the cVAE with its fixed eval draw, or the AdaBins
+    student alone) → meters + clip to [0, max_depth] — run once per size of
+    a batch ladder at startup (`warmup`), so no size is first seen
+    mid-serving. Models that read camera images (rgb_depth, --eval_img
+    baselines) are refused.
   * Micro-batching: concurrent requests are collected for up to
     --batch_wait_ms, padded to the smallest ladder size, and run as one
     device batch.

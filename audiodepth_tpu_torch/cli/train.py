@@ -11,6 +11,13 @@ Engine, then runs `Engine.fit` and prints one JSON line per epoch with its
 record. Flags of parts that are not ported yet exit with the ROADMAP.md
 item that ports them.
 
+Families: unet_baseline, binaural_attention, base_residual, unet_cvae,
+rgb_depth and adabins_distillation, with the JAX CLI's family flags.
+rgb_depth reads camera images, adabins_distillation paired audio and
+images (its teacher frozen), and --eval_img trains a family with input_nc
+3 (the baseline) on the images, the experiment named with IMG (BatVision V2
+and the synthetic corpus; V1 has no camera).
+
 Data: BatVision V2 batches decode in the native thread pool and reach the
 card through `data/prefetch.py`; --device_cache uploads each split once
 and gathers batches on the card. --holdout_locations (or the reference's
@@ -48,14 +55,20 @@ import numpy as np
 import torch
 
 # the families `cli.train` trains
-TRAINED_MODELS = ("unet_baseline", "binaural_attention")
+TRAINED_MODELS = ("unet_baseline", "binaural_attention", "base_residual", "unet_cvae",
+                  "rgb_depth", "adabins_distillation")
+# the families that read camera images
+IMAGE_MODELS = ("rgb_depth", "adabins_distillation")
 # flag → the ROADMAP.md item that ports what it needs
 _UNPORTED = {
     "profile_dir": "the profiler hook (ROADMAP.md A7)",
     "sparse_method": "the sparse-depth coarse workflow (ROADMAP.md A5)",
-    "eval_img": "training on camera images (the image loaders come with "
-                "rgb_depth and adabins_distillation, ROADMAP.md A5)",
 }
+# family knobs that live in model.extra (the JAX CLI's names)
+_EXTRA_FLAGS = ("loss_type", "lambda_recon", "lambda_edge", "lambda_smooth", "remat",
+                "warmup_epochs", "use_adaptive_loss", "temperature", "recon", "lambda_base",
+                "lambda_sparse", "lowpass_kernel", "lambda_l1", "lambda_task",
+                "lambda_response", "lambda_feature", "lambda_bin")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,18 +95,50 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_schedule", default=None,
                    choices=[None, "constant", "cosine", "step", "warm_restarts"])
     p.add_argument("--base_channels", type=int, default=None)
+    p.add_argument("--ngf", type=int, default=None)
+    p.add_argument("--generator", default=None, choices=[None, "unet_256", "unet_128"])
+    p.add_argument("--n_bins", type=int, default=None, help="AdaBins bins")
     p.add_argument("--attention_levels", default=None,
                    help="comma-separated encoder levels for cross-attention, e.g. 2,3,4,5")
     p.add_argument("--loss_type", default=None, choices=[None, "standard", "edge_aware", "adaptive"],
                    help="binaural-attention loss family")
     p.add_argument("--lambda_recon", type=float, default=None,
-                   help="edge-aware recon weight (default 1.0)")
+                   help="base_residual recon weight and binaural edge-aware recon weight "
+                        "(default 1.0)")
     p.add_argument("--lambda_edge", type=float, default=None,
                    help="edge-aware edge weight (default 0.2)")
     p.add_argument("--lambda_smooth", type=float, default=None,
-                   help="edge-aware smoothness weight (default 0.1)")
+                   help="smoothness weight (binaural edge-aware and rgb_depth, default 0.1)")
     p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
-                   help="recompute the encoders' activations in the backward (default on)")
+                   help="recompute the encoders' activations in the backward "
+                        "(binaural_attention, default on)")
+    p.add_argument("--warmup_epochs", type=int, default=None,
+                   help="base_residual: adaptive-loss warmup and detach flip (default 50)")
+    p.add_argument("--use_adaptive_loss", action=argparse.BooleanOptionalAction, default=None,
+                   help="the adaptive schedule (base_residual default on, adabins off)")
+    p.add_argument("--recon", default=None, choices=[None, "silog", "l1", "l2", "frequency_aware"],
+                   help="base_residual reconstruction term (default silog)")
+    p.add_argument("--lambda_base", type=float, default=None,
+                   help="base_residual structural-guidance weight (default 1.2)")
+    p.add_argument("--lambda_sparse", type=float, default=None,
+                   help="residual sparsity weight (base_residual 0.05, adabins 0.1)")
+    p.add_argument("--lowpass_kernel", type=int, default=None,
+                   help="base_residual guidance avg-pool kernel (default 16)")
+    p.add_argument("--kl_weight", type=float, default=None, help="cVAE KL weight")
+    p.add_argument("--latent_dim", type=int, default=None, help="cVAE latent dim")
+    p.add_argument("--lambda_l1", type=float, default=None, help="rgb_depth L1 weight (default 1.0)")
+    p.add_argument("--temperature", type=float, default=None,
+                   help="distillation KL temperature (default 4)")
+    p.add_argument("--lambda_task", type=float, default=None,
+                   help="adabins task-loss weight (default 1.0)")
+    p.add_argument("--lambda_response", type=float, default=None,
+                   help="adabins response-distillation weight (default 0.5)")
+    p.add_argument("--lambda_feature", type=float, default=None,
+                   help="adabins feature-distillation weight (default 0.3)")
+    p.add_argument("--lambda_bin", type=float, default=None,
+                   help="adabins bin-distribution weight (default 0.2)")
+    p.add_argument("--eval_img", action="store_true",
+                   help="train on camera images (input_nc 3) instead of audio; not on BV1")
     p.add_argument("--validation", type=lambda x: str(x).lower() == "true", default=None,
                    help="true|false")
     p.add_argument("--validation_iter", type=int, default=None, help="validate every N epochs")
@@ -140,7 +185,6 @@ def build_parser() -> argparse.ArgumentParser:
     # parts not ported yet: accepted by the parser, refused by main
     p.add_argument("--profile_dir", default=None)
     p.add_argument("--sparse_method", default=None)
-    p.add_argument("--eval_img", action="store_true")
     return p
 
 
@@ -184,16 +228,23 @@ def config_from_args(args):
         "mode.silog_weight": args.silog_weight,
         "mode.silog_lambda": args.silog_lambda,
         "model.base_channels": args.base_channels,
+        "model.ngf": args.ngf,
+        "model.generator": args.generator,
+        "model.n_bins": args.n_bins,
+        "model.kl_weight": args.kl_weight,
+        "model.latent_dim": args.latent_dim,
         "model.attention_levels": args.attention_levels,
         "dataset.dataset_dir": args.dataset_dir,
     }
+    if args.eval_img:
+        direct["model.input_nc"] = 3
     overrides = {k: v for k, v in direct.items() if v is not None}
     # an explicit loss weight implies Combined (train.py:394-399)
     if args.criterion is not None:
         overrides["mode.criterion"] = args.criterion
     elif any(v is not None for v in (args.l1_weight, args.silog_weight, args.silog_lambda)):
         overrides["mode.criterion"] = "Combined"
-    for name in ("loss_type", "lambda_recon", "lambda_edge", "lambda_smooth", "remat"):
+    for name in _EXTRA_FLAGS:
         if getattr(args, name) is not None:
             overrides[f"model.extra.{name}"] = getattr(args, name)
     cfg = load_config(args.dataset, "train", args.experiment_name, args.model,
@@ -224,15 +275,29 @@ def _refuse_unported(args) -> None:
                          "(ROADMAP.md A8)")
     if args.holdout_locations and args.dataset == "synthetic":
         raise SystemExit("--holdout_locations: the synthetic corpus has no locations")
+    if args.dataset == "batvisionv1" and (args.eval_img or args.model in IMAGE_MODELS):
+        raise SystemExit("camera images (--eval_img, rgb_depth, adabins_distillation) are "
+                         "not supported on batvisionv1 (no camera; train.py:322-323)")
     if args.model not in TRAINED_MODELS:
         raise SystemExit(f"--model {args.model}: training is ported for "
-                         f"{' and '.join(TRAINED_MODELS)} only (the other families are "
+                         f"{', '.join(TRAINED_MODELS)} only (the other families are "
                          "ROADMAP.md A5)")
     if (args.resume or args.checkpoints is not None) and not args.ckpt_dir:
         raise SystemExit("--resume/--checkpoints restore from --ckpt_dir, which is not given")
     if args.init_from_torch and (args.resume or args.checkpoints is not None):
         raise SystemExit("--init_from_torch conflicts with --resume/--checkpoints: a torch "
                          "warm-start is the reference's resume (weights only); drop one")
+
+
+def _image_kwargs(cfg, eval_img: bool) -> dict:
+    """The loader's image option: the synthetic corpus's shaded view, or
+    BV2's camera images (alone for rgb_depth and --eval_img, paired with the
+    audio for adabins_distillation)."""
+    if not (eval_img or cfg.model.name in IMAGE_MODELS):
+        return {}
+    if cfg.dataset.name == "synthetic":
+        return {"with_image": True}
+    return {"use_image": True if (eval_img or cfg.model.name == "rgb_depth") else "both"}
 
 
 def _warm_start(task, path: str) -> int:
@@ -314,15 +379,16 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
 
     cfg = config_from_args(args)
     holdout_locs = list(args.holdout_locations or [])
+    image_kw = _image_kwargs(cfg, args.eval_img)
     if cfg.dataset.name == "synthetic":
-        train_ds = make_dataset(cfg, "train", num_samples=args.num_samples)
-        val_ds = make_dataset(cfg, "val")
+        train_ds = make_dataset(cfg, "train", num_samples=args.num_samples, **image_kw)
+        val_ds = make_dataset(cfg, "val", **image_kw)
     else:
         if not os.path.isdir(cfg.dataset.dataset_dir):
             raise SystemExit(f"--dataset_dir {cfg.dataset.dataset_dir!r} is not a directory")
         # held-out locations leave train AND val (train.py:326,330), so
         # neither the val metrics nor the best epoch see them
-        kwargs = {"location_blacklist": holdout_locs} if holdout_locs else {}
+        kwargs = dict(image_kw, **({"location_blacklist": holdout_locs} if holdout_locs else {}))
         train_ds = make_dataset(cfg, "train", **kwargs)
         val_ds = make_dataset(cfg, "val", **kwargs)
     task = make_task(cfg, device=args.device)
@@ -332,8 +398,10 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     steps_per_epoch = max(len(train_ds) // cfg.mode.batch_size, 1)
     eng = Engine(cfg, task, steps_per_epoch=steps_per_epoch)
     state = eng.init_state()
-    exp = experiment_name(cfg, suffix="holdout_" + "_".join(holdout_locs) if holdout_locs
-                          else "")
+    # the reference's suffixes (train.py:288-313): [_IMG][_holdout_{locs}]
+    suffixes = (["IMG"] if args.eval_img else []) + (
+        ["holdout_" + "_".join(holdout_locs)] if holdout_locs else [])
+    exp = experiment_name(cfg, suffix="_".join(suffixes))
     mgr = CheckpointManager(args.ckpt_dir, exp) if args.ckpt_dir else None
     resuming = args.resume or args.checkpoints is not None
     if mgr is not None and not resuming and mgr.all_epochs():
@@ -379,8 +447,9 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
         # otherwise evaluate nothing
         return val_src.batches(cfg.mode.batch_size, shuffle=False, drop_last=False)
 
-    # each held-out location's rows of the full train split
-    full = make_dataset(cfg, "train") if holdout_locs else None
+    # each held-out location's rows of the full train split (with the
+    # images the task reads)
+    full = make_dataset(cfg, "train", **image_kw) if holdout_locs else None
     held_out = {loc: full.filter_by_audio_path(loc) for loc in holdout_locs}
     # drop_last=False: a location with fewer samples than the batch still
     # evaluates (train.py:915-999)

@@ -24,18 +24,29 @@ The CSVs are read with the standard library's `csv` module, every cell as
 a string. pandas, which the JAX loaders use, parses a column of numbers as
 numbers and an empty cell as NaN; here such a cell stays the string it is
 in the file ('12', ''). The columns the loaders read are paths and file
-names, which are strings either way. Neither pandas nor OpenCV is needed.
+names, which are strings either way. pandas is not needed.
 
 BV2's `batches()` decodes in the native thread pool (`data/native_io.py`)
 and yields the compact transport dtypes (int16 waveform, uint16 depth);
 `batches(native=False)` and BV1 yield float32 from the Python decoder.
-Camera images (`use_image`) wait for the families that read them.
+
+Camera images (BV2 only): `use_image` True gives the image instead of the
+audio, "both" the paired audio and image (the distillation trainer's
+pairing). The pixels are OpenCV's: `cv2.imread` → BGR2RGB → `cv2.resize`
+to images_size² with its default INTER_LINEAR, in uint8 (the transport
+dtype; `sample` divides by 255, the codec's decode does so on the device).
+Another decoder would give other pixels, so cv2 is imported on the image
+path only and its absence raises. The batched path decodes a batch's
+images in a thread pool (cv2 releases the GIL) while the native pool
+decodes its audio and depth.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import csv
+import functools
 import os
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -93,11 +104,29 @@ def _read_csv(path: str) -> List[Dict[str, str]]:
         return list(csv.DictReader(f))
 
 
-def _refuse_images(use_image) -> None:
-    if use_image:
-        raise NotImplementedError(
-            "camera images (use_image) are not ported yet: they come with the "
-            "families that read them, rgb_depth and adabins_distillation (ROADMAP.md A5)")
+@functools.lru_cache(maxsize=None)
+def _image_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The thread pool of camera-image decodes (the native pool's 8)."""
+    return concurrent.futures.ThreadPoolExecutor(max_workers=8)
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("camera images need OpenCV (cv2), which does not import: "
+                          f"its decode and resize define the pixels ({e})") from e
+    return cv2
+
+
+def _decode_image_u8(path: str, size: int) -> np.ndarray:
+    """cv2 decode → RGB → resize (INTER_LINEAR), uint8 [size, size, 3]."""
+    cv2 = _cv2()
+    img = cv2.imread(path)
+    if img is None:
+        raise IOError(f"could not load image {path}")
+    img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return cv2.resize(img, (size, size))
 
 
 class BatvisionV2Dataset:
@@ -108,8 +137,8 @@ class BatvisionV2Dataset:
         location_blacklist: Optional[Sequence[str]] = None,
         use_image=False,
     ):
-        _refuse_images(use_image)
         self.cfg = cfg
+        self.use_image = use_image
         ds = cfg.dataset
         self.root = ds.dataset_dir
         self.wave_len = tof_cut_samples(ds.max_depth, ds.sample_rate)
@@ -148,19 +177,34 @@ class BatvisionV2Dataset:
         return (os.path.join(self.root, row["audio path"], row["audio file name"]),
                 os.path.join(self.root, row["depth path"], row["depth file name"]))
 
+    def _image_path(self, row: Dict[str, str]) -> str:
+        return os.path.join(self.root, row["camera path"], row["camera file name"])
+
+    @property
+    def _wants_audio(self) -> bool:
+        return not self.use_image or self.use_image == "both"
+
     def sample(self, idx: int) -> Dict[str, np.ndarray]:
         ds = self.cfg.dataset
-        wav_path, depth_path = self._paths(self.instances[idx])
+        row = self.instances[idx]
+        wav_path, depth_path = self._paths(row)
         depth = _load_depth(depth_path, ds.images_size, ds.max_depth, scrub_nan=False)
-        wav, _ = load_wav(wav_path)
-        return {"depth": depth[..., None], "waveform": _fix_length(wav, self.wave_len)}
+        out = {"depth": depth[..., None]}
+        if self.use_image:
+            img = _decode_image_u8(self._image_path(row), ds.images_size)
+            out["image"] = img.astype(np.float32) / 255.0
+        if self._wants_audio:
+            wav, _ = load_wav(wav_path)
+            out["waveform"] = _fix_length(wav, self.wave_len)
+        return out
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
                 drop_last: bool = True, native: bool = True
                 ) -> Iterator[Dict[str, np.ndarray]]:
         """Batch iterator. native=True decodes WAV and depth in the native
-        thread pool and yields int16 waveform / uint16 depth (the compact
-        transport dtypes); native=False yields `sample`'s float32."""
+        thread pool, and images in the image pool, and yields int16 waveform
+        / uint16 depth / uint8 image (the compact transport dtypes);
+        native=False yields `sample`'s float32."""
         if not native:
             yield from _batch_iter(self, batch_size, shuffle, seed, drop_last)
             return
@@ -168,13 +212,24 @@ class BatvisionV2Dataset:
 
         size = self.cfg.dataset.images_size
         for idx in _batch_order(len(self), batch_size, shuffle, seed, drop_last):
-            wavs, depths = zip(*(self._paths(self.instances[int(j)]) for j in idx))
+            rows = [self.instances[int(j)] for j in idx]
+            images = None
+            if self.use_image:
+                pool = _image_pool()
+                images = [pool.submit(_decode_image_u8, self._image_path(r), size) for r in rows]
+            wavs, depths = zip(*map(self._paths, rows))
             wav, depth = native_io.assemble_batch(
-                list(wavs), list(depths), fixed_len=self.wave_len, out_hw=(size, size),
+                list(wavs) if self._wants_audio else None, list(depths), fixed_len=self.wave_len,
+                out_hw=(size, size),
                 # BV2 keeps meters whatever depth_norm says, as sample() does
                 # (codec.depth_storage_normalized)
                 max_depth=self.cfg.dataset.max_depth, depth_norm=False)
-            yield {"depth": depth, "waveform": wav}
+            out = {"depth": depth}
+            if wav is not None:
+                out["waveform"] = wav
+            if images is not None:
+                out["image"] = np.stack([f.result() for f in images])
+            yield out
 
 
 class BatvisionV1Dataset:

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from ..ops.cuda.flash_attention import cross_attention
 from ..ops.resize import resize_bilinear
 from .base_residual import SharedEncoder
-from .layers import BatchNorm, Conv2d, UpBilinear, at_least_f32, kaiming_init
+from .layers import BatchNorm, Conv2d, UpBilinear, at_least_f32, init_modules, kaiming_init
 
 # Q/K projection bottleneck divisor (binaural_attention_model.py:90-98)
 ATTENTION_REDUCTION = 8
@@ -146,16 +146,10 @@ def init_binaural_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's init: kaiming fan_out (ReLU gain) conv and
     projection kernels, zero biases, BN scale 1 / bias 0 and running stats
     0 / 1, and γ = 0. Draws in module order from `generator`."""
-    init = kaiming_init()
+    init_modules(model, generator, kaiming_init())
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, Conv2d):
-                init(m.weight, generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-            elif isinstance(m, BinauralCrossAttention):
+            if isinstance(m, BinauralCrossAttention):
                 m.gamma.zero_()
 
 

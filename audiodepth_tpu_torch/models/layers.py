@@ -10,8 +10,10 @@ exactly, with no autocast:
     their stored dtype, except while `remat` recomputes a forward;
   * the head is promoted with `at_least_f32`.
 
-Initializers: `normal_init` (the pix2pix UNet) and `kaiming_init` (the
-residual and attention families). The residual blocks (`DoubleConv`,
+Initializers: `normal_init` (the pix2pix UNet), `kaiming_init` (the
+residual, attention and AdaBins families) and `lecun_normal_init` (flax's
+default, which the JAX package's base_residual heads and cVAE bottleneck
+keep). The residual blocks (`DoubleConv`,
 `Down`, `UpBilinear`) keep the reference's module names, so their
 state_dict keys are the reference's (`double_conv.0`, `maxpool_conv.1`,
 `conv.double_conv.3`, ...).
@@ -53,6 +55,40 @@ def kaiming_init() -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
         normal_init(math.sqrt(2.0 / fan_out))(t, generator)
 
     return init
+
+
+def lecun_normal_init() -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
+    """flax's default kernel init, `variance_scaling(1.0, "fan_in",
+    "truncated_normal")`: N(0, 1 / fan_in) truncated to ±2 standard
+    deviations (the std corrected for the truncation), fan_in = in_channels
+    x receptive field, drawn like `normal_init`."""
+
+    def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+        fan_in = t.shape[1] * math.prod(t.shape[2:])
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        draw = torch.empty(t.shape, dtype=torch.float32)
+        torch.nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        with torch.no_grad():
+            t.copy_(draw)
+
+    return init
+
+
+def init_modules(model: nn.Module, generator: torch.Generator, kernel_init,
+                 special=None) -> None:
+    """A family's seeded init, in module order from `generator`: every conv,
+    transposed conv and linear kernel by `kernel_init` (or by
+    `special[module]`), zero biases, BatchNorm scale 1 / bias 0 and running
+    statistics 0 / 1."""
+    special = special or {}
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                special.get(m, kernel_init)(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:

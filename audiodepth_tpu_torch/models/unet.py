@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .layers import ConvDown, ConvUp, at_least_f32, make_norm, normal_init
+from .layers import ConvDown, ConvUp, at_least_f32, init_modules, make_norm, normal_init
 
 
 class _Head(nn.Module):
@@ -96,15 +96,7 @@ def init_unet_weights(model: nn.Module, generator: torch.Generator,
     """The JAX package's init: N(0, std) conv kernels, zero biases, BN
     scale 1 / bias 0 and running stats 0 / 1. Draws in module order from
     `generator`."""
-    init = normal_init(std)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (ConvDown, ConvUp)):
-                init(m.weight, generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+    init_modules(model, generator, normal_init(std))
 
 
 def build_unet(cfg) -> UNetGenerator:

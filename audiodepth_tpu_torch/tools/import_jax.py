@@ -1,17 +1,23 @@
 """Weights carried across: the JAX package's variables → the port's
 state_dict, and reference `.pth` checkpoints → the port.
 
-`unet_state_dict_from_jax` and `binaural_state_dict_from_jax` run the
-JAX package's mapping specs (tools/import_torch.py `_spec_unet` and
-`_spec_binaural`, in their flax→torch direction `_ExportBuilder`) on plain
-numpy arrays:
+The `*_state_dict_from_jax` functions run the JAX package's mapping specs
+(tools/import_torch.py `_spec_unet`, `_spec_binaural`, `_spec_base_residual`,
+`_spec_unet_cvae`, `_spec_rgb_depth` and `_spec_adabins`, in their
+flax→torch direction `_ExportBuilder`) on plain numpy arrays:
 
     nn.Conv kernel            [kh,kw,I,O] -> Conv2d          [O,I,kh,kw]
     nn.ConvTranspose(SAME)    [kh,kw,I,O] -> ConvTranspose2d [I,O,kh,kw],
                                              spatially flipped
     nn.Dense kernel           [I,O]       -> 1x1 Conv2d      [O,I,1,1]
+                                             (attention projections) or
+                                             Linear          [O,I]
     BatchNorm scale/bias + mean/var       -> weight/bias + running_mean/var
     attention gamma           [1]         -> gamma [1], as it is
+
+The cVAE's three BatchNorms that the reference registers and never runs
+have no JAX leaves; they are written at their init values (float32), as
+the JAX exporter writes them.
 
 Arrays keep their dtype, so float64 variables give a float64 state_dict.
 Every leaf must be consumed and every key produced once; drift raises.
@@ -89,6 +95,16 @@ class _Exporter:
         self._emit(f"{tprefix}.weight", w.T[:, :, None, None])
         self._emit(f"{tprefix}.bias", self._take("params", f"{fpath}/bias"))
 
+    def dense(self, fpath: str, tprefix: str):
+        self._emit(f"{tprefix}.weight", self._take("params", f"{fpath}/kernel").T)
+        self._emit(f"{tprefix}.bias", self._take("params", f"{fpath}/bias"))
+
+    def dead_bn(self, tprefix: str, ch: int):
+        for name, fill in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
+                           ("running_var", 1.0)):
+            self._emit(f"{tprefix}.{name}", np.full(ch, fill, np.float32))
+        self.out[f"{tprefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
     def raw(self, fpath: str, tkey: str):
         self._emit(tkey, self._take("params", fpath))
 
@@ -99,11 +115,14 @@ class _Exporter:
         self.conv(f"{fpath}/Conv_1", f"{tprefix}.double_conv.3", bias=False)
         self.bn(f"{fpath}/BatchNorm_1/BatchNorm_0", f"{tprefix}.double_conv.4")
 
-    def encoder(self, fpath: str, tprefix: str):
-        self.double_conv(f"{fpath}/DoubleConv_0", f"{tprefix}.inc")
+    def encoder(self, fpath: str, tprefix: str = ""):
+        p = f"{tprefix}." if tprefix else ""
+        self.double_conv(f"{fpath}/DoubleConv_0", f"{p}inc")
         for i in range(4):
-            self.double_conv(f"{fpath}/Down_{i}/DoubleConv_0",
-                             f"{tprefix}.down{i + 1}.maxpool_conv.1")
+            self.double_conv(f"{fpath}/Down_{i}/DoubleConv_0", f"{p}down{i + 1}.maxpool_conv.1")
+
+    def up(self, fpath: str, tprefix: str):
+        self.double_conv(f"{fpath}/DoubleConv_0", f"{tprefix}.conv")
 
     def finish(self) -> Dict[str, torch.Tensor]:
         leftover = sorted({(col, k) for col, tree in self.trees.items() for k in tree}
@@ -153,8 +172,78 @@ def binaural_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
         b.conv(f"fusion_{lvl}", f"fusion_layers.fusion_{lvl}.0", bias=True)
         b.bn(f"fusion_bn_{lvl}/BatchNorm_0", f"fusion_layers.fusion_{lvl}.1")
     for i in range(4):
-        b.double_conv(f"UpBilinear_{i}/DoubleConv_0", f"up{i + 1}.conv")
+        b.up(f"UpBilinear_{i}", f"up{i + 1}")
     b.conv("Conv_0", "outc.0", bias=True)
+    return b.finish()
+
+
+def unet_cvae_state_dict_from_jax(params: Mapping, batch_stats: Mapping, num_downs: int = 8,
+                                  ngf: int = 64, output_nc: int = 1
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's UNetCVAE state_dict from the JAX cVAE's variables
+    (`_spec_unet_cvae`), the dead BatchNorms included."""
+    b = _Exporter(params, batch_stats)
+    n = num_downs
+    Q = ["model"]
+    for _ in range(1, n):
+        Q.append(Q[-1] + ".submodule")
+    b.conv("ConvDown_0/Conv_0", f"{Q[0]}.downconv", bias=False)
+    for d in range(1, n - 1):
+        b.conv(f"ConvDown_{d}/Conv_0", f"{Q[d]}.downconv", bias=False)
+        b.bn(f"BatchNorm_{d - 1}/BatchNorm_0", f"{Q[d]}.downnorm")
+    b.conv(f"ConvDown_{n - 1}/Conv_0", f"{Q[n - 1]}.downconv", bias=False)
+    b.dead_bn(f"{Q[0]}.downnorm", ngf)
+    b.dead_bn(f"{Q[0]}.upnorm", output_nc)
+    b.dead_bn(f"{Q[n - 1]}.downnorm", ngf * 8)
+    for name in ("fc_mu", "fc_logvar", "fc_dec"):
+        b.dense(f"VAEBottleneck_0/{name}", f"{Q[n - 1]}.vae.{name}")
+    b.convT("ConvUp_0/ConvTranspose_0", f"{Q[n - 1]}.upconv", bias=False)
+    b.bn(f"BatchNorm_{n - 2}/BatchNorm_0", f"{Q[n - 1]}.upnorm")
+    for j, d in enumerate(range(n - 2, 0, -1), start=1):
+        b.convT(f"ConvUp_{j}/ConvTranspose_0", f"{Q[d]}.upconv", bias=False)
+        b.bn(f"BatchNorm_{n - 2 + j}/BatchNorm_0", f"{Q[d]}.upnorm")
+    b.convT(f"ConvUp_{n - 1}/ConvTranspose_0", f"{Q[0]}.upconv", bias=True)
+    return b.finish()
+
+
+def base_residual_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    """The port's BaseResidualNet state_dict (`_spec_base_residual`)."""
+    b = _Exporter(params, batch_stats)
+    b.encoder("SharedEncoder_0")
+    for i in range(4):
+        b.up(f"UpBilinear_{i}", f"base_up{i + 1}")
+    b.conv("Conv_0", "base_head", bias=True)
+    for i in range(4):
+        b.up(f"UpBilinear_{i + 4}", f"res_up{i + 1}")
+    b.conv("Conv_1", "res_head", bias=True)
+    return b.finish()
+
+
+def rgb_depth_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's RGBDepthNet state_dict (`_spec_rgb_depth`)."""
+    b = _Exporter(params, batch_stats)
+    b.encoder("SharedEncoder_0")
+    for i in range(4):
+        b.up(f"UpBilinear_{i}", f"up{i + 1}")
+    b.conv("Conv_0", "outc", bias=True)
+    return b.finish()
+
+
+def adabins_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """The port's AdaBinsDistillationModel state_dict, both branches and the
+    shared residual head (`_spec_adabins`)."""
+    b = _Exporter(params, batch_stats)
+    for branch in ("audio", "rgb"):
+        b.encoder(f"{branch}/AdaBinsEncoder_0", f"{branch}_encoder")
+        b.dense(f"{branch}/BinPredictor_0/Dense_0", f"{branch}_bin_predictor.predictor.0")
+        b.dense(f"{branch}/BinPredictor_0/Dense_1", f"{branch}_bin_predictor.predictor.3")
+        for i in range(4):
+            b.up(f"{branch}/AdaBinsDecoder_0/UpBilinear_{i}", f"{branch}_decoder.up{i + 1}")
+        b.conv(f"{branch}/AdaBinsDecoder_0/Conv_0", f"{branch}_decoder.class_head", bias=True)
+    b.conv("residual_head", "residual_head", bias=True)
     return b.finish()
 
 

@@ -66,8 +66,8 @@ class Engine:
 
     def init_state(self) -> TrainState:
         model = self.task.model
-        return TrainState(step=0, model=model,
-                          optimizer=make_optimizer(model.parameters(), self.cfg.mode))
+        return TrainState(step=0, model=model, optimizer=make_optimizer(
+            self.task.trainable_parameters(), self.cfg.mode))
 
     # ------------------------------------------------------------------
     def encode(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -92,8 +92,11 @@ class Engine:
         batch = decode_batch(self.put_batch(batch), self._depth_units)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
+        self.task.begin_step(state.step)
         loss, aux = self.task.loss_fn(batch, float(epoch))
         loss.backward()
+        # a frozen part's parameters have no gradient: its zeros add nothing
+        # to the norm
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         norm = global_norm(grads)
         clip = self.cfg.mode.grad_clip_norm

@@ -7,16 +7,25 @@ task's `nn.Module`, so the methods take the batch (and the epoch) alone.
 
 Batch convention: dict with leading batch dim —
   * 'waveform' [B, C, L] raw audio, or
-  * 'input'    [B, H, W, C] pre-computed model input (NHWC), and
+  * 'input'    [B, H, W, C] pre-computed model input (NHWC), and/or
+  * 'image'    [B, H, W, 3] camera image in [0, 1] (read by a model with
+               input_nc 3, the --eval_img baseline, and by the rgb_depth
+               and adabins_distillation families), and
   * 'depth'    [B, H, W, 1] ground truth in dataset units (normalized to
                [0, 1] when cfg.dataset.depth_norm, meters otherwise).
 Values may be numpy arrays or tensors; they are moved to the task's device.
 Predictions are NHWC, [B, H, W, 1], as the JAX package returns them.
+
+Random draws (the cVAE's latent, AdaBins' dropout) come from the task's
+`generator`, a torch.Generator on its device that `begin_step` reseeds
+from (mode.seed, step) before every train step, as the JAX engine folds the
+step into its key: a step's draws do not depend on the steps before it, so
+a resumed run draws what the uninterrupted one did.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,11 +55,26 @@ class Task:
                                         silog_lambda=cfg.mode.silog_lambda)
         self._frontend = make_frontend(cfg)
         self.model: Optional[torch.nn.Module] = None  # set by subclass
+        self.generator: Optional[torch.Generator] = None  # set by tasks that draw
+
+    def begin_step(self, step: int) -> None:
+        """Reseed the task's generator for train step `step` (the engine
+        calls this before each step's loss)."""
+        if self.generator is not None:
+            self.generator.manual_seed(int(self.cfg.mode.seed) * 2**32 + int(step))
+
+    def trainable_parameters(self) -> List[torch.nn.Parameter]:
+        """The parameters the optimizer updates (all of them but a frozen
+        part's)."""
+        return list(self.model.parameters())
 
     # -- input ---------------------------------------------------------
     def prepare(self, batch: Dict[str, object]) -> torch.Tensor:
         if "input" in batch:
             return torch.as_tensor(batch["input"], device=self.device)
+        if self.cfg.model.input_nc == 3 and "image" in batch:
+            # the --eval_img baseline: the camera image instead of audio
+            return torch.as_tensor(batch["image"], device=self.device)
         return self._frontend(torch.as_tensor(batch["waveform"], device=self.device))
 
     # -- depth-unit helpers ---------------------------------------------

@@ -94,7 +94,8 @@ non-zero:
   corpus     a fabricated BatVision V2 tree in a temporary directory (three
              locations, 64 / 16 / 16 rows, 16-bit 44.1 kHz stereo WAVs of
              9,000 samples, 480×640 depth .npy in mm with values below 0
-             and above 30 m, a '__pycache__' and an 'X_unzipped' directory);
+             and above 30 m, 480×640 camera PNGs, a '__pycache__' and an
+             'X_unzipped' directory);
              the native decoder's build seconds, one batch of 16 decoded by
              the native pool and by the Python decoder (bit-equal in the
              compact dtypes, each timed), and its copy to the card from
@@ -118,6 +119,36 @@ non-zero:
              checkpoint (--use_best --eval_on val --save_tensors): its means
              equal that epoch's val record within EVAL_REL_TOL, B1 once per
              batch, one artifact row a sample;
+  train_families  each of base_residual (warmup_epochs 1, so the second
+             epoch runs detached), unet_cvae (unet_256, latent 128),
+             adabins_distillation (n_bins 128, the teacher frozen) and
+             rgb_depth through `cli/train.py`'s main at full width (base 64),
+             256², bf16, batch 16, synthetic data (with images where the
+             family reads them), 2 epochs of 2 steps, each validated,
+             checkpoints in a temporary directory: every loss and grad_norm
+             finite, every trainable parameter moved (only the cVAE's three
+             never-run BatchNorms get no gradient), the AdaBins teacher's
+             parameters bit-unchanged and its BatchNorm buffers moved, B1
+             once per step, eval batch and detector forward for the three
+             audio families and never for rgb_depth, B2 and B3 never; for
+             the audio families `serve` from the best checkpoint
+             (`serve_family`: answers within SERVED_TOL of the task's own at
+             that epoch, B1 once a device batch); then 8 timed steps on one
+             repeated batch (the loss must fall) with the peak memory, for
+             the cVAE two eval forwards equal (its draw is reseeded), and a
+             profile of one step (busy share, B1's share);
+  f32_train_vs_cpu  the same rule for one float32 adabins_distillation step
+             at full width (teacher included, the same dropout masks on
+             every device);
+  corpus_images  the tree's camera PNGs (480×640): one batch with
+             use_image="both" streamed to the card and one gathered by the
+             device cache there, bit-equal to the host loader's, and the
+             decode time with and without images;
+  train_corpus_images  rgb_depth (camera images), adabins_distillation
+             (paired) and unet_baseline --eval_img trained from the tree
+             for one epoch with a location held out (B1 only for adabins);
+  evaluate_eval_img  `cli/evaluate.py --eval_img` on the --eval_img
+             checkpoint: its means equal the val record, no front end;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -1103,10 +1134,29 @@ def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
     tensor within F32_GRAD_FACTOR × the CPU's worst. A wrong kernel moves
     the tensors it feeds by O(1) and fails both."""
     from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.models import adabins
 
     def cfg_for(dtype):
         return configs.load_config("synthetic", "train", model_name=model_name,
                                    overrides={"mode.compute_dtype": dtype})
+
+    # AdaBins' dropout: the same keep masks on every device (audio's, then
+    # rgb's, drawn on the CPU), so the three steps differ only in arithmetic
+    draws = [0]
+
+    def same_masks(h, generator):
+        g = torch.Generator().manual_seed(draws[0] % 2)
+        draws[0] += 1
+        return (torch.rand(h.shape, generator=g) < 1.0 - adabins.DROPOUT).to(h.device)
+
+    keep, adabins.dropout_keep = adabins.dropout_keep, same_masks
+    try:
+        _f32_train_vs_cpu(torch, np, models, model_name, cfg_for, make_dataset)
+    finally:
+        adabins.dropout_keep = keep
+
+
+def _f32_train_vs_cpu(torch, np, models, model_name, cfg_for, make_dataset):
 
     cpu = models.make_task(cfg_for("float32"), device="cpu")
     models.init_weights(cpu.model, torch.Generator().manual_seed(0))
@@ -1118,7 +1168,9 @@ def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
     ref = models.make_task(cfg_for("float64"), device="cpu")
     ref.model.double().load_state_dict(state_dict, strict=True)
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
-    batch = next(make_dataset(cfg_for("float32"), "train", num_samples=2).batches(2, shuffle=False))
+    image = {"with_image": True} if model_name in ("rgb_depth", "adabins_distillation") else {}
+    batch = next(make_dataset(cfg_for("float32"), "train", num_samples=2, **image)
+                 .batches(2, shuffle=False))
 
     def step(task):
         t0 = time.perf_counter()
@@ -1126,7 +1178,9 @@ def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
         dev = {k: torch.from_numpy(v).to(task.device) for k, v in batch.items()}
         loss, _ = task.loss_fn(dev, 0.0)
         loss.backward()
-        grads = {n: p.grad.detach().cpu().double() for n, p in task.model.named_parameters()}
+        # a frozen teacher's parameters have no gradient
+        grads = {n: p.grad.detach().cpu().double() for n, p in task.model.named_parameters()
+                 if p.grad is not None}
         return loss.item(), grads, time.perf_counter() - t0
 
     want_loss, want, cpu_s = step(ref)
@@ -1285,22 +1339,25 @@ def phase_unet_steps(torch, np, eng, state):
           "total_mem_mb": torch.cuda.get_device_properties(0).total_memory / 2**20})
 
 
-def phase_ckpt_round_trip(torch, np, serve, train_cli, kernels, eng, ckpt_root):
-    """The checkpoint phase_train_unet wrote, restored by `serve`
-    (--checkpoint_path, --use_best) on the card: a few HTTP requests, each
-    answer within SERVED_TOL of the trained task's direct answer; then
-    `--resume` takes one more step from the saved step."""
-    from audiodepth_tpu_torch.configs import experiment_name
+def serve_checkpoint(torch, np, serve, kernels, eng, exp_dir, flags, per_batch):
+    """`serve` restores the best checkpoint under `exp_dir` (--checkpoint_path,
+    --use_best) on the card and answers HTTP requests: an 8-request
+    loadtest, then three answers each within SERVED_TOL of the trained
+    task's own at that epoch (the task is given the best epoch's weights
+    first), and `per_batch` launches per device batch. Returns (source,
+    loadtest result, errors, launches, by variant, expected launches)."""
+    from audiodepth_tpu_torch.ckpt import CheckpointManager
 
-    exp_dir = os.path.join(ckpt_root, experiment_name(eng.cfg))
+    best_sd, _, _ = CheckpointManager(os.path.dirname(exp_dir), os.path.basename(exp_dir),
+                                      create=False).restore_eval(epoch="best")
+    eng.task.model.load_state_dict(best_sd, strict=True)
     waves = (np.random.default_rng(21).standard_normal((3, 2, 7782)) * 0.05).astype(np.float32)
     dev = eng.task.device
     trained = [np.clip(eng.task.predict_meters({"waveform": torch.from_numpy(w[None]).to(dev)})
                        .float().cpu().numpy()[0, ..., 0], 0.0, eng.cfg.dataset.max_depth)
                for w in waves]
     args = serve.build_parser().parse_args(
-        ["--checkpoint_path", exp_dir, "--use_best", "--device", str(dev),
-         "--generator", eng.cfg.model.generator, "--ngf", str(eng.cfg.model.ngf),
+        ["--checkpoint_path", exp_dir, "--use_best", "--device", str(dev), *flags,
          "--compute_dtype", eng.cfg.mode.compute_dtype, "--batch_ladder", "1,4"])
     cfg, task, source = serve.load_serving_state(args)
     runner = serve.InferenceRunner(cfg, task, ladder=[1, 4])
@@ -1331,9 +1388,24 @@ def phase_ckpt_round_trip(torch, np, serve, train_cli, kernels, eng, ckpt_root):
         assert got.shape == (256, 256) and np.isfinite(got).all()
         errs.append(float(np.abs(got - want).max()))
         assert errs[-1] <= SERVED_TOL * float(np.abs(want).max()), (errs, float(np.abs(want).max()))
-    expected = {name: k * device_batches for name, k in UNET_PER_TRAIN_STEP.items()}
-    assert launches == expected, f"serve checkpoint: launches {launches}, expected {expected}"
+    expected = {name: k * device_batches for name, k in per_batch.items()}
+    assert launches == expected, f"serve {exp_dir}: launches {launches}, expected {expected}"
     del task, runner
+    return source, res, errs, launches, by_variant, expected
+
+
+def phase_ckpt_round_trip(torch, np, serve, train_cli, kernels, eng, ckpt_root):
+    """The checkpoint phase_train_unet wrote, restored by `serve`
+    (--checkpoint_path, --use_best) on the card: a few HTTP requests, each
+    answer within SERVED_TOL of the trained task's direct answer; then
+    `--resume` takes one more step from the saved step."""
+    from audiodepth_tpu_torch.configs import experiment_name
+
+    exp_dir = os.path.join(ckpt_root, experiment_name(eng.cfg))
+    source, res, errs, launches, by_variant, expected = serve_checkpoint(
+        torch, np, serve, kernels, eng, exp_dir,
+        ["--generator", eng.cfg.model.generator, "--ngf", str(eng.cfg.model.ngf)],
+        UNET_PER_TRAIN_STEP)
 
     # --resume: the latest epoch's state and step, then one more step
     saved_step = eng.history[-1]["steps"]
@@ -1379,6 +1451,174 @@ def phase_train_widths(torch, np, train_cli, kernels, base):
 
 
 # ---------------------------------------------------------------------------
+# the other families (ROADMAP A5.1-A5.4): each trained through cli/train.py at
+# full width, timed, profiled, and the audio ones served from a checkpoint
+# ---------------------------------------------------------------------------
+
+B1_ONCE = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
+           "flash_cross_attention_bwd": 0}
+NO_KERNEL = {"fused_mel_frontend": 0, "flash_cross_attention_fwd": 0,
+             "flash_cross_attention_bwd": 0}
+# family → (its flags beyond the preset, parameters, launches per train step,
+# eval batch and detector forward, the serve flags of its shapes or None)
+FAMILIES = {
+    "base_residual": (["--warmup_epochs", "1"], 23_589_074, B1_ONCE,
+                      ["--model", "base_residual", "--base_channels", "64"]),
+    "unet_cvae": ([], 50_413_059, B1_ONCE,
+                  ["--model", "unet_cvae", "--generator", "unet_256", "--ngf", "64"]),
+    "adabins_distillation": ([], 42_614_529, B1_ONCE,
+                             ["--model", "adabins_distillation", "--base_channels", "64",
+                              "--n_bins", "128"]),
+    "rgb_depth": ([], 17_262_977, NO_KERNEL, None),
+}
+FAMILY_SAMPLES, FAMILY_EPOCHS = 2 * TRAIN_BATCH, 2  # 2 epochs of 2 steps
+
+
+def _family_argv(family, extra=()):
+    return ["--dataset", "synthetic", "--model", family, "--compute_dtype", "bfloat16",
+            "--batch_size", str(TRAIN_BATCH), "--num_samples", str(FAMILY_SAMPLES),
+            "--epochs", str(FAMILY_EPOCHS), "--validation", "true", "--validation_iter", "1",
+            "--seed", "0", "--saving_checkpoints", "1", *FAMILIES[family][0], *extra]
+
+
+def _moved_checks(torch, task, before, buffers_before):
+    """The trainable parameters that did not move, those that got no
+    gradient in the last step, and for a frozen teacher its parameters that
+    moved and its BatchNorm buffers that did not."""
+    trainable = {id(p) for p in task.trainable_parameters()}
+    named = dict(task.model.named_parameters())
+    no_grad = sorted(n for n, p in named.items() if id(p) in trainable and p.grad is None)
+    unmoved = [n for n, p in named.items() if id(p) in trainable and p.grad is not None
+               and torch.equal(p.detach(), before[n])]
+    frozen = [n for n, p in named.items() if id(p) not in trainable]
+    teacher_moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
+    buffers = {n: b for n, b in task.model.named_buffers()
+               if n.startswith("rgb_") and n.endswith(("running_mean", "running_var"))}
+    still = [n for n, b in buffers.items() if torch.equal(b, buffers_before[n])]
+    return unmoved, no_grad, frozen, teacher_moved, buffers, still
+
+
+def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
+    """One family through cli/train.py's main in-process at full width
+    (its preset: base 64, unet_256, n_bins 128), 256², bf16, batch 16,
+    synthetic data (with images where it reads them), 2 epochs of 2 steps,
+    each validated, checkpoints under `ckpt_root`. Every loss and grad_norm
+    finite, every trainable parameter moved (the AdaBins teacher bit for
+    bit unmoved, its BatchNorm running buffers moved), B1 once per step,
+    eval batch and detector forward for the audio families and never for
+    rgb_depth, B2 and B3 never. Then REPEATED_STEPS steps on one batch (the
+    loss must fall), timed, with the peak memory, a profile of one step,
+    and for the audio families `serve` from the best checkpoint."""
+    from audiodepth_tpu_torch.configs import experiment_name
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.codec import decode_batch
+
+    extra, n_params, per, serve_flags = FAMILIES[family]
+    argv = _family_argv(family, ["--ckpt_dir", ckpt_root])
+    snap = {}
+
+    def on_task(task):
+        snap["buffers"] = {n: b.detach().clone() for n, b in task.model.named_buffers()}
+
+    eng, state, steps, launches, by_variant, seen = _train_run(torch, train_cli, kernels, argv,
+                                                               on_task=on_task)
+    task, cfg = seen["task"], seen["task"].cfg
+    assert cfg.dataset.images_size == 256 and cfg.mode.compute_dtype == "bfloat16"
+    assert sum(p.numel() for p in task.model.parameters()) == n_params
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    n_steps = FAMILY_SAMPLES // TRAIN_BATCH * FAMILY_EPOCHS
+    assert len(steps) == n_steps, len(steps)
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
+    unmoved, no_grad, frozen, teacher_moved, buffers, still = _moved_checks(
+        torch, task, seen["before"], snap["buffers"])
+    assert not unmoved, f"{family}: trainable parameters that did not move: {unmoved[:8]}"
+    # only the cVAE's never-run BatchNorms get no gradient
+    dead = sorted(task.model.never_run()) if family == "unet_cvae" else []
+    assert no_grad == dead, f"{family}: parameters without a gradient: {no_grad[:8]}"
+    if family == "adabins_distillation":
+        assert frozen and all(n.startswith("rgb_") for n in frozen), frozen[:4]
+        assert not teacher_moved, f"teacher parameters moved: {teacher_moved[:8]}"
+        assert buffers and not still, f"teacher BatchNorm buffers that did not move: {still[:4]}"
+    else:
+        assert not frozen, frozen[:4]
+    n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
+    # per epoch: its steps, its eval batches and the detectors' forward
+    expected = {k: per[k] * (n_steps + FAMILY_EPOCHS * (n_eval + 1)) for k in per}
+    assert launches == expected, f"train {family}: launches {launches}, expected {expected}"
+    for rec in eng.history:
+        assert rec["val"] and all(np.isfinite(v) for v in rec["val"].values()), rec
+    if family == "base_residual":
+        assert task.warmup_epochs == 1  # the second epoch ran detached
+    row = {"phase": "train_families", "model": family, "flags": argv, "params": n_params,
+           "steps": len(steps), "eval_batches_per_epoch": n_eval, "losses": losses,
+           "grad_norms": norms, "launches": launches, "expected_launches": expected,
+           "epoch_records": eng.history, "main_wall_s": seen["wall"],
+           "frozen_params": len(frozen), "never_run_params": len(dead),
+           "teacher_buffers_moved": len(buffers) - len(still)}
+
+    paths = {f"train {family}": (launches, by_variant)}
+    if serve_flags is not None:
+        exp_dir = os.path.join(ckpt_root, experiment_name(cfg))
+        source, res, errs, s_launches, s_by_variant, s_expected = serve_checkpoint(
+            torch, np, serve, kernels, eng, exp_dir, serve_flags, per)
+        emit({"phase": "serve_family", "model": family, "checkpoint": source,
+              "requests": res["requests"], "bad_responses": res["bad_responses"],
+              "p50_ms": res["p50_ms"], "served_vs_trained_max_abs": errs,
+              "tol_rel": SERVED_TOL, "launches": s_launches, "expected_launches": s_expected})
+        paths[f"serve {family} from its checkpoint"] = (s_launches, s_by_variant)
+
+    # one batch, repeated: the loss must fall; each step timed to its end
+    image = {"with_image": True} if family in train_cli.IMAGE_MODELS else {}
+    batch = eng.encode(next(make_dataset(cfg, "train", num_samples=TRAIN_BATCH, **image)
+                            .batches(TRAIN_BATCH, shuffle=False)))
+    torch.cuda.reset_peak_memory_stats()
+    rep_losses, times = [], []
+    for _ in range(REPEATED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        rep_losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0], rep_losses
+    step_ms = statistics.median(times[1:]) * 1e3
+    row.update(repeated_batch_losses=rep_losses, step_ms_median=step_ms,
+               step_ms_all=[t * 1e3 for t in times],
+               pairs_per_sec=TRAIN_BATCH / (step_ms / 1e3),
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    if family == "unet_cvae":
+        # the eval forward samples from a generator reseeded to 0: two
+        # agree, and another seed's draw gives another answer. The ReLU head
+        # (depth_norm off) holds this briefly trained net's eval output at 0,
+        # so the check reads the head's input (the depth_norm head)
+        dec = decode_batch({k: torch.as_tensor(v).to(eng.device) for k, v in batch.items()},
+                           eng._depth_units)
+        head = task.model.model
+        head.depth_norm = True
+        try:
+            a, b = task.predict_raw(dec), task.predict_raw(dec)
+            with torch.no_grad():
+                other, _ = task.model(task.prepare(dec).permute(0, 3, 1, 2), sample=True,
+                                      generator=torch.Generator(device=eng.device).manual_seed(1))
+        finally:
+            head.depth_norm = cfg.dataset.depth_norm
+        scale = float(a.abs().max())
+        repeat = float((a - b).abs().max())
+        reseeded = float((a - other.permute(0, 2, 3, 1)).abs().max())
+        # cuDNN does not promise bit-equal bf16 repeats (phase_serve)
+        assert 0 < scale and repeat <= SERVED_TOL * scale and reseeded > repeat, (
+            repeat, scale, reseeded)
+        row.update(eval_repeat_max_abs=repeat, eval_other_seed_max_abs=reseeded,
+                   eval_max_abs=scale)
+    emit(row)
+    emit(profile_train_step(torch, eng, state, batch, family, ("fused_mel",)))
+    del eng, state, seen, task
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # the corpus path: a fabricated BatVision V2 tree on disk, trained from and
 # evaluated through the CLIs
 # ---------------------------------------------------------------------------
@@ -1390,6 +1630,7 @@ CORPUS_LOCATIONS = (("lobby", 24, 8, 8), ("lab", 24, 8, 8), ("stairs", 16, 0, 0)
 CORPUS_HOLDOUT = "stairs"
 CORPUS_WAVE_SAMPLES = 9000         # 16-bit 44.1 kHz stereo, longer than the 7,782 kept
 CORPUS_DEPTH_HW = (480, 640)       # depth .npy in mm, resized to 256² by the loader
+CORPUS_CAMERA_HW = (480, 640)      # camera PNGs, decoded and resized to 256² by OpenCV
 CORPUS_EPOCHS = 2
 CORPUS_ARGV = ["--dataset", "batvisionv2", "--model", "unet_baseline",
                "--holdout_locations", CORPUS_HOLDOUT, "--no_visualize",
@@ -1412,13 +1653,20 @@ def _write_wav(path, pcm):
 
 
 def write_corpus(np, root):
-    """The fabricated BV2 tree: per location audio/ WAVs and depth/ .npy in
-    mm (values below 0 and above 30 m), a CSV per split it has rows in,
-    and a '__pycache__' and an 'X_unzipped' directory the scan skips."""
+    """The fabricated BV2 tree: per location audio/ WAVs, depth/ .npy in
+    mm (values below 0 and above 30 m) and cam/ PNGs (a smooth colour
+    field with noise, 480×640, written by OpenCV), a CSV per split it has
+    rows in, and a '__pycache__' and an 'X_unzipped' directory the scan
+    skips."""
+    import cv2
+
     rng = np.random.default_rng(7)
+    cam_rng = np.random.default_rng(8)  # the audio and depth draws stay as they were
+    h, w = CORPUS_CAMERA_HW
+    ramp = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
     header = "audio path,audio file name,depth path,depth file name,camera path,camera file name"
     for loc, *counts in CORPUS_LOCATIONS:
-        for sub in ("audio", "depth"):
+        for sub in ("audio", "depth", "cam"):
             os.makedirs(os.path.join(root, loc, sub))
         for split, n in zip(("train", "val", "test"), counts):
             if not n:
@@ -1431,6 +1679,10 @@ def write_corpus(np, root):
                 pcm = np.clip(rng.normal(0.0, 3000.0, (2, CORPUS_WAVE_SAMPLES)),
                               -32768, 32767).astype(np.int16)
                 _write_wav(os.path.join(root, loc, "audio", f"{name}.wav"), pcm)
+                tint = cam_rng.uniform(0.2, 1.0, 3).astype(np.float32)
+                bgr = np.clip(255.0 * ramp * tint + cam_rng.normal(0.0, 12.0, (h, w, 3)), 0, 255)
+                assert cv2.imwrite(os.path.join(root, loc, "cam", f"{name}.png"),
+                                   bgr.astype(np.uint8))
                 lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{name}.npy,{loc}/cam,{name}.png")
             with open(os.path.join(root, loc, f"{split}.csv"), "w") as f:
                 f.write(header + "\n" + "\n".join(lines) + "\n")
@@ -1779,6 +2031,103 @@ def phase_evaluate(torch, np, evaluate_cli, kernels, root, work, run):
     return launches, by_variant
 
 
+# the image paths on the fabricated tree: the loader on the card, the two
+# image families trained from it, and the --eval_img baseline evaluated
+IMAGE_CORPUS_ARGV = ["--dataset", "batvisionv2", "--holdout_locations", CORPUS_HOLDOUT,
+                     "--no_visualize", "--compute_dtype", "bfloat16", "--batch_size",
+                     str(TRAIN_BATCH), "--epochs", "1", "--validation", "true",
+                     "--validation_iter", "1", "--seed", "0", "--saving_checkpoints", "1"]
+
+
+def phase_corpus_images(torch, np, configs, root, dev="cuda"):
+    """One batch of the tree decoded with use_image="both" (camera image,
+    audio and depth) by the native loader and the image pool, streamed to
+    the card through `device_prefetch` and gathered there by
+    `DeviceDatasetCache`: both bit-equal to the host batch; the decode
+    times of the images."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.device_cache import DeviceDatasetCache
+    from audiodepth_tpu_torch.data.prefetch import device_prefetch
+
+    cfg = configs.load_config("batvisionv2", "train", overrides={"dataset.dataset_dir": root})
+    ds = make_dataset(cfg, "train", use_image="both")
+    host = next(ds.batches(TRAIN_BATCH, shuffle=False))
+    assert host["image"].shape == (TRAIN_BATCH, 256, 256, 3) and host["image"].dtype == np.uint8
+    (streamed,) = list(device_prefetch(iter([host]), dev))
+    cache = DeviceDatasetCache(make_dataset(cfg, "val", use_image="both"), 30.0, dev)
+    val_host = next(make_dataset(cfg, "val", use_image="both").batches(TRAIN_BATCH,
+                                                                       shuffle=False))
+    cached = cache.batch(np.arange(TRAIN_BATCH))
+    for k in ("image", "waveform", "depth"):
+        for got, want in ((streamed[k], host[k]), (cached[k], val_host[k])):
+            assert got.device.type == dev and np.array_equal(got.cpu().numpy(), want), k
+    both_s = _median_s(lambda: next(ds.batches(TRAIN_BATCH, shuffle=False)), 3)
+    audio_s = _median_s(lambda: next(make_dataset(cfg, "train").batches(TRAIN_BATCH,
+                                                                        shuffle=False)), 3)
+    emit({"phase": "corpus_images", "camera_hw_on_disk": CORPUS_CAMERA_HW, "batch": TRAIN_BATCH,
+          "streamed_equals_host": True, "cached_equals_host": True,
+          "decode_ms_with_images": both_s * 1e3, "decode_ms_audio_only": audio_s * 1e3,
+          "cache_nbytes": cache.nbytes()})
+
+
+def phase_train_corpus_images(torch, np, train_cli, kernels, root, work, family, flags=()):
+    """cli/train.py's main on the tree for one epoch, one location held out:
+    rgb_depth on camera images, adabins_distillation on paired audio and
+    images, or (with --eval_img) the baseline on images. Every loss finite,
+    every trainable parameter moved, the holdout evaluated, B1 once per
+    step, eval batch and detector forward where the family reads audio."""
+    argv = IMAGE_CORPUS_ARGV + ["--dataset_dir", root, "--model", family,
+                                "--ckpt_dir", os.path.join(work, f"ck_{family}"), *flags]
+    eng, state, steps, launches, by_variant, seen = _train_run(torch, train_cli, kernels, argv)
+    task = seen["task"]
+    losses = [float(m["loss"]) for m in steps]
+    n_train = sum(c[1] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
+    n_val = sum(c[2] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
+    n_hold = sum(c[1] for c in CORPUS_LOCATIONS if c[0] == CORPUS_HOLDOUT)
+    assert len(steps) == n_train // TRAIN_BATCH and all(np.isfinite(losses)), losses
+    trainable = {id(p) for p in task.trainable_parameters()}
+    unmoved = [n for n, p in task.model.named_parameters()
+               if id(p) in trainable and torch.equal(p.detach(), seen["before"][n])]
+    assert not unmoved, f"{family} corpus: parameters that did not move: {unmoved[:8]}"
+    (rec,) = eng.history
+    assert set(rec["holdout"]) == {CORPUS_HOLDOUT} and np.isfinite(rec["val"]["rmse"]), rec
+    reads_audio = family == "adabins_distillation"
+    forwards = len(steps) + -(-n_val // TRAIN_BATCH) + -(-n_hold // TRAIN_BATCH) + 1
+    expected = dict(NO_KERNEL, fused_mel_frontend=forwards if reads_audio else 0)
+    assert launches == expected, f"train corpus {family}: launches {launches}, expected {expected}"
+    emit({"phase": "train_corpus_images", "model": family, "flags": argv, "steps": len(steps),
+          "losses": losses, "launches": launches, "expected_launches": expected,
+          "epoch_record": rec, "main_wall_s": seen["wall"],
+          "epoch_step_ms": rec["epoch_time"] / rec["steps"] * 1e3})
+    return eng, state, (launches, by_variant)
+
+
+def phase_evaluate_eval_img(torch, np, evaluate_cli, kernels, root, work, eng):
+    """cli/evaluate.py --eval_img on the card against the best checkpoint of
+    the baseline trained on images: its means equal the val record within
+    EVAL_REL_TOL, and no front end runs."""
+    from audiodepth_tpu_torch.configs import experiment_name
+
+    exp = experiment_name(eng.cfg, f"IMG_holdout_{CORPUS_HOLDOUT}")
+    ck = os.path.join(work, "ck_unet_baseline", exp)
+    assert os.path.isdir(ck), ck
+    argv = ["--dataset", "batvisionv2", "--dataset_dir", root, "--checkpoint_path", ck,
+            "--use_best", "--eval_on", "val", "--eval_img", "--stat_dir",
+            os.path.join(work, "eval_img"), "--batch_size", str(TRAIN_BATCH),
+            "--compute_dtype", "bfloat16"]
+    reset_launches(kernels)
+    means = evaluate_cli.main(argv)
+    torch.cuda.synchronize()
+    launches, by_variant = read_launches(kernels)
+    assert launches == NO_KERNEL, f"evaluate --eval_img: launches {launches}"
+    val = eng.history[-1]["val"]
+    diffs = {k: abs(means[k] - val[k]) / max(abs(val[k]), 1e-12) for k in means}
+    assert all(d <= EVAL_REL_TOL for d in diffs.values()), (means, val)
+    emit({"phase": "evaluate_eval_img", "flags": argv, "means": means, "val_record": val,
+          "rel_diff": diffs, "tol_rel": EVAL_REL_TOL, "launches": launches})
+    return launches, by_variant
+
+
 # the prefix of each wrapper's kernels in the ptxas report
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
@@ -1860,6 +2209,14 @@ def main() -> int:
     for base in WIDTH_BASES:
         launches[f"train binaural_attention base {base}"] = phase_train_widths(
             torch, np, train_cli, KERNELS, base)
+    families_root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        for family in FAMILIES:
+            launches.update(phase_train_family(torch, np, train_cli, serve, KERNELS, family,
+                                               families_root))
+    finally:
+        shutil.rmtree(families_root, ignore_errors=True)
+    phase_f32_train_vs_cpu(torch, np, configs, models, "adabins_distillation")
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
         root = os.path.join(work, "BatvisionV2")
@@ -1870,6 +2227,18 @@ def main() -> int:
         launches["evaluate unet_baseline"] = phase_evaluate(
             torch, np, evaluate_cli, KERNELS, root, work, runs["streamed"])
         del runs
+        torch.cuda.empty_cache()
+        phase_corpus_images(torch, np, configs, root)
+        for family, flags in (("rgb_depth", ()), ("adabins_distillation", ()),
+                              ("unet_baseline", ("--eval_img",))):
+            name = f"train {family} {' '.join(flags) + ' ' if flags else ''}corpus"
+            eng_i, state_i, launches[name] = phase_train_corpus_images(
+                torch, np, train_cli, KERNELS, root, work, family, flags)
+            if flags:
+                launches["evaluate unet_baseline --eval_img"] = phase_evaluate_eval_img(
+                    torch, np, evaluate_cli, KERNELS, root, work, eng_i)
+            del eng_i, state_i
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

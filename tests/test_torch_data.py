@@ -166,13 +166,6 @@ def test_bv2_native_batches_equal_python_path_encoded(bv2_root):
         np.testing.assert_array_equal(p["waveform_scale"], 1.0)
 
 
-def test_bv2_images_are_refused_naming_a5(bv2_root):
-    _, cfg = _cfgs("batvisionv2", bv2_root)
-    for use_image in (True, "both"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            bv.BatvisionV2Dataset(cfg, "train.csv", use_image=use_image)
-
-
 def test_bv1_rows_and_samples_match_jax(bv1_root, capsys):
     jcfg, cfg = _cfgs("batvisionv1", bv1_root, size=32)
     want, got = jbv.BatvisionV1Dataset(jcfg, "train.csv"), bv.BatvisionV1Dataset(cfg, "train.csv")

@@ -62,6 +62,8 @@ _TRAINING_SLICE = {
     "losses.basic", "losses.binaural", "metrics", "metrics.errors", "train.engine",
     "train.optim", "train.tasks", "train.tasks_extra", "ops.cuda.flash_attention",
     "ckpt", "cli.serve", "configs.config", "ops.cuda.fused_frontend",
+    "models.base_residual", "models.unet_cvae", "models.rgb_depth", "models.adabins",
+    "losses.base_residual", "losses.distillation",
 }
 # the corpus path's modules
 _CORPUS_SLICE = {
@@ -100,9 +102,36 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 
 
 def test_unported_family_names_its_roadmap_item():
-    cfg = load_config("batvisionv2", "test", model_name="base_residual")
+    cfg = load_config("batvisionv2", "test", model_name="coarse_depth")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_task(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name,task_cls,model_cls", [
+    ("base_residual", "BaseResidualTask", "BaseResidualNet"),
+    ("unet_cvae", "UNetCVAETask", "UNetCVAE"),
+    ("rgb_depth", "RGBDepthTask", "RGBDepthNet"),
+    ("adabins_distillation", "AdaBinsDistillationTask", "AdaBinsDistillationModel"),
+])
+def test_registry_builds_and_seeds_the_families(name, task_cls, model_cls):
+    """Each family's task and model, on the CPU when asked for, seeded by
+    `init_weights` the same from the same seed; the families that draw
+    random numbers hold a generator on the task's device."""
+    from audiodepth_tpu_torch import models
+
+    cfg = load_config("synthetic", "train", model_name=name, overrides={
+        "model.base_channels": 4, "model.ngf": 2, "model.generator": "unet_128",
+        "model.n_bins": 8, "dataset.images_size": 128})
+    a, b = make_task(cfg, device="cpu"), make_task(cfg, device="cpu")
+    assert type(a).__name__ == task_cls and type(a.model).__name__ == model_cls
+    assert isinstance(a.model, getattr(models, model_cls)) and a.name == name
+    for task in (a, b):
+        models.init_weights(task.model, torch.Generator().manual_seed(4))
+    for (k, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(x, y), k
+    assert (a.generator is not None) == (name in ("unet_cvae", "adabins_distillation"))
+    if a.generator is not None:
+        assert a.generator.device.type == "cpu"
 
 
 def test_fused_wrapper_cpu_goes_to_plain_version():

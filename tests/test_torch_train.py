@@ -47,7 +47,9 @@ Each case names its tolerance and why:
   * `cli.train.main` trains two steps and validates on the CPU, and the
     flags of parts that are not ported exit naming their ROADMAP.md item
     (the real corpora, the holdout, the device cache and wandb are ported:
-    tests/test_torch_corpus.py drives them).
+    tests/test_torch_corpus.py drives them; the other families and camera
+    images have their own tests/test_torch_{base_residual,cvae,rgb_adabins,
+    images}.py).
 """
 
 from __future__ import annotations
@@ -617,12 +619,9 @@ def test_cli_config_from_flags():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model", "base_residual"], "A5"), (["--model", "unet_cvae"], "A5"),
-    (["--model", "adabins_distillation"], "A5"), (["--model", "rgb_depth"], "A5"),
     (["--profile_dir", "p"], "A7"), (["--model", "coarse_depth"], "A5"),
-    (["--eval_img"], "A5"), (["--sparse_method", "downup_015"], "A5"),
+    (["--sparse_method", "downup_015"], "A5"),
     (["--num_devices", "2"], "A8"), (["--num_devices", "4"], "A8"),
-    (["--dataset", "batvisionv2", "--eval_img"], "A5"),
 ])
 def test_cli_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):

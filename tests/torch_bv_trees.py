@@ -1,6 +1,7 @@
 """Fabricated BatVision trees for the port's tests (the layouts of
 tests/test_batvision_data.py's fixtures, copied here, with val and test
-splits added for the training and evaluation tests)."""
+splits added for the training and evaluation tests, and camera PNGs for the
+image loaders)."""
 
 from __future__ import annotations
 
@@ -23,15 +24,22 @@ def write_wav(path, data, sr=44100):
 
 
 def write_bv2_tree(root, locations=("Hall", "Office"),
-                   rows=(("train", 3),), depth_hw=(48, 64), wave_len=9000, seed=0):
+                   rows=(("train", 3),), depth_hw=(48, 64), wave_len=9000, seed=0,
+                   camera_hw=(48, 64)):
     """A BV2 tree: per location, `audio/` WAVs, `depth/` .npy depth in mm
-    (values below 0 and above 30 m), and one CSV per (split, row count);
-    plus a '__pycache__' and an 'X_unzipped' directory the scan skips."""
+    (values below 0 and above 30 m), `cam/` camera PNGs of camera_hw
+    (random BGR pixels, written by OpenCV), and one CSV per (split, row
+    count); plus a '__pycache__' and an 'X_unzipped' directory the scan
+    skips."""
+    import cv2
+
     rng = np.random.default_rng(seed)
+    cam_rng = np.random.default_rng(seed + 1)  # the audio and depth draws stay as they were
     for loc in locations:
         d = root / loc
         (d / "audio").mkdir(parents=True)
         (d / "depth").mkdir()
+        (d / "cam").mkdir()
         for split, n in rows:
             lines = []
             for i in range(n):
@@ -40,7 +48,9 @@ def write_bv2_tree(root, locations=("Hall", "Office"),
                 np.save(d / "depth" / f"{name}.npy", depth_mm)
                 write_wav(d / "audio" / f"{name}.wav",
                           rng.normal(0, 0.1, size=(2, wave_len)).astype(np.float32))
-                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{name}.npy,{loc}/cam,c{i}.png")
+                bgr = cam_rng.integers(0, 256, size=(*camera_hw, 3), dtype=np.uint8)
+                assert cv2.imwrite(str(d / "cam" / f"{name}.png"), bgr)
+                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{name}.npy,{loc}/cam,{name}.png")
             (d / f"{split}.csv").write_text(BV2_HEADER + "\n" + "\n".join(lines) + "\n")
     (root / "__pycache__").mkdir()
     (root / "X_unzipped").mkdir()
