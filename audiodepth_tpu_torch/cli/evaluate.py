@@ -10,7 +10,9 @@ or takes a reference .pth (--torch_checkpoint; a port checkpoint is one
 too). It evaluates the --eval_on split (test or val) on --device (default
 cuda) in batches of --batch_size (default 16, the ragged tail kept), one
 forward a batch, and prints the means of the per-sample metrics
-(test.py:322-332). rgb_depth and --eval_img (input_nc 3) checkpoints are
+(test.py:322-332); a coarse_depth checkpoint soft-bins over the bins it
+was trained with (its aux, or a reference wrapper's bin_centers /
+bin_edges). rgb_depth and --eval_img (input_nc 3) checkpoints are
 scored on camera images (BatVision V2 and the synthetic corpus); an
 adabins_distillation checkpoint, which holds the teacher, is scored by its
 student alone on audio. It writes
@@ -70,15 +72,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _restore(args, cfg, task):
-    """Load the weights the flags name into task.model; (experiment, epoch)."""
+    """Load the weights the flags name into task.model and adopt the
+    checkpoint's aux (the coarse family's trained bins) before the first
+    forward; (experiment, epoch)."""
     from ..ckpt import CheckpointManager
     from ..configs import experiment_name
-    from ..tools.import_jax import load_torch_state_dict
+    from ..tools.import_jax import load_torch_aux, load_torch_state_dict
 
     default_exp = (experiment_name(cfg) if args.experiment_name == "default"
                    else args.experiment_name)
     if args.torch_checkpoint:
         task.model.load_state_dict(load_torch_state_dict(args.torch_checkpoint), strict=True)
+        task.restore_aux(load_torch_aux(args.torch_checkpoint))
         print(f"loaded torch checkpoint {args.torch_checkpoint}")
         return default_exp, "torch"
     epoch_req = args.checkpoints
@@ -94,11 +99,12 @@ def _restore(args, cfg, task):
         epoch_req = "best"
     mgr = CheckpointManager(ckpt_dir, exp, create=False)
     try:
-        sd, _, epoch = mgr.restore_eval(epoch=epoch_req)
+        sd, aux, epoch = mgr.restore_eval(epoch=epoch_req)
     except FileNotFoundError:
         raise SystemExit(f"checkpoint not found under {mgr.directory}; "
                          f"available epochs: {mgr.all_epochs()}")
     task.model.load_state_dict(sd, strict=True)
+    task.restore_aux(aux)
     return exp, epoch
 
 

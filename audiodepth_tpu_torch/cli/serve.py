@@ -3,8 +3,8 @@
 
   * One forward per batch — TOF-fix → mel front end (kernel B1 on the card)
     → model (UNet, the binaural attention net with kernel B2 on the card,
-    base_residual, the cVAE with its fixed eval draw, or the AdaBins
-    student alone) → meters + clip to [0, max_depth] — run once per size of
+    base_residual, the cVAE with its fixed eval draw, the AdaBins student
+    alone, or a coarse_depth variant over its checkpoint's bins) → meters + clip to [0, max_depth] — run once per size of
     a batch ladder at startup (`warmup`), so no size is first seen
     mid-serving. Models that read camera images (rgb_depth, --eval_img
     baselines) are refused.
@@ -15,7 +15,8 @@
     DIR[/EPOCH], or --ckpt_dir ROOT with the experiment's name; --use_best,
     --checkpoints EPOCH, else the latest), a reference torch .pth
     (--torch_checkpoint; a port checkpoint is one too), or --random_init
-    (seeded torch.Generator). The JAX package's orbax checkpoints are not
+    (seeded torch.Generator). A checkpoint's aux (the coarse family's trained
+    bins) is adopted before the warm-up. The JAX package's orbax checkpoints are not
     read: convert them with `tools/import_jax.py`.
 
 Protocol (the JAX server's):
@@ -304,7 +305,7 @@ def load_serving_state(args):
     from ..ckpt import CheckpointManager
     from ..configs import experiment_name, load_config
     from ..models import init_weights, make_task
-    from ..tools.import_jax import load_torch_state_dict
+    from ..tools.import_jax import load_torch_aux, load_torch_state_dict
     from .common import model_shape_overrides
 
     overrides = model_shape_overrides(args)
@@ -320,6 +321,7 @@ def load_serving_state(args):
     if args.torch_checkpoint:
         sd = load_torch_state_dict(args.torch_checkpoint)
         task.model.load_state_dict(sd, strict=True)
+        task.restore_aux(load_torch_aux(args.torch_checkpoint))
         return cfg, task, f"torch:{args.torch_checkpoint}"
 
     if args.random_init:
@@ -342,11 +344,12 @@ def load_serving_state(args):
         epoch_req = "best"
     mgr = CheckpointManager(ckpt_dir, exp, create=False)
     try:
-        sd, _, epoch = mgr.restore_eval(epoch=epoch_req)
+        sd, aux, epoch = mgr.restore_eval(epoch=epoch_req)
     except FileNotFoundError:
         raise SystemExit(f"checkpoint not found under {mgr.directory}; "
                          f"available epochs: {mgr.all_epochs()}")
     task.model.load_state_dict(sd, strict=True)
+    task.restore_aux(aux)
     return cfg, task, f"{exp}@{epoch}"
 
 

@@ -12,7 +12,8 @@ record. Flags of parts that are not ported yet exit with the ROADMAP.md
 item that ports them.
 
 Families: unet_baseline, binaural_attention, base_residual, unet_cvae,
-rgb_depth and adabins_distillation, with the JAX CLI's family flags.
+rgb_depth, adabins_distillation and coarse_depth (--model_type unet, lite,
+hybrid or dual_reg), with the JAX CLI's family flags.
 rgb_depth reads camera images, adabins_distillation paired audio and
 images (its teacher frozen), and --eval_img trains a family with input_nc
 3 (the baseline) on the images, the experiment named with IMG (BatVision V2
@@ -20,7 +21,14 @@ and the synthetic corpus; V1 has no camera).
 
 Data: BatVision V2 batches decode in the native thread pool and reach the
 card through `data/prefetch.py`; --device_cache uploads each split once
-and gathers batches on the card. --holdout_locations (or the reference's
+and gathers batches on the card. --sparse_method METHOD (BatVision V2
+only) trains on the `sparse_depth_{METHOD}/` targets that
+`tools/preprocess_sparse_depth.py` writes (`data/sparse_depth.py`, the
+Python decoder; with --use_original_depth the dense depth too). coarse_depth
+batches carry int 'bins' targets, bucketized on the host where the JAX CLI
+does it: streamed batches through `add_bins_to_batch` (uint16 depth decoded
+first), cached splits from each sample's float32 depth, the sparse datasets
+with their own. --holdout_locations (or the reference's
 --holdout_test_seq/--holdout_eval_seq) blacklists locations from train and
 val, and evaluates each on its own at every validation, from the full train
 split.
@@ -56,19 +64,18 @@ import torch
 
 # the families `cli.train` trains
 TRAINED_MODELS = ("unet_baseline", "binaural_attention", "base_residual", "unet_cvae",
-                  "rgb_depth", "adabins_distillation")
+                  "rgb_depth", "adabins_distillation", "coarse_depth")
 # the families that read camera images
 IMAGE_MODELS = ("rgb_depth", "adabins_distillation")
 # flag → the ROADMAP.md item that ports what it needs
-_UNPORTED = {
-    "profile_dir": "the profiler hook (ROADMAP.md A7)",
-    "sparse_method": "the sparse-depth coarse workflow (ROADMAP.md A5)",
-}
+_UNPORTED = {"profile_dir": "the profiler hook (ROADMAP.md A7)"}
 # family knobs that live in model.extra (the JAX CLI's names)
 _EXTRA_FLAGS = ("loss_type", "lambda_recon", "lambda_edge", "lambda_smooth", "remat",
                 "warmup_epochs", "use_adaptive_loss", "temperature", "recon", "lambda_base",
                 "lambda_sparse", "lowpass_kernel", "lambda_l1", "lambda_task",
-                "lambda_response", "lambda_feature", "lambda_bin")
+                "lambda_response", "lambda_feature", "lambda_bin", "ce_weight",
+                "regression_weight", "offset_reg_weight", "coarse_weight", "final_weight",
+                "sid_alpha", "soft_ce_sigma", "use_focal")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,6 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--l1_weight", type=float, default=None)
     p.add_argument("--silog_weight", type=float, default=None)
     p.add_argument("--silog_lambda", type=float, default=None)
+    p.add_argument("--use_silog", type=lambda x: str(x).lower() == "true", default=None,
+                   help="true|false: any mention selects Combined (train.py:99-101); "
+                        "false zeroes silog_weight")
+    p.add_argument("--audio_format", default=None,
+                   choices=[None, "spectrogram", "mel_spectrogram", "waveform"],
+                   help="overrides the dataset preset (train.py:69-71; mel is refused on BV1)")
+    p.add_argument("--max_depth", type=float, default=None,
+                   help="max depth in meters (train.py:74-76)")
     p.add_argument("--weight_decay", type=float, default=None,
                    help="AdamW decoupled weight decay (default 0.01)")
     p.add_argument("--lr_schedule", default=None,
@@ -97,7 +112,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--base_channels", type=int, default=None)
     p.add_argument("--ngf", type=int, default=None)
     p.add_argument("--generator", default=None, choices=[None, "unet_256", "unet_128"])
-    p.add_argument("--n_bins", type=int, default=None, help="AdaBins bins")
+    p.add_argument("--n_bins", type=int, default=None, help="AdaBins and coarse bins")
+    p.add_argument("--bin_strategy", default=None, choices=[None, "linear", "log", "sid"],
+                   help="coarse bin spacing (default sid)")
+    p.add_argument("--model_type", default=None,
+                   choices=[None, "unet", "lite", "hybrid", "dual_reg"],
+                   help="coarse_depth variant (default unet)")
     p.add_argument("--attention_levels", default=None,
                    help="comma-separated encoder levels for cross-attention, e.g. 2,3,4,5")
     p.add_argument("--loss_type", default=None, choices=[None, "standard", "edge_aware", "adaptive"],
@@ -137,6 +157,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adabins feature-distillation weight (default 0.3)")
     p.add_argument("--lambda_bin", type=float, default=None,
                    help="adabins bin-distribution weight (default 0.2)")
+    # the coarse family's weights (train_coarse_depth.py:148-186)
+    p.add_argument("--ce_weight", type=float, default=None, help="coarse CE weight (default 1.0)")
+    p.add_argument("--regression_weight", type=float, default=None,
+                   help="coarse regression weight (default 0.5)")
+    p.add_argument("--offset_reg_weight", type=float, default=None,
+                   help="coarse offset regularization (default 0.01)")
+    p.add_argument("--coarse_weight", type=float, default=None,
+                   help="dual_reg coarse-term weight (default 1.0)")
+    p.add_argument("--final_weight", type=float, default=None,
+                   help="dual_reg final-term weight (default 1.0)")
+    p.add_argument("--sid_alpha", type=float, default=None, help="SID bin alpha (default 0.6)")
+    p.add_argument("--soft_ce_sigma", type=float, default=None,
+                   help="soft-CE Gaussian sigma (default 2.0)")
+    p.add_argument("--use_focal", action="store_true", default=None,
+                   help="focal loss instead of soft CE (coarse unet and lite)")
+    p.add_argument("--sparse_method", default=None,
+                   help="train on the sparse_depth_{method}/ targets of "
+                        "tools/preprocess_sparse_depth (e.g. downup_015; BatVision V2)")
+    p.add_argument("--use_original_depth", action="store_true",
+                   help="also load the dense depth beside the sparse target")
     p.add_argument("--eval_img", action="store_true",
                    help="train on camera images (input_nc 3) instead of audio; not on BV1")
     p.add_argument("--validation", type=lambda x: str(x).lower() == "true", default=None,
@@ -184,7 +224,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also log to wandb (its WANDB_* variables pick project and mode)")
     # parts not ported yet: accepted by the parser, refused by main
     p.add_argument("--profile_dir", default=None)
-    p.add_argument("--sparse_method", default=None)
     return p
 
 
@@ -231,19 +270,27 @@ def config_from_args(args):
         "model.ngf": args.ngf,
         "model.generator": args.generator,
         "model.n_bins": args.n_bins,
+        "model.bin_strategy": args.bin_strategy,
+        "model.model_type": args.model_type,
         "model.kl_weight": args.kl_weight,
         "model.latent_dim": args.latent_dim,
         "model.attention_levels": args.attention_levels,
         "dataset.dataset_dir": args.dataset_dir,
+        "dataset.audio_format": args.audio_format,
+        "dataset.max_depth": args.max_depth,
     }
     if args.eval_img:
         direct["model.input_nc"] = 3
     overrides = {k: v for k, v in direct.items() if v is not None}
-    # an explicit loss weight implies Combined (train.py:394-399)
+    # an explicit loss weight, or any --use_silog, implies Combined
+    # (train.py:394-399); --use_silog false zeroes the SIlog term
     if args.criterion is not None:
         overrides["mode.criterion"] = args.criterion
-    elif any(v is not None for v in (args.l1_weight, args.silog_weight, args.silog_lambda)):
+    elif any(v is not None for v in (args.l1_weight, args.silog_weight, args.silog_lambda,
+                                     args.use_silog)):
         overrides["mode.criterion"] = "Combined"
+    if args.use_silog is False:
+        overrides["mode.silog_weight"] = 0.0
     for name in _EXTRA_FLAGS:
         if getattr(args, name) is not None:
             overrides[f"model.extra.{name}"] = getattr(args, name)
@@ -275,6 +322,10 @@ def _refuse_unported(args) -> None:
                          "(ROADMAP.md A8)")
     if args.holdout_locations and args.dataset == "synthetic":
         raise SystemExit("--holdout_locations: the synthetic corpus has no locations")
+    if args.sparse_method and args.dataset != "batvisionv2":
+        raise SystemExit("--sparse_method requires the batvisionv2 corpus layout "
+                         "(per-location sparse_depth_{method}/ folders from "
+                         "tools/preprocess_sparse_depth)")
     if args.dataset == "batvisionv1" and (args.eval_img or args.model in IMAGE_MODELS):
         raise SystemExit("camera images (--eval_img, rgb_depth, adabins_distillation) are "
                          "not supported on batvisionv1 (no camera; train.py:322-323)")
@@ -301,14 +352,57 @@ def _image_kwargs(cfg, eval_img: bool) -> dict:
 
 
 def _warm_start(task, path: str) -> int:
-    """Load a reference .pth into the model (strict); the epoch to start
-    from: the one after the epoch the file names, else 1."""
-    from ..tools.import_jax import torch_state_dict
+    """Load a reference .pth into the model (strict) and adopt the bins its
+    wrapper carries; the epoch to start from: the one after the epoch the
+    file names, else 1."""
+    from ..tools.import_jax import load_torch_aux, load_torch_state_dict
 
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    task.model.load_state_dict(torch_state_dict(payload), strict=True)
-    epoch = payload.get("epoch") if isinstance(payload, dict) else None
-    return int(epoch) + 1 if epoch is not None else 1
+    task.model.load_state_dict(load_torch_state_dict(path), strict=True)
+    aux = load_torch_aux(path)
+    task.restore_aux(aux)
+    return aux["epoch"] + 1 if aux.get("epoch") is not None else 1
+
+
+def _sparse_datasets(cfg, args, holdout_locs):
+    """The --sparse_method train and val splits: binned for coarse_depth,
+    with the task's bin parameters."""
+    from ..data.sparse_depth import BinnedSparseDepthDataset, SparseDepthDataset
+
+    kwargs = dict(sparse_depth_method=args.sparse_method,
+                  use_original_depth=args.use_original_depth)
+    if holdout_locs:
+        kwargs["location_blacklist"] = holdout_locs
+    cls = SparseDepthDataset
+    if cfg.model.name == "coarse_depth":
+        extra = cfg.model.extra
+        kwargs.update(n_bins=cfg.model.n_bins, bin_mode=cfg.model.bin_strategy,
+                      depth_min=float(extra.get("depth_min", 0.1)),
+                      sid_alpha=float(extra.get("sid_alpha", 0.6)))
+        cls = BinnedSparseDepthDataset
+    ds = cfg.dataset
+    return (cls(cfg, ds.annotation_file_train, **kwargs),
+            cls(cfg, ds.annotation_file_val, **kwargs))
+
+
+class _BinnedView:
+    """A dataset whose samples get 'bins' from their float32 depth in
+    meters, for the device cache (the JAX CLI's)."""
+
+    def __init__(self, ds, edges, cfg):
+        self._ds, self._edges, self._cfg = ds, edges, cfg
+
+    def __len__(self):
+        return len(self._ds)
+
+    def sample(self, i):
+        from ..data.bins import depth_to_bins_np
+
+        s = self._ds.sample(i)
+        d = s["depth"][..., 0]
+        if self._cfg.dataset.depth_norm:
+            d = d * self._cfg.dataset.max_depth
+        s["bins"] = depth_to_bins_np(d, self._edges)
+        return s
 
 
 def _vis_dir(args) -> Optional[str]:
@@ -380,7 +474,9 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     cfg = config_from_args(args)
     holdout_locs = list(args.holdout_locations or [])
     image_kw = _image_kwargs(cfg, args.eval_img)
-    if cfg.dataset.name == "synthetic":
+    if args.sparse_method:
+        train_ds, val_ds = _sparse_datasets(cfg, args, holdout_locs)
+    elif cfg.dataset.name == "synthetic":
         train_ds = make_dataset(cfg, "train", num_samples=args.num_samples, **image_kw)
         val_ds = make_dataset(cfg, "val", **image_kw)
     else:
@@ -393,6 +489,9 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
         val_ds = make_dataset(cfg, "val", **kwargs)
     task = make_task(cfg, device=args.device)
     init_weights(task.model, torch.Generator().manual_seed(int(cfg.mode.seed)))
+    needs_bins = cfg.model.name == "coarse_depth"
+    # the cache's bins use the config's edges, a warm start's come later
+    cache_edges = task.bin_edges if needs_bins else None
     if on_task is not None:
         on_task(task)
     steps_per_epoch = max(len(train_ds) // cfg.mode.batch_size, 1)
@@ -428,8 +527,11 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
         from ..data.device_cache import DeviceDatasetCache
 
         units = depth_storage_units(cfg)
-        train_src = DeviceDatasetCache(train_ds, units, task.device)
-        val_src = DeviceDatasetCache(val_ds, units, task.device)
+        if needs_bins:
+            train_src = _BinnedView(train_ds, cache_edges, cfg)
+            val_src = _BinnedView(val_ds, cache_edges, cfg)
+        train_src = DeviceDatasetCache(train_src, units, task.device)
+        val_src = DeviceDatasetCache(val_src, units, task.device)
         cache_bytes = {"train": train_src.nbytes(), "val": val_src.nbytes()}
 
     # the reshuffle stream: epoch e draws seed mode.seed * 100003 + e + 1,
@@ -437,24 +539,37 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     # sees the JAX CLI's batch order and a resumed run the uninterrupted one's
     epoch_seed = [int(cfg.mode.seed) * 100_003 + start_epoch]
 
+    def wrap(batches):
+        """coarse_depth: 'bins' on each batch that has none, from the
+        task's edges at the time (uint16 depth decoded first)."""
+        from ..data.bins import add_bins_to_batch
+
+        for b in batches:
+            if needs_bins and "bins" not in b:
+                b = add_bins_to_batch(b, task.bin_edges, cfg.dataset.max_depth,
+                                      cfg.dataset.depth_norm)
+            yield b
+
     def train_batches():
         epoch_seed[0] += 1
-        return train_src.batches(cfg.mode.batch_size, shuffle=cfg.mode.shuffle,
-                                 seed=epoch_seed[0])
+        return wrap(train_src.batches(cfg.mode.batch_size, shuffle=cfg.mode.shuffle,
+                                      seed=epoch_seed[0]))
 
     def val_batches():
         # keep the ragged tail: a val split smaller than the batch would
         # otherwise evaluate nothing
-        return val_src.batches(cfg.mode.batch_size, shuffle=False, drop_last=False)
+        return wrap(val_src.batches(cfg.mode.batch_size, shuffle=False, drop_last=False))
 
     # each held-out location's rows of the full train split (with the
-    # images the task reads)
-    full = make_dataset(cfg, "train", **image_kw) if holdout_locs else None
-    held_out = {loc: full.filter_by_audio_path(loc) for loc in holdout_locs}
+    # images the task reads); the sparse datasets have no holdout loaders,
+    # as in the JAX CLI (their locations are blacklisted all the same)
+    full = (make_dataset(cfg, "train", **image_kw)
+            if holdout_locs and not args.sparse_method else None)
+    held_out = {loc: full.filter_by_audio_path(loc) for loc in holdout_locs} if full else {}
     # drop_last=False: a location with fewer samples than the batch still
     # evaluates (train.py:915-999)
-    holdout = {loc: (lambda sub=sub: sub.batches(cfg.mode.batch_size, shuffle=False,
-                                                 drop_last=False))
+    holdout = {loc: (lambda sub=sub: wrap(sub.batches(cfg.mode.batch_size, shuffle=False,
+                                                      drop_last=False)))
                for loc, sub in held_out.items()} or None
 
     logger = MetricLogger(args.log_dir, exp, use_wandb=args.use_wandb,

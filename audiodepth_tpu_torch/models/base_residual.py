@@ -3,7 +3,9 @@
 
 `SharedEncoder`: inc + down1..4 with base_channels × {1, 2, 4, 8, 8}
 (bilinear factor 2), under the reference's module names
-(`inc.double_conv.*`, `down{i}.maxpool_conv.1.double_conv.*`). With
+(`inc.double_conv.*`, `down{i}.maxpool_conv.1.double_conv.*`; the
+coarse-depth family's `inc.conv.*`, `down{i}.pool_conv.1.conv.*` with
+inner="conv", pool="pool_conv"). With
 `remat`, a train-mode forward under grad keeps none of its activations and
 recomputes them in the backward (`layers.remat`).
 
@@ -30,15 +32,16 @@ from .layers import Conv2d, DoubleConv, Down, UpBilinear, at_least_f32, remat
 
 class SharedEncoder(nn.Module):
     def __init__(self, in_ch: int, base_channels: int = 64, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, inner: str = "double_conv", pool: str = "maxpool_conv"):
         super().__init__()
         self.remat = remat
         c = base_channels
-        self.inc = DoubleConv(in_ch, c, dtype=dtype)
-        self.down1 = Down(c, c * 2, dtype=dtype)
-        self.down2 = Down(c * 2, c * 4, dtype=dtype)
-        self.down3 = Down(c * 4, c * 8, dtype=dtype)
-        self.down4 = Down(c * 8, c * 8, dtype=dtype)  # 16 // factor
+        names = {"inner": inner, "pool": pool}
+        self.inc = DoubleConv(in_ch, c, dtype=dtype, inner=inner)
+        self.down1 = Down(c, c * 2, dtype=dtype, **names)
+        self.down2 = Down(c * 2, c * 4, dtype=dtype, **names)
+        self.down3 = Down(c * 4, c * 8, dtype=dtype, **names)
+        self.down4 = Down(c * 8, c * 8, dtype=dtype, **names)  # 16 // factor
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.remat and self.training and torch.is_grad_enabled():

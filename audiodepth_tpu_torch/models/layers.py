@@ -16,7 +16,8 @@ default, which the JAX package's base_residual heads and cVAE bottleneck
 keep). The residual blocks (`DoubleConv`,
 `Down`, `UpBilinear`) keep the reference's module names, so their
 state_dict keys are the reference's (`double_conv.0`, `maxpool_conv.1`,
-`conv.double_conv.3`, ...).
+`conv.double_conv.3`, ...); the coarse-depth family's copies of the same
+blocks name them `conv` and `pool_conv` (the `inner` / `pool` arguments).
 """
 
 from __future__ import annotations
@@ -45,13 +46,16 @@ def normal_init(std: float = 0.02) -> Callable[[torch.Tensor, Optional[torch.Gen
     return init
 
 
-def kaiming_init() -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
+def kaiming_init(transposed: bool = False
+                 ) -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
     """torch `kaiming_normal_(mode="fan_out", nonlinearity="relu")`, which is
     flax `variance_scaling(2.0, "fan_out", "normal")`: N(0, 2 / fan_out) with
-    fan_out = out_channels x receptive field, drawn like `normal_init`."""
+    fan_out = out_channels x receptive field, drawn like `normal_init`.
+    `transposed`: a ConvTranspose2d weight [I, O, kh, kw], whose output
+    channels are its second axis (flax's fan_out of a ConvTranspose)."""
 
     def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
-        fan_out = t.shape[0] * math.prod(t.shape[2:])
+        fan_out = t.shape[1 if transposed else 0] * math.prod(t.shape[2:])
         normal_init(math.sqrt(2.0 / fan_out))(t, generator)
 
     return init
@@ -125,7 +129,8 @@ def remat(fn: Callable, *args):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (momentum 0.1, eps 1e-5, affine) that normalizes in at
-    least fp32 and casts the result back to the compute dtype.
+    least fp32 and casts the result back to the compute dtype. It also takes
+    [B, C] (BatchNorm1d's form, the legacy FCBlock's), with the same rules.
 
     In train mode it normalizes with the batch statistics and folds them,
     with torch's unbiased variance, into the running buffers in place and in
@@ -161,7 +166,8 @@ class BatchNorm(nn.BatchNorm2d):
     def _fold(self, xs: torch.Tensor) -> None:
         """running ← (1 − momentum)·running + momentum·batch, in the
         buffers' dtype (a compute dtype other than the buffers')."""
-        var, mean = torch.var_mean(xs, dim=(0, 2, 3), correction=1)
+        dims = (0,) + tuple(range(2, xs.dim()))
+        var, mean = torch.var_mean(xs, dim=dims, correction=1)
         for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
             buf.mul_(1.0 - self.momentum).add_(self.momentum * stat.to(buf.dtype))
 
@@ -234,30 +240,35 @@ class Conv2d(nn.Conv2d):
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 → BN → ReLU) × 2, no conv bias (base_residual_model.py:23-40)."""
+    """(conv3x3 → BN → ReLU) × 2, no conv bias (base_residual_model.py:23-40),
+    its Sequential named `inner`."""
 
     def __init__(self, in_ch: int, out_ch: int, mid_ch: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, inner: str = "double_conv"):
         super().__init__()
         mid = mid_ch or out_ch
-        self.double_conv = nn.Sequential(
+        self.inner = inner
+        setattr(self, inner, nn.Sequential(
             Conv2d(in_ch, mid, 3, bias=False, dtype=dtype), BatchNorm(mid, dtype), nn.ReLU(),
             Conv2d(mid, out_ch, 3, bias=False, dtype=dtype), BatchNorm(out_ch, dtype),
-            nn.ReLU())
+            nn.ReLU()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.double_conv(x)
+        return getattr(self, self.inner)(x)
 
 
 class Down(nn.Module):
-    """2×2 max-pool, then DoubleConv."""
+    """2×2 max-pool, then DoubleConv, in a Sequential named `pool`."""
 
-    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
+                 inner: str = "double_conv", pool: str = "maxpool_conv"):
         super().__init__()
-        self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(in_ch, out_ch, dtype=dtype))
+        self.pool = pool
+        setattr(self, pool, nn.Sequential(
+            nn.MaxPool2d(2), DoubleConv(in_ch, out_ch, dtype=dtype, inner=inner)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool_conv(x)
+        return getattr(self, self.pool)(x)
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
@@ -271,9 +282,10 @@ class UpBilinear(nn.Module):
     (the bilinear branch of Up, base_residual_model.py:57-80). `in_ch` is
     the channel count after the concat."""
 
-    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
+                 inner: str = "double_conv"):
         super().__init__()
-        self.conv = DoubleConv(in_ch, out_ch, in_ch // 2, dtype=dtype)
+        self.conv = DoubleConv(in_ch, out_ch, in_ch // 2, dtype=dtype, inner=inner)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = upsample2x_align_corners(x)

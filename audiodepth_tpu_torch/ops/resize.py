@@ -6,7 +6,8 @@ matrix products: out = Wh · x · Wwᵀ. The matrices are
 `_triangle_weight_mat` of the JAX package (torchvision `Resize` semantics:
 half-pixel centres, kernel support widened by in/out when downscaling,
 rows renormalised to sum 1), built here in float64 and cast to the input's
-dtype so the float64 mode stays float64.
+dtype so the float64 mode stays float64. `resize_bilinear_np` is the
+host's numpy float32 form, with the JAX package's float32 matrices.
 """
 
 from __future__ import annotations
@@ -54,3 +55,18 @@ def resize_nearest_cv2_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(out_h) * (in_h / out_h)).astype(np.int64), in_h - 1)
     xs = np.minimum(np.floor(np.arange(out_w) * (in_w / out_w)).astype(np.int64), in_w - 1)
     return x[..., ys, :][..., xs]
+
+
+@functools.lru_cache(maxsize=32)
+def _weight_mat_f32(in_size: int, out_size: int) -> np.ndarray:
+    return _triangle_weight_mat(in_size, out_size).astype(np.float32)
+
+
+def resize_bilinear_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """`resize_bilinear` on the host in numpy float32 (port of
+    `ops/resize.py::resize_bilinear_np`): the sparse-depth targets, which
+    the reference resizes with torchvision's antialiased bilinear Resize."""
+    wh = _weight_mat_f32(x.shape[-2], out_h)
+    ww = _weight_mat_f32(x.shape[-1], out_w)
+    y = np.einsum("oh,...hw->...ow", wh, x.astype(np.float32))
+    return np.einsum("pw,...ow->...op", ww, y)

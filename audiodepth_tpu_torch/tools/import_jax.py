@@ -3,8 +3,10 @@ state_dict, and reference `.pth` checkpoints → the port.
 
 The `*_state_dict_from_jax` functions run the JAX package's mapping specs
 (tools/import_torch.py `_spec_unet`, `_spec_binaural`, `_spec_base_residual`,
-`_spec_unet_cvae`, `_spec_rgb_depth` and `_spec_adabins`, in their
-flax→torch direction `_ExportBuilder`) on plain numpy arrays:
+`_spec_unet_cvae`, `_spec_rgb_depth`, `_spec_adabins` and the coarse
+family's `_spec_coarse_unet`, `_spec_coarse_lite`, `_spec_coarse_offset` and
+`_spec_dual_regression`, in their flax→torch direction `_ExportBuilder`) on
+plain numpy arrays:
 
     nn.Conv kernel            [kh,kw,I,O] -> Conv2d          [O,I,kh,kw]
     nn.ConvTranspose(SAME)    [kh,kw,I,O] -> ConvTranspose2d [I,O,kh,kw],
@@ -17,7 +19,11 @@ flax→torch direction `_ExportBuilder`) on plain numpy arrays:
 
 The cVAE's three BatchNorms that the reference registers and never runs
 have no JAX leaves; they are written at their init values (float32), as
-the JAX exporter writes them.
+the JAX exporter writes them. So is the coarse models' `bin_centers`
+buffer (the reference default linspace(0, 1, n)), which the JAX package
+passes as a forward argument; the port's task overwrites it with its own
+centers after every load. `load_torch_aux` reads the bins (and the epoch)
+a reference checkpoint wrapper carries beside its state_dict.
 
 Arrays keep their dtype, so float64 variables give a float64 state_dict.
 Every leaf must be consumed and every key produced once; drift raises.
@@ -108,21 +114,26 @@ class _Exporter:
     def raw(self, fpath: str, tkey: str):
         self._emit(tkey, self._take("params", fpath))
 
-    # the reference's DoubleConv / Down / Up blocks
-    def double_conv(self, fpath: str, tprefix: str):
-        self.conv(f"{fpath}/Conv_0", f"{tprefix}.double_conv.0", bias=False)
-        self.bn(f"{fpath}/BatchNorm_0/BatchNorm_0", f"{tprefix}.double_conv.1")
-        self.conv(f"{fpath}/Conv_1", f"{tprefix}.double_conv.3", bias=False)
-        self.bn(f"{fpath}/BatchNorm_1/BatchNorm_0", f"{tprefix}.double_conv.4")
+    def buffer(self, tkey: str, n: int):
+        self._emit(tkey, np.linspace(0.0, 1.0, n, dtype=np.float32))
 
-    def encoder(self, fpath: str, tprefix: str = ""):
+    # the reference's DoubleConv / Down / Up blocks; the coarse family spells
+    # their Sequentials `conv` / `pool_conv` (`inner` / `pool`)
+    def double_conv(self, fpath: str, tprefix: str, inner: str = "double_conv"):
+        self.conv(f"{fpath}/Conv_0", f"{tprefix}.{inner}.0", bias=False)
+        self.bn(f"{fpath}/BatchNorm_0/BatchNorm_0", f"{tprefix}.{inner}.1")
+        self.conv(f"{fpath}/Conv_1", f"{tprefix}.{inner}.3", bias=False)
+        self.bn(f"{fpath}/BatchNorm_1/BatchNorm_0", f"{tprefix}.{inner}.4")
+
+    def encoder(self, fpath: str, tprefix: str = "", inner: str = "double_conv",
+                pool: str = "maxpool_conv"):
         p = f"{tprefix}." if tprefix else ""
-        self.double_conv(f"{fpath}/DoubleConv_0", f"{p}inc")
+        self.double_conv(f"{fpath}/DoubleConv_0", f"{p}inc", inner)
         for i in range(4):
-            self.double_conv(f"{fpath}/Down_{i}/DoubleConv_0", f"{p}down{i + 1}.maxpool_conv.1")
+            self.double_conv(f"{fpath}/Down_{i}/DoubleConv_0", f"{p}down{i + 1}.{pool}.1", inner)
 
-    def up(self, fpath: str, tprefix: str):
-        self.double_conv(f"{fpath}/DoubleConv_0", f"{tprefix}.conv")
+    def up(self, fpath: str, tprefix: str, inner: str = "double_conv"):
+        self.double_conv(f"{fpath}/DoubleConv_0", f"{tprefix}.conv", inner)
 
     def finish(self) -> Dict[str, torch.Tensor]:
         leftover = sorted({(col, k) for col, tree in self.trees.items() for k in tree}
@@ -245,6 +256,61 @@ def adabins_state_dict_from_jax(params: Mapping, batch_stats: Mapping
         b.conv(f"{branch}/AdaBinsDecoder_0/Conv_0", f"{branch}_decoder.class_head", bias=True)
     b.conv("residual_head", "residual_head", bias=True)
     return b.finish()
+
+
+def coarse_state_dict_from_jax(params: Mapping, batch_stats: Mapping, model_type: str,
+                               n_bins: int = 128) -> Dict[str, torch.Tensor]:
+    """The port's coarse-depth model state_dict (`_spec_coarse_unet`,
+    `_spec_coarse_lite`, `_spec_coarse_offset`, `_spec_dual_regression`),
+    for model_type unet | lite | hybrid | dual_reg."""
+    b = _Exporter(params, batch_stats)
+    names = {"inner": "conv", "pool": "pool_conv"}
+    if model_type != "dual_reg":
+        b.buffer("bin_centers", n_bins)
+    if model_type == "unet":
+        b.encoder("SharedEncoder_0", **names)
+        for i in range(4):
+            b.up(f"_Decoder_0/UpBilinear_{i}", f"up{i + 1}", inner="conv")
+        b.conv("Conv_0", "outc", bias=True)
+    elif model_type == "lite":
+        for i in range(5):
+            b.conv(f"ConvDown_{i}/Conv_0", f"encoder.{3 * i}", bias=True)
+            b.bn(f"BatchNorm_{i}/BatchNorm_0", f"encoder.{3 * i + 1}")
+        for i in range(5):
+            b.convT(f"ConvUp_{i}/ConvTranspose_0", f"decoder.{3 * i}", bias=True)
+            b.bn(f"BatchNorm_{i + 5}/BatchNorm_0", f"decoder.{3 * i + 1}")
+        b.conv("Conv_0", "head", bias=True)
+    elif model_type in ("hybrid", "dual_reg"):
+        b.encoder("SharedEncoder_0", **names)
+        for i in range(4):
+            b.up(f"coarse_decoder/UpBilinear_{i}", f"coarse_up{i + 1}", inner="conv")
+        b.conv("coarse_head", "coarse_head", bias=True)
+        for i in range(4):
+            b.up(f"offset_decoder/UpBilinear_{i}", f"offset_up{i + 1}", inner="conv")
+        b.conv("offset_fusion/Conv_0", "offset_fusion.0", bias=True)
+        b.bn("offset_fusion/BatchNorm_0/BatchNorm_0", "offset_fusion.1")
+        b.conv("offset_fusion/Conv_1", "offset_fusion.3", bias=True)
+        b.bn("offset_fusion/BatchNorm_1/BatchNorm_0", "offset_fusion.4")
+        b.conv("offset_fusion/Conv_2", "offset_head", bias=True)
+    else:
+        raise ValueError(f"unknown coarse model_type {model_type!r}")
+    return b.finish()
+
+
+def load_torch_aux(path: str) -> Dict[str, object]:
+    """The payloads a reference checkpoint wrapper carries beside its
+    state_dict: the coarse training script's `bin_centers` / `bin_edges`
+    (train_coarse_depth.py:632-640) as numpy arrays, and its saved `epoch`
+    (the JAX package's `tools/import_torch.py::load_torch_aux`)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    aux: Dict[str, object] = {}
+    if isinstance(obj, dict):
+        for key in ("bin_centers", "bin_edges"):
+            if obj.get(key) is not None:
+                aux[key] = np.asarray(torch.as_tensor(obj[key]))
+        if isinstance(obj.get("epoch"), int):
+            aux["epoch"] = int(obj["epoch"])
+    return aux
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -57,6 +57,10 @@ class Task:
         self.model: Optional[torch.nn.Module] = None  # set by subclass
         self.generator: Optional[torch.Generator] = None  # set by tasks that draw
 
+    def restore_aux(self, aux) -> None:
+        """Adopt a checkpoint's aux payload before evaluating (the coarse
+        family's bins); nothing for the other families."""
+
     def begin_step(self, step: int) -> None:
         """Reseed the task's generator for train step `step` (the engine
         calls this before each step's loss)."""

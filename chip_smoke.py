@@ -121,8 +121,10 @@ non-zero:
              batch, one artifact row a sample;
   train_families  each of base_residual (warmup_epochs 1, so the second
              epoch runs detached), unet_cvae (unet_256, latent 128),
-             adabins_distillation (n_bins 128, the teacher frozen) and
-             rgb_depth through `cli/train.py`'s main at full width (base 64),
+             adabins_distillation (n_bins 128, the teacher frozen),
+             rgb_depth and the four coarse_depth variants (unet, lite,
+             hybrid, dual_reg; 128 sid bins, the batches' bins bucketized
+             on the host) through `cli/train.py`'s main at full width (base 64),
              256², bf16, batch 16, synthetic data (with images where the
              family reads them), 2 epochs of 2 steps, each validated,
              checkpoints in a temporary directory: every loss and grad_norm
@@ -137,9 +139,13 @@ non-zero:
              repeated batch (the loss must fall) with the peak memory, for
              the cVAE two eval forwards equal (its draw is reseeded), and a
              profile of one step (busy share, B1's share);
+  aux_centers  the coarse unet's best checkpoint with linear bins written
+             into its aux, served under the sid flags: the answer moves by
+             more than AUX_CHANGE_MIN and equals the task's own on the
+             linear centers within SERVED_TOL;
   f32_train_vs_cpu  the same rule for one float32 adabins_distillation step
              at full width (teacher included, the same dropout masks on
-             every device);
+             every device), and for one coarse hybrid step;
   corpus_images  the tree's camera PNGs (480×640): one batch with
              use_image="both" streamed to the card and one gathered by the
              device cache there, bit-equal to the host loader's, and the
@@ -149,6 +155,16 @@ non-zero:
              for one epoch with a location held out (B1 only for adabins);
   evaluate_eval_img  `cli/evaluate.py --eval_img` on the --eval_img
              checkpoint: its means equal the val record, no front end;
+  train_sparse  `tools/preprocess_sparse_depth.py --method downup_015` over
+             the tree (timed), then the coarse hybrid (base 64, 128 sid
+             bins, bf16, batch 16) trained on those targets for one epoch
+             with a location held out, streamed and with --device_cache:
+             B1 once per step, eval batch and detector forward, the bins on
+             the card equal to the host dataset's;
+  evaluate_sparse  `cli/evaluate.py` on that checkpoint (the dense val
+             ground truth): its means equal the engine's per-sample metrics
+             of the same split, reduced the CLI's way, within
+             SPARSE_EVAL_REL_TOL, B1 once per batch;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -1132,13 +1148,20 @@ def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
     tensors), and the card must be as close as the CPU: its global
     relative L2 error within F32_GRAD_FACTOR × the CPU's, and its worst
     tensor within F32_GRAD_FACTOR × the CPU's worst. A wrong kernel moves
-    the tensors it feeds by O(1) and fails both."""
+    the tensors it feeds by O(1) and fails both. `model_name` may name a
+    coarse_depth variant (coarse_depth/<model_type>), whose batch gets the
+    CLI's host bins."""
     from audiodepth_tpu_torch.data.batvision import make_dataset
     from audiodepth_tpu_torch.models import adabins
 
+    family, _, model_type = model_name.partition("/")
+
     def cfg_for(dtype):
-        return configs.load_config("synthetic", "train", model_name=model_name,
-                                   overrides={"mode.compute_dtype": dtype})
+        overrides = {"mode.compute_dtype": dtype}
+        if model_type:
+            overrides["model.model_type"] = model_type
+        return configs.load_config("synthetic", "train", model_name=family,
+                                   overrides=overrides)
 
     # AdaBins' dropout: the same keep masks on every device (audio's, then
     # rgb's, drawn on the CPU), so the three steps differ only in arithmetic
@@ -1171,6 +1194,10 @@ def _f32_train_vs_cpu(torch, np, models, model_name, cfg_for, make_dataset):
     image = {"with_image": True} if model_name in ("rgb_depth", "adabins_distillation") else {}
     batch = next(make_dataset(cfg_for("float32"), "train", num_samples=2, **image)
                  .batches(2, shuffle=False))
+    if cpu.cfg.model.name == "coarse_depth":
+        from audiodepth_tpu_torch.data.bins import add_bins_to_batch
+
+        batch = add_bins_to_batch(batch, cpu.bin_edges, cpu.max_depth, cpu.depth_norm)
 
     def step(task):
         t0 = time.perf_counter()
@@ -1471,11 +1498,22 @@ FAMILIES = {
                               "--n_bins", "128"]),
     "rgb_depth": ([], 17_262_977, NO_KERNEL, None),
 }
+# the coarse_depth variants at the preset's width: base 64, 128 sid bins
+COARSE_PARAMS = {"unet": 17_270_656, "lite": 14_042_560, "hybrid": 25_181_825,
+                 "dual_reg": 25_173_570}
+for _t, _n in COARSE_PARAMS.items():
+    _shape = ["--model_type", _t, "--base_channels", "64", "--n_bins", "128"]
+    # the variants share a model name: each its own experiment directory
+    FAMILIES[f"coarse_depth/{_t}"] = (_shape + ["--bin_strategy", "sid", "--experiment_name",
+                                                _t], _n, B1_ONCE,
+                                      ["--model", "coarse_depth", *_shape])
 FAMILY_SAMPLES, FAMILY_EPOCHS = 2 * TRAIN_BATCH, 2  # 2 epochs of 2 steps
 
 
 def _family_argv(family, extra=()):
-    return ["--dataset", "synthetic", "--model", family, "--compute_dtype", "bfloat16",
+    """`family` is a model name, or coarse_depth/<model_type>."""
+    return ["--dataset", "synthetic", "--model", family.split("/")[0],
+            "--compute_dtype", "bfloat16",
             "--batch_size", str(TRAIN_BATCH), "--num_samples", str(FAMILY_SAMPLES),
             "--epochs", str(FAMILY_EPOCHS), "--validation", "true", "--validation_iter", "1",
             "--seed", "0", "--saving_checkpoints", "1", *FAMILIES[family][0], *extra]
@@ -1499,7 +1537,8 @@ def _moved_checks(torch, task, before, buffers_before):
 
 
 def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
-    """One family through cli/train.py's main in-process at full width
+    """One family (a coarse_depth variant: coarse_depth/<model_type>)
+    through cli/train.py's main in-process at full width
     (its preset: base 64, unet_256, n_bins 128), 256², bf16, batch 16,
     synthetic data (with images where it reads them), 2 epochs of 2 steps,
     each validated, checkpoints under `ckpt_root`. Every loss and grad_norm
@@ -1508,9 +1547,11 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
     eval batch and detector forward for the audio families and never for
     rgb_depth, B2 and B3 never. Then REPEATED_STEPS steps on one batch (the
     loss must fall), timed, with the peak memory, a profile of one step,
-    and for the audio families `serve` from the best checkpoint."""
+    and for the audio families `serve` from the best checkpoint (for the
+    coarse unet, also with linear bins written into its aux: `phase_aux_centers`)."""
     from audiodepth_tpu_torch.configs import experiment_name
     from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.bins import add_bins_to_batch
     from audiodepth_tpu_torch.data.codec import decode_batch
 
     extra, n_params, per, serve_flags = FAMILIES[family]
@@ -1567,11 +1608,17 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
               "p50_ms": res["p50_ms"], "served_vs_trained_max_abs": errs,
               "tol_rel": SERVED_TOL, "launches": s_launches, "expected_launches": s_expected})
         paths[f"serve {family} from its checkpoint"] = (s_launches, s_by_variant)
+        if family == "coarse_depth/unet":
+            emit(phase_aux_centers(torch, np, serve, eng, exp_dir, serve_flags))
 
     # one batch, repeated: the loss must fall; each step timed to its end
     image = {"with_image": True} if family in train_cli.IMAGE_MODELS else {}
-    batch = eng.encode(next(make_dataset(cfg, "train", num_samples=TRAIN_BATCH, **image)
-                            .batches(TRAIN_BATCH, shuffle=False)))
+    batch = next(make_dataset(cfg, "train", num_samples=TRAIN_BATCH, **image)
+                 .batches(TRAIN_BATCH, shuffle=False))
+    if cfg.model.name == "coarse_depth":  # the CLI's host bins
+        batch = add_bins_to_batch(batch, task.bin_edges, cfg.dataset.max_depth,
+                                  cfg.dataset.depth_norm)
+    batch = eng.encode(batch)
     torch.cuda.reset_peak_memory_stats()
     rep_losses, times = [], []
     for _ in range(REPEATED_STEPS):
@@ -1616,6 +1663,60 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
     del eng, state, seen, task
     torch.cuda.empty_cache()
     return paths
+
+
+AUX_CHANGE_MIN = 0.05   # served answer under linear vs sid centers, relative to max |sid answer|
+
+
+def phase_aux_centers(torch, np, serve, eng, exp_dir, flags):
+    """The coarse unet's best checkpoint with its aux centers rewritten to
+    linear bins, copied to a new experiment directory and served by
+    `serve.load_serving_state` under the same (sid) flags: the served answer
+    must move by more than AUX_CHANGE_MIN of its scale from the sid answer,
+    and equal the trained task's own forward on the linear centers within
+    SERVED_TOL (bins come from the checkpoint's aux, never the config)."""
+    from audiodepth_tpu_torch.ckpt import CheckpointManager
+    from audiodepth_tpu_torch.data.bins import compute_bin_edges
+
+    task, cfg = eng.task, eng.cfg
+    best = CheckpointManager(os.path.dirname(exp_dir), os.path.basename(exp_dir),
+                             create=False).best_epoch()
+    payload = torch.load(os.path.join(exp_dir, f"checkpoint_{best}.pth"), map_location="cpu",
+                         weights_only=True)
+    edges, centers = compute_bin_edges(task.n_bins, 0.1, task.max_depth, "linear")
+    payload["aux"] = {"bin_edges": torch.from_numpy(edges),
+                      "bin_centers": torch.from_numpy(centers)}
+    linear_dir = exp_dir + "_linear_aux"
+    os.makedirs(linear_dir)
+    torch.save(payload, os.path.join(linear_dir, f"checkpoint_{best}.pth"))
+    shutil.copy(os.path.join(exp_dir, "best.json"), linear_dir)
+    args = serve.build_parser().parse_args(
+        ["--checkpoint_path", linear_dir, "--use_best", "--device", str(task.device), *flags,
+         "--compute_dtype", cfg.mode.compute_dtype])
+    _, served, source = serve.load_serving_state(args)
+    assert np.array_equal(served.bin_centers, centers) and served.bin_mode == "sid"
+    wave = torch.from_numpy((np.random.default_rng(22).standard_normal((2, 2, 7782)) * 0.05)
+                            .astype(np.float32)).to(task.device)
+    saved_aux = task.checkpoint_aux()
+    task.model.load_state_dict(payload["state_dict"], strict=True)
+    sid = task.predict_meters({"waveform": wave}).float()
+    task.restore_aux(payload["aux"])
+    try:
+        direct = task.predict_meters({"waveform": wave}).float()
+    finally:
+        task.restore_aux(saved_aux)
+    got = served.predict_meters({"waveform": wave}).float()
+    scale = float(sid.abs().max())
+    changed = float((got - sid).abs().max())
+    err = float((got - direct).abs().max())
+    assert changed > AUX_CHANGE_MIN * scale, (changed, scale)
+    assert err <= SERVED_TOL * float(direct.abs().max()), (err, float(direct.abs().max()))
+    del served
+    return {"phase": "aux_centers", "model": "coarse_depth/unet", "checkpoint": source,
+            "served_vs_sid_max_abs": changed, "sid_max_abs": scale,
+            "min_change_rel": AUX_CHANGE_MIN, "served_vs_linear_task_max_abs": err,
+            "tol_rel": SERVED_TOL, "linear_centers_first_last": [float(centers[0]),
+                                                                 float(centers[-1])]}
 
 
 # ---------------------------------------------------------------------------
@@ -1675,7 +1776,8 @@ def write_corpus(np, root):
             for i in range(n):
                 name = f"{split}{i:03d}"
                 depth = rng.uniform(-500.0, 40_000.0, CORPUS_DEPTH_HW).astype(np.float32)
-                np.save(os.path.join(root, loc, "depth", f"{name}.npy"), depth)
+                # depth_*.npy: the names the sparse-depth preprocessor reads
+                np.save(os.path.join(root, loc, "depth", f"depth_{name}.npy"), depth)
                 pcm = np.clip(rng.normal(0.0, 3000.0, (2, CORPUS_WAVE_SAMPLES)),
                               -32768, 32767).astype(np.int16)
                 _write_wav(os.path.join(root, loc, "audio", f"{name}.wav"), pcm)
@@ -1683,7 +1785,8 @@ def write_corpus(np, root):
                 bgr = np.clip(255.0 * ramp * tint + cam_rng.normal(0.0, 12.0, (h, w, 3)), 0, 255)
                 assert cv2.imwrite(os.path.join(root, loc, "cam", f"{name}.png"),
                                    bgr.astype(np.uint8))
-                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{name}.npy,{loc}/cam,{name}.png")
+                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,depth_{name}.npy,"
+                             f"{loc}/cam,{name}.png")
             with open(os.path.join(root, loc, f"{split}.csv"), "w") as f:
                 f.write(header + "\n" + "\n".join(lines) + "\n")
     os.makedirs(os.path.join(root, "__pycache__"))
@@ -2128,6 +2231,126 @@ def phase_evaluate_eval_img(torch, np, evaluate_cli, kernels, root, work, eng):
     return launches, by_variant
 
 
+# the sparse-depth workflow on the fabricated tree: its preprocessor, the
+# hybrid trained on its targets (streamed and cached) and evaluated
+SPARSE_METHOD = "downup_015"
+SPARSE_ARGV = ["--dataset", "batvisionv2", "--model", "coarse_depth", "--model_type", "hybrid",
+               "--sparse_method", SPARSE_METHOD, "--holdout_locations", CORPUS_HOLDOUT,
+               "--no_visualize", "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+               "--epochs", "1", "--validation", "true", "--validation_iter", "1", "--seed", "0",
+               "--saving_checkpoints", "1"]
+SPARSE_EVAL_REL_TOL = 1.2e-7  # evaluate CLI means vs the engine's on the same split
+
+
+def phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli, kernels, root, work):
+    """The port's `tools/preprocess_sparse_depth.py --method downup_015` over
+    the tree (timed; one target per depth map), then cli/train.py's main
+    with --model coarse_depth --model_type hybrid --sparse_method downup_015
+    (base 64, 128 sid bins, 256², bf16, batch 16, 1 epoch, one location
+    held out: the sparse datasets have no holdout loader, as in the JAX
+    CLI), streamed and with --device_cache: finite losses and grad norms,
+    every parameter moved, B1 once per step, per eval batch and for the
+    detectors' forward, and the bins each step received on the card equal
+    to the host dataset's. Then `cli/evaluate.py` on the streamed run's best
+    checkpoint: it scores the val split's dense ground truth (the JAX
+    evaluate CLI reads no sparse targets), and its means equal those of the
+    trained engine's per-sample metrics of that split with the best
+    epoch's weights (reduced as the CLI reduces them) within
+    SPARSE_EVAL_REL_TOL, B1 once per batch."""
+    from audiodepth_tpu_torch.ckpt import CheckpointManager
+    from audiodepth_tpu_torch.configs import experiment_name
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.sparse_depth import BinnedSparseDepthDataset
+    from audiodepth_tpu_torch.tools import preprocess_sparse_depth as prep
+    from audiodepth_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    prep.main(["--dataset_dir", root, "--method", SPARSE_METHOD])
+    prep_s = time.perf_counter() - t0
+    folder = f"sparse_depth_{SPARSE_METHOD}"
+    n_maps = sum(sum(c) for _, *c in CORPUS_LOCATIONS)
+    written = sum(len(os.listdir(os.path.join(root, loc, folder))) for loc, *_ in CORPUS_LOCATIONS)
+    assert written == n_maps, (written, n_maps)
+    n_train = sum(c[1] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
+    n_val = sum(c[2] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
+    steps_per_epoch, eval_batches = n_train // TRAIN_BATCH, -(-n_val // TRAIN_BATCH)
+    expected = {"fused_mel_frontend": steps_per_epoch + eval_batches + 1,
+                "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0}
+    paths, runs = {}, {}
+    for name, extra in (("streamed", []), ("cached", ["--device_cache"])):
+        ckpt_dir = os.path.join(work, f"ck_sparse_{name}")
+        argv = SPARSE_ARGV + ["--dataset_dir", root, "--ckpt_dir", ckpt_dir] + extra
+        received = []
+        with spy(Engine, "train_step", lambda eng, state, batch, epoch=0.0: received.append(
+                batch["bins"].cpu().numpy())):
+            eng, state, steps, launches, by_variant, seen = _train_run(
+                torch, train_cli, kernels, argv)
+        task, cfg = seen["task"], seen["task"].cfg
+        assert task.model_type == "hybrid" and task.n_bins == 128 and task.bin_mode == "sid"
+        losses = [float(m["loss"]) for m in steps]
+        norms = [float(m["grad_norm"]) for m in steps]
+        assert len(steps) == steps_per_epoch and all(np.isfinite(losses + norms)), (losses, norms)
+        unmoved = [n for n, p in task.model.named_parameters()
+                   if torch.equal(p.detach(), seen["before"][n])]
+        assert not unmoved, f"sparse {name}: parameters that did not move: {unmoved[:8]}"
+        assert launches == expected, f"sparse {name}: launches {launches}, expected {expected}"
+        (record,) = eng.history
+        assert "holdout" not in record and all(np.isfinite(v) for v in record["val"].values())
+        host = BinnedSparseDepthDataset(cfg, cfg.dataset.annotation_file_train,
+                                        sparse_depth_method=SPARSE_METHOD,
+                                        location_blacklist=[CORPUS_HOLDOUT],
+                                        n_bins=task.n_bins, bin_mode=task.bin_mode)
+        want = [b["bins"] for b in host.batches(TRAIN_BATCH, seed=2)]  # epoch 1's seed
+        assert len(received) == len(want) == steps_per_epoch
+        for got, w in zip(received, want):
+            assert got.dtype == np.int32 and np.array_equal(got, w), f"sparse {name}: bins"
+        runs[name] = (eng, ckpt_dir, experiment_name(cfg, f"holdout_{CORPUS_HOLDOUT}"))
+        paths[f"train coarse_depth/hybrid sparse {name}"] = (launches, by_variant)
+        emit({"phase": "train_sparse", "run": name, "flags": argv, "preprocess_s": prep_s,
+              "sparse_targets": written, "steps": len(steps), "losses": losses,
+              "grad_norms": norms, "launches": launches, "expected_launches": expected,
+              "bins_equal_host": True, "epoch_record": record, "main_wall_s": seen["wall"]})
+        del state, seen
+    eng, ckpt_dir, exp = runs["streamed"]
+    del runs
+    torch.cuda.empty_cache()
+    mgr = CheckpointManager(ckpt_dir, exp, create=False)
+    best = mgr.best_epoch()
+    sd, _, _ = mgr.restore_eval(epoch="best")
+    eng.task.model.load_state_dict(sd, strict=True)
+    per_sample = {}
+    for batch in make_dataset(eng.task.cfg, "val").batches(TRAIN_BATCH, shuffle=False,
+                                                          drop_last=False):
+        for k, v in eng.eval_step(None, batch).items():
+            per_sample.setdefault(k, []).append(v.cpu().numpy())
+    # the CLI's reduction: the float32 mean of the concatenated samples
+    want = {k: float(np.concatenate(v).mean()) for k, v in per_sample.items()}
+    argv = ["--dataset", "batvisionv2", "--dataset_dir", root, "--model", "coarse_depth",
+            "--model_type", "hybrid", "--checkpoint_path", os.path.join(ckpt_dir, exp),
+            "--use_best", "--eval_on", "val", "--stat_dir", os.path.join(work, "eval_sparse"),
+            "--batch_size", str(TRAIN_BATCH), "--compute_dtype", "bfloat16"]
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    means = evaluate_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_variant = read_launches(kernels)
+    n_dense = sum(c[2] for c in CORPUS_LOCATIONS)
+    e_expected = {"fused_mel_frontend": -(-n_dense // TRAIN_BATCH),
+                  "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0}
+    assert launches == e_expected, f"evaluate sparse: launches {launches}, expected {e_expected}"
+    diffs = {k: abs(means[k] - want[k]) / max(abs(want[k]), 1e-12) for k in means}
+    assert all(d <= SPARSE_EVAL_REL_TOL for d in diffs.values()), (means, want)
+    emit({"phase": "evaluate_sparse", "flags": argv, "best_epoch": best, "seconds": seconds,
+          "means": means, "engine_evaluate": want, "rel_diff": diffs,
+          "tol_rel": SPARSE_EVAL_REL_TOL, "launches": launches, "expected_launches": e_expected,
+          "sparse_val_record": eng.history[best - 1]["val"]})
+    paths["evaluate coarse_depth/hybrid (sparse-trained)"] = (launches, by_variant)
+    del eng
+    torch.cuda.empty_cache()
+    return paths
+
+
 # the prefix of each wrapper's kernels in the ptxas report
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
@@ -2217,6 +2440,7 @@ def main() -> int:
     finally:
         shutil.rmtree(families_root, ignore_errors=True)
     phase_f32_train_vs_cpu(torch, np, configs, models, "adabins_distillation")
+    phase_f32_train_vs_cpu(torch, np, configs, models, "coarse_depth/hybrid")
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
         root = os.path.join(work, "BatvisionV2")
@@ -2239,6 +2463,8 @@ def main() -> int:
                     torch, np, evaluate_cli, KERNELS, root, work, eng_i)
             del eng_i, state_i
             torch.cuda.empty_cache()
+        launches.update(phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli,
+                                            KERNELS, root, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -235,8 +235,10 @@ def test_predict_meters_slice(slice_dtype):
     jtask = jax_make_task(jcfg)
     wave = np.random.default_rng(4).normal(scale=0.1, size=(2, 2, 7782)).astype(np.float32)
     variables = _randomize(_shapes(jtask.init, {"waveform": wave}), 5)
-    want = np.asarray(jtask.predict_meters(variables["params"], variables["batch_stats"],
-                                           {"waveform": wave}))
+    # jitted: op-by-op dispatch of the same graph takes 8x longer on the CPU
+    want = np.asarray(jax.jit(jtask.predict_meters)(variables["params"],
+                                                    variables["batch_stats"],
+                                                    {"waveform": wave}))
 
     task = make_task(load_config("batvisionv2", "test", model_name="binaural_attention",
                                  overrides=overrides), device="cpu")

@@ -31,10 +31,10 @@ against the JAX package, on the CPU.
 from __future__ import annotations
 
 import glob
+import importlib.abc
 import json
 import os
 import signal
-import subprocess
 import sys
 
 import jax
@@ -66,7 +66,6 @@ from audiodepth_tpu_torch.train.engine import Engine
 
 from tests.torch_bv_trees import write_bv2_tree
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # unet_128 (7 downs) at ngf 2 on 128² inputs, batch 2
 TINY = ["--device", "cpu", "--dataset", "batvisionv2", "--override", "model.generator=unet_128",
         "--override", "model.ngf=2", "--override", "dataset.images_size=128",
@@ -480,26 +479,24 @@ def test_train_cli_folds_the_reference_holdout_flags(flags, want):
         assert args.holdout_locations == want
 
 
-_BLOCK_MATPLOTLIB = r"""
-import importlib.abc, sys
-class Block(importlib.abc.MetaPathFinder):
+class _BlockMatplotlib(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] == "matplotlib":
             raise ImportError(f"blocked import of {name}")
-sys.meta_path.insert(0, Block())
-from audiodepth_tpu_torch.cli import train
-train.main(sys.argv[1:])
-"""
 
 
-def test_train_cli_exits_before_training_without_matplotlib(tree, tmp_path):
+def test_train_cli_exits_before_training_without_matplotlib(tree, tmp_path, monkeypatch,
+                                                            capsys):
+    """In this process, with matplotlib's import blocked and its loaded
+    modules out of sys.modules (the CLI's own import without matplotlib is
+    test_torch_package.py's)."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setattr(sys, "meta_path", [_BlockMatplotlib(), *sys.meta_path])
     flags = TINY + ["--dataset_dir", str(tree), "--epochs", "1",
                     "--log_dir", str(tmp_path / "logs")]
-    out = subprocess.run([sys.executable, "-c", _BLOCK_MATPLOTLIB, *flags], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "--no_visualize" in out.stderr
-    assert '"epoch"' not in out.stdout and not (tmp_path / "logs").exists()
-    ok = subprocess.run([sys.executable, "-c", _BLOCK_MATPLOTLIB, *flags, "--no_visualize"],
-                        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert ok.returncode == 0, ok.stderr
-    assert '"epoch": 1' in ok.stdout
+    with pytest.raises(SystemExit, match="--no_visualize"):
+        train_cli.main(flags)
+    assert '"epoch"' not in capsys.readouterr().out and not (tmp_path / "logs").exists()
+    train_cli.main(flags + ["--no_visualize"])
+    assert '"epoch": 1' in capsys.readouterr().out

@@ -5,8 +5,10 @@
     "audiodepth_tpu" would also match the port), the training slice's
     modules among them;
   * the corpus path's modules (the loaders, the native decoder, prefetch,
-    the device cache, the metric sink and both CLIs) import with pandas,
-    OpenCV and matplotlib blocked as well: the card's machine may lack them;
+    the device cache, the metric sink, both CLIs, the sparse datasets and
+    the sparse-depth preprocessor, which imports OpenCV in its functions)
+    import with pandas, OpenCV and matplotlib blocked as well: the card's
+    machine may lack them;
   * an entry point called without device="cpu" raises here rather than
     running on the CPU;
   * the fused front end's wrapper sends a CPU tensor to the plain version
@@ -63,12 +65,14 @@ _TRAINING_SLICE = {
     "train.optim", "train.tasks", "train.tasks_extra", "ops.cuda.flash_attention",
     "ckpt", "cli.serve", "configs.config", "ops.cuda.fused_frontend",
     "models.base_residual", "models.unet_cvae", "models.rgb_depth", "models.adabins",
-    "losses.base_residual", "losses.distillation",
+    "losses.base_residual", "losses.distillation", "models.coarse_depth", "models.legacy",
+    "losses.coarse", "data.bins", "train.tasks_coarse", "tools.import_jax",
 }
 # the corpus path's modules
 _CORPUS_SLICE = {
     "data.batvision", "data.native_io", "data.prefetch", "data.device_cache", "obs",
-    "obs.logging", "obs.visualize", "cli.train", "cli.evaluate",
+    "obs.logging", "obs.visualize", "cli.train", "cli.evaluate", "data.sparse_depth",
+    "data.bins", "tools.preprocess_sparse_depth", "train.tasks_coarse", "models.coarse_depth",
 }
 
 
@@ -102,8 +106,13 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 
 
 def test_unported_family_names_its_roadmap_item():
-    cfg = load_config("batvisionv2", "test", model_name="coarse_depth")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Every family of the reference is ported: what make_task still refuses
+    is spline_depth, dead config in the reference, and unknown names."""
+    cfg = load_config("batvisionv2", "test", model_name="spline_depth")
+    with pytest.raises(NotImplementedError, match="dead config in the reference"):
+        make_task(cfg, device="cpu")
+    cfg = load_config("batvisionv2", "test", model_name="no_such_family")
+    with pytest.raises(NotImplementedError, match="'no_such_family' not registered"):
         make_task(cfg, device="cpu")
 
 
@@ -112,6 +121,7 @@ def test_unported_family_names_its_roadmap_item():
     ("unet_cvae", "UNetCVAETask", "UNetCVAE"),
     ("rgb_depth", "RGBDepthTask", "RGBDepthNet"),
     ("adabins_distillation", "AdaBinsDistillationTask", "AdaBinsDistillationModel"),
+    ("coarse_depth", "CoarseDepthTask", "CoarseDepthUNet"),
 ])
 def test_registry_builds_and_seeds_the_families(name, task_cls, model_cls):
     """Each family's task and model, on the CPU when asked for, seeded by

@@ -25,12 +25,13 @@ def write_wav(path, data, sr=44100):
 
 def write_bv2_tree(root, locations=("Hall", "Office"),
                    rows=(("train", 3),), depth_hw=(48, 64), wave_len=9000, seed=0,
-                   camera_hw=(48, 64)):
+                   camera_hw=(48, 64), depth_prefix=""):
     """A BV2 tree: per location, `audio/` WAVs, `depth/` .npy depth in mm
-    (values below 0 and above 30 m), `cam/` camera PNGs of camera_hw
-    (random BGR pixels, written by OpenCV), and one CSV per (split, row
-    count); plus a '__pycache__' and an 'X_unzipped' directory the scan
-    skips."""
+    (values below 0 and above 30 m) named {depth_prefix}{split}{i}.npy
+    (the sparse-depth preprocessor reads depth_*.npy), `cam/` camera PNGs of
+    camera_hw (random BGR pixels, written by OpenCV), and one CSV per
+    (split, row count); plus a '__pycache__' and an 'X_unzipped' directory
+    the scan skips."""
     import cv2
 
     rng = np.random.default_rng(seed)
@@ -45,12 +46,13 @@ def write_bv2_tree(root, locations=("Hall", "Office"),
             for i in range(n):
                 name = f"{split}{i}"
                 depth_mm = rng.uniform(-500, 40000, size=depth_hw).astype(np.float32)
-                np.save(d / "depth" / f"{name}.npy", depth_mm)
+                np.save(d / "depth" / f"{depth_prefix}{name}.npy", depth_mm)
                 write_wav(d / "audio" / f"{name}.wav",
                           rng.normal(0, 0.1, size=(2, wave_len)).astype(np.float32))
                 bgr = cam_rng.integers(0, 256, size=(*camera_hw, 3), dtype=np.uint8)
                 assert cv2.imwrite(str(d / "cam" / f"{name}.png"), bgr)
-                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{name}.npy,{loc}/cam,{name}.png")
+                lines.append(f"{loc}/audio,{name}.wav,{loc}/depth,{depth_prefix}{name}.npy,"
+                             f"{loc}/cam,{name}.png")
             (d / f"{split}.csv").write_text(BV2_HEADER + "\n" + "\n".join(lines) + "\n")
     (root / "__pycache__").mkdir()
     (root / "X_unzipped").mkdir()

@@ -1,5 +1,5 @@
 """Helpers of the per-family parity tests of the port against the JAX
-package (tests/test_torch_{base_residual,cvae,rgb_adabins,images}.py)."""
+package (tests/test_torch_{base_residual,cvae,rgb_adabins,images,coarse}.py)."""
 
 from __future__ import annotations
 
