@@ -8,8 +8,7 @@ Builds the config from the flags, the train and val splits (BatVision V2 or
 V1 from --dataset_dir, or the synthetic corpus), the task on --device
 (default cuda; it raises without a card) with a seeded init, and the
 Engine, then runs `Engine.fit` and prints one JSON line per epoch with its
-record. Flags of parts that are not ported yet exit with the ROADMAP.md
-item that ports them.
+record. --num_devices > 1 (several devices, ROADMAP.md A8) is refused.
 
 Families: unet_baseline, binaural_attention, base_residual, unet_cvae,
 rgb_depth, adabins_distillation and coarse_depth (--model_type unet, lite,
@@ -34,7 +33,12 @@ val, and evaluates each on its own at every validation, from the full train
 split.
 
 Observability (`obs/`): the JAX fit's metric keys go to stdout and, with
---log_dir, to {log_dir}/{experiment}.jsonl (and wandb with --use_wandb);
+--log_dir, to {log_dir}/{experiment}.jsonl (and wandb with --use_wandb:
+--wandb_project, --wandb_entity and --wandb_mode pick the run, which is
+started before the config is built, so that a sweep's config overrides the
+matching flags; without wandb the run goes on without it);
+--profile_dir gets a torch.profiler chrome trace of the train steps of the
+first epoch after the first (`obs.ProfilerHook`);
 --log_dir also gets {experiment}_architecture.txt. The first validation
 batch is drawn to {results_dir or log_dir}/{experiment}/val_epoch<N>.png
 unless --no_visualize; a run given neither directory draws nothing. Where
@@ -67,8 +71,8 @@ TRAINED_MODELS = ("unet_baseline", "binaural_attention", "base_residual", "unet_
                   "rgb_depth", "adabins_distillation", "coarse_depth")
 # the families that read camera images
 IMAGE_MODELS = ("rgb_depth", "adabins_distillation")
-# flag → the ROADMAP.md item that ports what it needs
-_UNPORTED = {"profile_dir": "the profiler hook (ROADMAP.md A7)"}
+# flag → the ROADMAP.md item that ports what it needs (every flag is ported)
+_UNPORTED: dict = {}
 # family knobs that live in model.extra (the JAX CLI's names)
 _EXTRA_FLAGS = ("loss_type", "lambda_recon", "lambda_edge", "lambda_smooth", "remat",
                 "warmup_epochs", "use_adaptive_loss", "temperature", "recon", "lambda_base",
@@ -157,6 +161,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adabins feature-distillation weight (default 0.3)")
     p.add_argument("--lambda_bin", type=float, default=None,
                    help="adabins bin-distribution weight (default 0.2)")
+    p.add_argument("--freeze_rgb", action="store_true",
+                   help="accepted for reference-CLI compatibility; the RGB "
+                        "teacher is ALWAYS stop-gradient-frozen here, which "
+                        "is trajectory-identical to both reference settings "
+                        "(its teacher runs under no_grad either way and "
+                        "grad-less params are skipped by torch optimizers)")
     # the coarse family's weights (train_coarse_depth.py:148-186)
     p.add_argument("--ce_weight", type=float, default=None, help="coarse CE weight (default 1.0)")
     p.add_argument("--regression_weight", type=float, default=None,
@@ -220,11 +230,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--results_dir", default=None,
                    help="validation PNGs under RESULTS_DIR/<experiment> (default: --log_dir)")
     p.add_argument("--no_visualize", action="store_true")
-    p.add_argument("--use_wandb", action="store_true",
-                   help="also log to wandb (its WANDB_* variables pick project and mode)")
-    # parts not ported yet: accepted by the parser, refused by main
-    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--use_wandb", action="store_true")
+    p.add_argument("--wandb_project", default="batvision-depth-estimation",
+                   help="W&B project (train.py:124)")
+    p.add_argument("--wandb_entity", default=None,
+                   help="W&B entity/team (train.py:126)")
+    p.add_argument("--wandb_mode", default=None,
+                   choices=[None, "online", "offline", "disabled"],
+                   help="W&B logging mode (train.py:128)")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the first post-warm-up "
+                        "epoch to this directory")
     return p
+
+
+def _wandb_sweep(args) -> None:
+    """The reference's sweep integration (train.py:139-202): start the wandb
+    run early; the sweep config's values override the matching flags before
+    the config is built. Without wandb, training goes on without it."""
+    try:
+        import wandb
+
+        init_kwargs = {"project": args.wandb_project, "allow_val_change": True}
+        if args.wandb_entity:
+            init_kwargs["entity"] = args.wandb_entity
+        if args.wandb_mode:
+            init_kwargs["mode"] = args.wandb_mode
+        wandb.init(**init_kwargs)
+        for key, value in dict(wandb.config).items():
+            if hasattr(args, key) and value is not None:
+                setattr(args, key, value)
+                print(f"[sweep] override {key}={value}")
+    except Exception as e:  # wandb absent or offline: degrade
+        print(f"[train] wandb unavailable ({e}); continuing without")
 
 
 def _parse_override(spec: str):
@@ -330,9 +368,8 @@ def _refuse_unported(args) -> None:
         raise SystemExit("camera images (--eval_img, rgb_depth, adabins_distillation) are "
                          "not supported on batvisionv1 (no camera; train.py:322-323)")
     if args.model not in TRAINED_MODELS:
-        raise SystemExit(f"--model {args.model}: training is ported for "
-                         f"{', '.join(TRAINED_MODELS)} only (the other families are "
-                         "ROADMAP.md A5)")
+        raise SystemExit(f"--model {args.model}: not a family cli.train trains "
+                         f"({', '.join(TRAINED_MODELS)})")
     if (args.resume or args.checkpoints is not None) and not args.ckpt_dir:
         raise SystemExit("--resume/--checkpoints restore from --ckpt_dir, which is not given")
     if args.init_from_torch and (args.resume or args.checkpoints is not None):
@@ -458,6 +495,8 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     after the seeded init, before the first step; `on_step` goes to
     `Engine.fit`."""
     args = build_parser().parse_args(argv)
+    if args.use_wandb:
+        _wandb_sweep(args)
     fold_holdout_args(args)
     _refuse_unported(args)
     vis_dir = _vis_dir(args)
@@ -573,7 +612,8 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
                for loc, sub in held_out.items()} or None
 
     logger = MetricLogger(args.log_dir, exp, use_wandb=args.use_wandb,
-                          config=dataclasses.asdict(cfg))
+                          wandb_project=args.wandb_project, wandb_entity=args.wandb_entity,
+                          wandb_mode=args.wandb_mode, config=dataclasses.asdict(cfg))
     if args.log_dir:
         _write_architecture(os.path.join(args.log_dir, f"{exp}_architecture.txt"),
                             exp, cfg, task)
@@ -587,11 +627,17 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
                       "device_cache_bytes": cache_bytes, "log": logger.path,
                       "visualize": os.path.join(vis_dir, exp) if vis_dir else None,
                       "start_epoch": start_epoch}), flush=True)
+    profiler = None
+    if args.profile_dir:
+        from ..obs import ProfilerHook
+
+        profiler = ProfilerHook(args.profile_dir)
     try:
         state = eng.fit(state, train_batches, val_batches, start_epoch=start_epoch,
                         log=lambda rec: print(json.dumps(rec), flush=True), on_step=on_step,
                         ckpt_manager=mgr, best_tracker=BestTracker(args.best_metric),
-                        logger=logger, holdout_batches=holdout, vis_callback=vis_callback)
+                        logger=logger, holdout_batches=holdout, vis_callback=vis_callback,
+                        profiler=profiler)
     finally:
         logger.close()
     return eng, state

@@ -10,8 +10,9 @@ resize, on the device the waveform lies on. Sample semantics:
   * BV1: full waveform, STFT n_fft=512/win=64/hop=16, NO log/min-max.
 
 The float32 mel path (BV2's default) is the fused front end
-`ops/cuda/fused_frontend.py`: kernel B1 on a CUDA tensor, its plain version
-on a CPU tensor. The float64 mode (parity/debug) computes the same function
+`ops/cuda/fused_frontend.py`, called as the registered op
+`audiodepth::fused_mel_frontend` (so `torch.export` traces it): kernel B1
+on a CUDA tensor, its plain version on a CPU tensor. The float64 mode (parity/debug) computes the same function
 with plain tensor ops on either device, since B1 is float32 by definition.
 The plain-STFT path and the waveform passthrough are plain tensor ops.
 The JAX package's mesh-sharded STFT branch is not ported.
@@ -28,7 +29,7 @@ from typing import Callable
 import torch
 
 from ..configs import Config
-from ..ops.cuda.fused_frontend import fused_mel_frontend
+from ..ops.cuda.fused_frontend import fused_mel_frontend_op
 from ..ops.resize import resize_bilinear
 from ..ops.stft import log_minmax_per_channel, magnitude_stft, mel_spectrogram
 
@@ -62,7 +63,7 @@ def make_frontend(cfg: Config) -> Callable[[torch.Tensor], torch.Tensor]:
         if "spectrogram" not in fmt:
             return x  # waveform passthrough
         if "mel" in fmt and fdt == torch.float32:
-            spec = fused_mel_frontend(x, sample_rate=ds.sample_rate)  # the cut stays a view
+            spec = fused_mel_frontend_op(x, sample_rate=ds.sample_rate)  # the cut stays a view
         else:
             if "mel" in fmt:
                 spec = mel_spectrogram(x, n_fft=512, win_length=64, n_mels=32,

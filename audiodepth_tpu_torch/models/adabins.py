@@ -18,6 +18,13 @@ frozen, and the shared residual head gets its gradient through the audio
 branch alone. The bin predictor's dropout mask is drawn from the
 `generator` passed to `forward` (audio first, then rgb).
 
+With `remat` (the config's `model.extra.remat`, off by default as in the
+JAX package), a train-mode forward under grad keeps none of the student
+branch's activations and recomputes them in the backward (`layers.remat`:
+BatchNorm folds its statistics once). The student's keep mask is drawn
+before the recomputed region and passed into it, so the recomputation uses
+the same mask and the generator advances once, as without remat.
+
 Resizes of the logits and of the residual to `output_size`, where their
 size differs, take `jax.image.resize`'s "nearest" (half-pixel centres:
 torch's "nearest-exact"). Everything is NCHW, the output dict's tensors
@@ -35,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base_residual import SharedEncoder
-from .layers import Conv2d, UpBilinear, at_least_f32
+from .layers import Conv2d, UpBilinear, at_least_f32, remat
 
 DROPOUT = 0.1
 
@@ -52,12 +59,22 @@ class BinPredictor(nn.Module):
         self.predictor = nn.Sequential(nn.Linear(in_features, 256), nn.ReLU(),
                                        nn.Dropout(DROPOUT), nn.Linear(256, n_bins))
 
-    def forward(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def draw_keep(self, batch: int, generator: Optional[torch.Generator],
+                  device: torch.device) -> torch.Tensor:
+        """The train-mode keep mask of a batch, drawn as `forward` draws it."""
+        linear = self.predictor[0]
+        h = torch.empty((batch, linear.out_features), dtype=linear.weight.dtype, device=device)
+        return dropout_keep(h, generator)
+
+    def forward(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(centers, widths); in train mode the dropout keeps `keep`, else a
+        mask drawn from `generator`."""
         g = at_least_f32(feats.mean(dim=(2, 3)))
         h = F.relu(self.predictor[0](g))
         if self.training:
-            h = torch.where(dropout_keep(h, generator), h / (1.0 - DROPOUT), torch.zeros_like(h))
+            keep = dropout_keep(h, generator) if keep is None else keep
+            h = torch.where(keep, h / (1.0 - DROPOUT), torch.zeros_like(h))
         widths = torch.softmax(self.predictor[3](h), dim=1)
         edges = torch.cumsum(widths, dim=1)
         edges = torch.cat([torch.zeros_like(edges[:, :1]), edges], dim=1) * self.max_depth
@@ -96,10 +113,12 @@ class AdaBinsDecoder(nn.Module):
 
 class AdaBinsDistillationModel(nn.Module):
     def __init__(self, n_bins: int = 128, base_channels: int = 64, output_size: int = 256,
-                 max_depth: float = 30.0, dtype: torch.dtype = torch.float32):
+                 max_depth: float = 30.0, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.max_depth = float(max_depth)
         self.output_size = int(output_size)
+        self.remat = remat
         c = base_channels
         for branch, in_ch in (("audio", 2), ("rgb", 3)):
             setattr(self, f"{branch}_encoder", SharedEncoder(in_ch, c, dtype=dtype))
@@ -112,9 +131,10 @@ class AdaBinsDistillationModel(nn.Module):
         """The frozen teacher's parameters (the `rgb` branch)."""
         return [p for n, p in self.named_parameters() if n.startswith("rgb_")]
 
-    def _branch(self, name: str, x: torch.Tensor, generator) -> Dict[str, object]:
+    def _branch(self, name: str, x: torch.Tensor, generator,
+                keep: Optional[torch.Tensor] = None) -> Dict[str, object]:
         feats = getattr(self, f"{name}_encoder")(x)
-        centers, widths = getattr(self, f"{name}_bin_predictor")(feats["x5"], generator)
+        centers, widths = getattr(self, f"{name}_bin_predictor")(feats["x5"], generator, keep)
         logits, dec = getattr(self, f"{name}_decoder")(feats)
         probs = torch.softmax(logits, dim=1)
         base = torch.sum(probs * centers[:, :, None, None], dim=1, keepdim=True)
@@ -127,7 +147,12 @@ class AdaBinsDistillationModel(nn.Module):
 
     def forward(self, audio: torch.Tensor, rgb: Optional[torch.Tensor] = None,
                 mode: str = "train", generator: Optional[torch.Generator] = None):
-        out = {"audio": self._branch("audio", audio, generator), "rgb": None}
+        if self.remat and self.training and torch.is_grad_enabled():
+            keep = self.audio_bin_predictor.draw_keep(audio.shape[0], generator, audio.device)
+            student = remat(lambda x, k: self._branch("audio", x, None, k), audio, keep)
+        else:
+            student = self._branch("audio", audio, generator)
+        out = {"audio": student, "rgb": None}
         if mode == "train" and rgb is not None:
             with torch.no_grad():
                 out["rgb"] = self._branch("rgb", rgb, generator)

@@ -42,15 +42,19 @@ class VAEBottleneck(nn.Module):
         self.fc_dec = nn.Linear(latent_dim, features)
 
     def forward(self, h: torch.Tensor, sample: bool = True,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(recon, kl); with `sample`, eps is drawn from `generator` unless
+        given (the exported inference graph gives its eps)."""
         b, c, hh, ww = h.shape
         # flattened in NHWC order, the JAX package's
         flat = at_least_f32(h.permute(0, 2, 3, 1).reshape(b, -1))
         mu = self.fc_mu(flat)
         logvar = self.fc_logvar(flat)
         if sample:
-            eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                                  device=mu.device)
             z = mu + eps * torch.exp(0.5 * logvar)
         else:
             z = mu  # the posterior mean (parity tests)

@@ -1,11 +1,11 @@
-"""Metric sink: stdout, JSONL and optionally wandb, plus throughput
-counters (port of `obs/logging.py`).
+"""Metric sink: stdout, JSONL and optionally wandb, throughput counters
+and the profiler hook (port of `obs/logging.py`).
 
 Each record is printed as one `[experiment] key=value ...` line and, with a
 log directory, appended to `{log_dir}/{experiment}.jsonl` as one JSON object
 holding `step` and the record's keys. wandb is imported only when asked
-for, and a run without it degrades to stdout and JSONL. The JAX package's
-`jax.profiler` hook waits for the port's profiler (ROADMAP.md A7).
+for, and a run without it degrades to stdout and JSONL. `ProfilerHook`
+traces a window of steps with `torch.profiler` into a chrome trace.
 """
 
 from __future__ import annotations
@@ -120,3 +120,60 @@ class Timer:
             "samples_per_sec": samples / max(seconds, 1e-9),
             "pairs_per_sec_per_chip": samples / max(seconds, 1e-9) / max(chips, 1),
         }
+
+
+PRIMER_KERNELS = 16
+
+
+def prime_trace(device) -> None:
+    """PRIMER_KERNELS tiny kernels on a card, waited for: a trace may lose the
+    records of the kernels launched right after the profiler starts (on the
+    H100, 2 to 9 of 10 B1 and B2 launches issued right after it started),
+    so what is traced starts after these."""
+    import torch
+
+    x = torch.zeros(1, device=device)
+    for _ in range(PRIMER_KERNELS):
+        x.add_(1)
+    torch.cuda.synchronize(device)
+
+
+class ProfilerHook:
+    """`torch.profiler` trace around a window of steps (the JAX package's
+    `jax.profiler` hook): `start(name)` traces the CPU activity and, where a
+    card is present, the CUDA activity (after `prime_trace`); `stop` waits
+    for the card, ends the trace and writes it to
+    `{log_dir}/{name}.pt.trace.json` (`path`). `stop` without an active
+    trace does nothing."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path: Optional[str] = None
+        self._prof = None
+        self._name = None
+
+    def start(self, name: str = "trace") -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._name = name
+        self._prof.start()
+        if torch.cuda.is_available():
+            prime_trace("cuda")
+
+    def stop(self) -> None:
+        if self._prof is None:
+            return
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(self.log_dir, f"{self._name}.pt.trace.json")
+        prof.export_chrome_trace(self.path)

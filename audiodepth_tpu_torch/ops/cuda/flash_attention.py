@@ -10,9 +10,12 @@ B3), their plain PyTorch versions, and the autograd Function that joins them
 q [B, N, Dk], k [B, M, Dk], v [B, M, Dv].
 
 `cross_attention` is the dispatch the model calls: every call goes through
-`FlashCrossAttentionFn`, whose forward is B2 and whose backward is B3 on a
-CUDA tensor, and the two plain versions on a CPU tensor. On a CUDA tensor a
-wrapper launches its kernel or raises; nothing falls back. The JAX package
+the registered op `audiodepth::flash_cross_attention_fwd`, whose backward
+(`register_autograd`) is the op `audiodepth::flash_cross_attention_bwd`.
+Their CUDA implementations are the wrappers (B2, B3, counted), their CPU
+implementations the plain versions, and their fakes give the shapes without
+touching the library, so `torch.export` traces the model. On a CUDA tensor
+a wrapper launches its kernel or raises; nothing falls back. The JAX package
 sent N, M ≤ 256 to XLA because of the TPU's per-grid-step overhead, which
 has no counterpart here, so the kernels take every shape.
 
@@ -428,22 +431,78 @@ flash_cross_attention = FlashCrossAttention()
 flash_cross_attention_bwd = FlashCrossAttentionBwd()
 
 
-class FlashCrossAttentionFn(torch.autograd.Function):
-    """o = softmax(q·kᵀ·scale)·v with B2 forward and B3 backward on the card
-    (the plain versions on the CPU). Saves q, k, v, o and lse."""
+# ---- the registered ops ---------------------------------------------------------
+
+
+@torch.library.custom_op("audiodepth::flash_cross_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_cross_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2 as a PyTorch op: (o, lse); on CUDA tensors, the kernel through
+    `flash_cross_attention`."""
+    return flash_cross_attention(q, k, v, scale)
+
+
+@flash_cross_attention_fwd_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, scale):
+    _check_qkv(q, k, v)
+    return flash_cross_attention_fwd_plain(q, k, v, scale)
+
+
+@flash_cross_attention_fwd_op.register_fake
+def _fwd_fake(q, k, v, scale):
+    b, n, _, _, dv = _check_qkv(q, k, v)
+    return (q.new_empty((b, n, dv), dtype=v.dtype),
+            q.new_empty((b, n, 1), dtype=torch.promote_types(q.dtype, torch.float32)))
+
+
+@torch.library.custom_op("audiodepth::flash_cross_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_cross_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                 scale: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B3 as a PyTorch op: (dq, dk, dv); on CUDA tensors, the kernel through
+    `flash_cross_attention_bwd`."""
+    return flash_cross_attention_bwd(q, k, v, o, lse, do, scale)
+
+
+@flash_cross_attention_bwd_op.register_kernel("cpu")
+def _bwd_cpu(q, k, v, o, lse, do, scale):
+    return flash_cross_attention_bwd(q, k, v, o, lse, do, scale)  # checks, then plain
+
+
+@flash_cross_attention_bwd_op.register_fake
+def _bwd_fake(q, k, v, o, lse, do, scale):
+    _check_qkv(q, k, v)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_cross_attention_bwd_op(q, k, v, o, lse, do, ctx.scale)
+    return dq, dk, dv, None
+
+
+flash_cross_attention_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+class FlashCrossAttentionFn:
+    """o = softmax(q·kᵀ·scale)·v through the registered ops: B2 forward and
+    B3 backward on the card (the plain versions on the CPU). The forward
+    saves q, k, v, o and lse for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_cross_attention(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_cross_attention_bwd(q, k, v, o, lse, do, ctx.scale)
-        return dq, dk, dv, None
+    def apply(q, k, v, scale):
+        return flash_cross_attention_fwd_op(q, k, v, scale)[0]
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -451,4 +510,4 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The model's attention: B2 forward and, under grad, B3 backward on the
     card (every shape; they raise on what they do not take), the plain
     versions on the CPU."""
-    return FlashCrossAttentionFn.apply(q, k, v, scale)
+    return flash_cross_attention_fwd_op(q, k, v, float(scale))[0]

@@ -20,6 +20,14 @@ order, then the bank's filters as (first bin, length, weights).
 
 The wrapper takes the plain version only for a tensor that lies on the CPU.
 A CUDA tensor goes to the kernel, or the wrapper raises.
+
+`audiodepth::fused_mel_frontend` is the same function as a registered
+PyTorch op, which the front end calls, so that `torch.export` can trace it:
+its CUDA implementation is the wrapper (the kernel, counted), its CPU
+implementation the plain version, and its fake gives the output's shape
+without touching the library or the card. The ops are registered when
+this module is imported; a saved `.pt2` that holds the op loads only after
+that import.
 """
 
 from __future__ import annotations
@@ -295,6 +303,18 @@ def _two_pass_plan(bc: int, t_frames: int, n_sm: int, max_active_clusters: Mappi
 # ---- the wrapper ----------------------------------------------------------------
 
 
+def check_waveform(waveform: torch.Tensor, n_fft: int) -> Tuple[int, int, int]:
+    """(B, C, L) of a float32 [B, C, L] waveform long enough to reflect-pad."""
+    if waveform.dim() != 3:
+        raise ValueError(f"waveform must be [B, C, L], got {tuple(waveform.shape)}")
+    if waveform.dtype != torch.float32:
+        raise TypeError(f"waveform must be float32, got {waveform.dtype}")
+    b, c, length = waveform.shape
+    if length <= n_fft // 2:
+        raise ValueError(f"reflect padding of {n_fft // 2} needs L > {n_fft // 2}, got {length}")
+    return b, c, length
+
+
 def wave_strides(waveform: torch.Tensor) -> Tuple[int, int, int]:
     """(batch stride, channel stride, C) in elements of a [B, C, L] waveform
     whose last axis is contiguous (any row strides: a time-of-flight cut
@@ -328,13 +348,7 @@ class FusedMelFrontend:
                  win_length: int = 64, hop_length: int = 32, n_mels: int = 32,
                  sample_rate: int = 44100, f_min: float = 20.0,
                  f_max: float = 20000.0) -> torch.Tensor:
-        if waveform.dim() != 3:
-            raise ValueError(f"waveform must be [B, C, L], got {tuple(waveform.shape)}")
-        if waveform.dtype != torch.float32:
-            raise TypeError(f"waveform must be float32, got {waveform.dtype}")
-        b, c, length = waveform.shape
-        if length <= n_fft // 2:
-            raise ValueError(f"reflect padding of {n_fft // 2} needs L > {n_fft // 2}, got {length}")
+        b, c, length = check_waveform(waveform, n_fft)
         if waveform.device.type == "cpu":
             return fused_mel_frontend_plain(waveform, n_fft, win_length, hop_length,
                                             n_mels, sample_rate, f_min, f_max)
@@ -419,3 +433,31 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 fused_mel_frontend = FusedMelFrontend()
+
+
+# ---- the registered op ----------------------------------------------------------
+
+
+@torch.library.custom_op("audiodepth::fused_mel_frontend", mutates_args=(), device_types="cuda")
+def fused_mel_frontend_op(waveform: torch.Tensor, n_fft: int = 512, win_length: int = 64,
+                          hop_length: int = 32, n_mels: int = 32, sample_rate: int = 44100,
+                          f_min: float = 20.0, f_max: float = 20000.0) -> torch.Tensor:
+    """B1 as a PyTorch op; on a CUDA tensor, the kernel through `fused_mel_frontend`."""
+    return fused_mel_frontend(waveform, n_fft, win_length, hop_length, n_mels, sample_rate,
+                              f_min, f_max)
+
+
+@fused_mel_frontend_op.register_kernel("cpu")
+def _fused_mel_frontend_cpu(waveform, n_fft=512, win_length=64, hop_length=32, n_mels=32,
+                            sample_rate=44100, f_min=20.0, f_max=20000.0):
+    check_waveform(waveform, n_fft)
+    # contiguous, as the kernel writes it (the fake's strides)
+    return fused_mel_frontend_plain(waveform, n_fft, win_length, hop_length, n_mels,
+                                    sample_rate, f_min, f_max).contiguous()
+
+
+@fused_mel_frontend_op.register_fake
+def _fused_mel_frontend_fake(waveform, n_fft=512, win_length=64, hop_length=32, n_mels=32,
+                             sample_rate=44100, f_min=20.0, f_max=20000.0):
+    b, c, length = check_waveform(waveform, n_fft)
+    return waveform.new_empty((b, c, n_mels, num_frames(length, hop_length)))

@@ -19,8 +19,9 @@ every `saving_checkpoints` epochs, at a new best validation metric, at the
 final epoch, and on SIGTERM (the last completed epoch). It evaluates the
 holdout loaders at each validation, logs the JAX fit's keys to a
 `obs.MetricLogger`, and runs the negative and stuck-at-zero detectors (and
-a visualization callback) on the first validation batch. Not ported yet:
-the profiler hook and meshes (ROADMAP.md A7, A8).
+a visualization callback) on the first validation batch, and with a
+profiler hook (`obs.ProfilerHook`) traces the train steps of one epoch. Not
+ported yet: meshes (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -216,7 +217,7 @@ class Engine:
             on_step: Optional[Callable[[TrainState, Dict[str, torch.Tensor]], None]] = None,
             ckpt_manager=None, best_tracker=None, logger=None,
             holdout_batches: Optional[Dict[str, Callable[[], Iterable]]] = None,
-            vis_callback=None) -> TrainState:
+            vis_callback=None, profiler=None) -> TrainState:
         """The epoch loop. Each epoch's record (appended to `self.history`
         and passed to `log`) holds the per-epoch means of the scalar aux, the
         last step's grad_norm, the lr the epoch started at, its time and
@@ -273,10 +274,13 @@ class Engine:
             return snap
 
         completed = snapshot() if installed else None
+        profile_epoch = min(start_epoch + 1, epochs) if profiler is not None else None
         try:
             for epoch in range(start_epoch, epochs + 1):
                 if preempt["sig"] is not None:
                     break
+                if epoch == profile_epoch:
+                    profiler.start(f"epoch_{epoch}")
                 t0 = time.perf_counter()
                 n_samples = n_steps = 0
                 sums: Dict[str, torch.Tensor] = {}
@@ -301,6 +305,9 @@ class Engine:
                 if "grad_norm" in last:
                     record["grad_norm"] = float(last["grad_norm"])
                 dt = time.perf_counter() - t0
+                if epoch == profile_epoch:
+                    profiler.stop()
+                    print(f"profiler trace for epoch {epoch}: {profiler.path}", flush=True)
                 record.update(lr=self.schedule((epoch - 1) * self.steps_per_epoch),
                               steps=n_steps, samples=n_samples, epoch_time=dt,
                               pairs_per_sec=n_samples / max(dt, 1e-9))
@@ -346,6 +353,8 @@ class Engine:
                 if log is not None:
                     log(record)
         finally:
+            if profiler is not None:
+                profiler.stop()  # a preemption inside the profiled epoch
             if installed:
                 signal.signal(signal.SIGTERM, old_handler or signal.SIG_DFL)
         if preempt["sig"] is not None:

@@ -241,9 +241,6 @@ class AdaBinsDistillationTask(Task):
     def __init__(self, cfg: Config, device: DeviceLike = None):
         super().__init__(cfg, device)
         extra = cfg.model.extra
-        if extra.get("remat"):
-            raise NotImplementedError("model.extra.remat is not ported for "
-                                      "adabins_distillation (ROADMAP.md A5)")
         self.adaptive = bool(extra.get("use_adaptive_loss", False))
         self.total_epochs = int(cfg.mode.epochs)
         self.temperature = float(extra.get("temperature", 4.0))
@@ -257,7 +254,10 @@ class AdaBinsDistillationTask(Task):
         self.model = _on(self, AdaBinsDistillationModel(
             n_bins=cfg.model.n_bins, base_channels=cfg.model.base_channels,
             output_size=cfg.dataset.images_size, max_depth=self.max_depth,
-            dtype=resolve_compute_dtype(cfg)))
+            dtype=resolve_compute_dtype(cfg),
+            # off by default, as in the JAX package: the student's activations
+            # recomputed in the backward (the teacher keeps none under no_grad)
+            remat=bool(extra.get("remat", False))))
         self.generator = torch.Generator(device=self.device)
 
     def trainable_parameters(self):

@@ -165,6 +165,33 @@ non-zero:
              ground truth): its means equal the engine's per-sample metrics
              of the same split, reduced the CLI's way, within
              SPARSE_EVAL_REL_TOL, B1 once per batch;
+  export     `tools/export.py` (torch.export, the kernels as the registered
+             ops audiodepth::fused_mel_frontend and
+             audiodepth::flash_cross_attention_fwd): the unet and the
+             binaural net (γ seeded) of the serve phase at batch 1 and 16,
+             and the coarse unet's checkpoint with linear bins in its aux
+             (aux_centers), each saved as a `.pt2`, then loaded and run in a
+             fresh `python3 -c` process that imports tools.export alone:
+             answers finite, in [0, 30] m and within SERVED_TOL of serve's
+             (of aux_centers' for the coarse one), B1 once a call, B2 four
+             times a binaural call, B3 never; export seconds, `.pt2` bytes,
+             the median ms of an exported call and of eager predict_meters;
+  profile_step  `tools/profile_step.py` in-process: the unet at batch 16 and
+             256 and the binaural net at 16, 8 traced steps each, its
+             report, and each hand-written kernel's launches in the trace
+             beside its counter (DROPPED where they differ); every profile
+             phase above reads its trace with the tool's `parse_trace`;
+  trace_probe  B1 (a cluster launch) and B2 10 times each under the
+             profiler as is, with a synchronize before it stops and with
+             its CUDA sync events: the trace's launches beside the counters;
+  profile_dir  `cli/train.py --profile_dir` for the unet, 2 epochs of 2
+             steps: one trace, epoch 2's, holding the step's kernels;
+  adabins_remat  adabins_distillation at full width, batch 16, with
+             model.extra.remat and without: bf16 step ms and peak memory of
+             each (lower with remat), and float32 gradients from the same
+             weights and seed within F32_GRAD_FACTOR of the card's
+             run-to-run floor;
+  verify_contracts  `tools/verify_contracts.py` on the card at base 64, 256²;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -812,12 +839,49 @@ def _post(port, wave):
         return resp.read(), shape
 
 
+def traced(torch, fn):
+    """Run `fn` under torch.profiler (CPU and CUDA activity) in one span,
+    after `obs.logging.prime_trace`, from a synchronised start to a synchronised
+    end; returns (the span's GPU events read by
+    `tools/profile_step.py::parse_trace`, the host wall in s, each
+    hand-written kernel's counter over the run)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from audiodepth_tpu_torch.ops.cuda import KERNELS
+    from audiodepth_tpu_torch.obs.logging import prime_trace
+    from audiodepth_tpu_torch.tools.profile_step import STEP_PREFIX, parse_trace
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime_trace("cuda")  # the trace loses the first records after it starts
+            before = {w.name: w.launches for w, _, _ in KERNELS}
+            t0 = time.perf_counter()
+            with record_function(f"{STEP_PREFIX}0"):
+                fn()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        trace = parse_trace(path, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counters = {w.name: w.launches - before[w.name] for w, _, _ in KERNELS}
+    return trace, wall, counters
+
+
+def hand_written(trace, counters):
+    """Each hand-written kernel's launches in the trace beside its counter."""
+    from audiodepth_tpu_torch.tools.profile_step import hand_written_rows
+
+    return {name: {"trace": seen, "counter": counted, "dropped": dropped}
+            for name, seen, counted, dropped in hand_written_rows(trace, counters)}
+
+
 def measure_profile(torch, np, runner, share_of=None):
     """Host wall and device time of one served batch at ladder sizes 1 and
-    16 (torch.profiler: kernel time summed over CUDA activities), and the
-    share of device time of the kernels whose name holds `share_of`."""
-    from torch.profiler import ProfilerActivity, profile
-
+    16 (GPU events of a torch.profiler trace summed by `parse_trace`), and
+    the share of device time of the kernels whose name holds `share_of`."""
     out = {"phase": "profile", "model": runner.cfg.model.name}
     for bs in (1, 16):
         waves = (np.random.default_rng(bs).standard_normal((bs, 2, runner.wave_len))
@@ -827,22 +891,16 @@ def measure_profile(torch, np, runner, share_of=None):
             t0 = time.perf_counter()
             runner.run(waves)
             walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                runner.run(waves)
-            wall = time.perf_counter() - t0
-        kernels = sorted(
-            ((e.self_device_time_total, e.key) for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
-            reverse=True)
-        device_us = sum(d for d, _ in kernels)
+        trace, wall, counters = traced(torch, lambda: [runner.run(waves) for _ in range(5)])
+        kernels = sorted(((d, k) for k, d in trace.per_kernel.items()), reverse=True)
+        device_us = trace.total_us
         row = {
             "wall_ms_median": statistics.median(walls) * 1e3,
             "device_ms_per_batch": device_us / 5 / 1e3 if device_us else "not measured",
             "device_busy_share": device_us / 1e6 / wall if device_us else "not measured",
             "n_kernel_names": len(kernels),
-            "top_us_per_batch": [[k[:60], d / 5] for d, k in kernels[:8]]}
+            "top_us_per_batch": [[k[:60], d / 5] for d, k in kernels[:8]],
+            "hand_written": hand_written(trace, counters)}
         if share_of:
             mine = sum(d for d, k in kernels if share_of in k)
             row[f"{share_of}_share"] = mine / device_us if device_us else "not measured"
@@ -1103,29 +1161,22 @@ def phase_train(torch, np, train_cli, kernels):
 
 def profile_train_step(torch, eng, state, batch, model="binaural_attention",
                        tags=("flash_fwd", "flash_bwd")):
-    """Host wall and device time of one bf16 train step (torch.profiler:
-    kernel time summed over CUDA activities), the top items, and the shares
-    of the kernels named by `tags` (B2: flash_fwd, B3: flash_bwd, B1:
-    fused_mel)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = sorted(
-        ((e.self_device_time_total, e.key) for e in prof.key_averages()
-         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
-        reverse=True)
-    device_us = sum(d for d, _ in kernels)
+    """Host wall and device time of one bf16 train step (GPU events of a
+    torch.profiler trace summed by `parse_trace`), the top items, the
+    shares of the kernels named by `tags` (B2: flash_fwd, B3: flash_bwd,
+    B1: fused_mel) and each hand-written kernel's launches in the trace
+    beside its counter."""
+    trace, wall, counters = traced(torch, lambda: eng.train_step(state, batch))
+    kernels = sorted(((d, k) for k, d in trace.per_kernel.items()), reverse=True)
+    device_us = trace.total_us
     row = {"phase": "profile", "model": model, "what": "one bf16 train step",
            "batch": TRAIN_BATCH, "wall_ms": wall * 1e3,
            "device_ms": device_us / 1e3 if device_us else "not measured",
            "device_busy_share": device_us / 1e6 / wall if device_us else "not measured",
+           "busy_union_share": trace.busy_us / 1e6 / wall if device_us else "not measured",
            "n_kernel_names": len(kernels),
-           "top_ms": [[k[:60], d / 1e3] for d, k in kernels[:12]]}
+           "top_ms": [[k[:60], d / 1e3] for d, k in kernels[:12]],
+           "hand_written": hand_written(trace, counters)}
     for tag in tags:
         mine = sum(d for d, k in kernels if tag in k)
         row[f"{tag}_ms"] = mine / 1e3
@@ -1536,7 +1587,7 @@ def _moved_checks(torch, task, before, buffers_before):
     return unmoved, no_grad, frozen, teacher_moved, buffers, still
 
 
-def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
+def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root, export=None):
     """One family (a coarse_depth variant: coarse_depth/<model_type>)
     through cli/train.py's main in-process at full width
     (its preset: base 64, unet_256, n_bins 128), 256², bf16, batch 16,
@@ -1548,7 +1599,9 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
     rgb_depth, B2 and B3 never. Then REPEATED_STEPS steps on one batch (the
     loss must fall), timed, with the peak memory, a profile of one step,
     and for the audio families `serve` from the best checkpoint (for the
-    coarse unet, also with linear bins written into its aux: `phase_aux_centers`)."""
+    coarse unet, also with linear bins written into its aux: `phase_aux_centers`,
+    whose checkpoint `tools/export.py` exports into `export` = (work
+    directory, list of jobs) for phase_export)."""
     from audiodepth_tpu_torch.configs import experiment_name
     from audiodepth_tpu_torch.data.batvision import make_dataset
     from audiodepth_tpu_torch.data.bins import add_bins_to_batch
@@ -1609,7 +1662,13 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root):
               "tol_rel": SERVED_TOL, "launches": s_launches, "expected_launches": s_expected})
         paths[f"serve {family} from its checkpoint"] = (s_launches, s_by_variant)
         if family == "coarse_depth/unet":
-            emit(phase_aux_centers(torch, np, serve, eng, exp_dir, serve_flags))
+            row_aux, linear_dir, waves, answer = phase_aux_centers(torch, np, serve, eng,
+                                                                   exp_dir, serve_flags)
+            emit(row_aux)
+            if export is not None:
+                work, jobs = export
+                jobs.append(export_coarse_job(torch, np, serve_flags, linear_dir, waves, answer,
+                                              work))
 
     # one batch, repeated: the loss must fall; each step timed to its end
     image = {"with_image": True} if family in train_cli.IMAGE_MODELS else {}
@@ -1674,7 +1733,9 @@ def phase_aux_centers(torch, np, serve, eng, exp_dir, flags):
     `serve.load_serving_state` under the same (sid) flags: the served answer
     must move by more than AUX_CHANGE_MIN of its scale from the sid answer,
     and equal the trained task's own forward on the linear centers within
-    SERVED_TOL (bins come from the checkpoint's aux, never the config)."""
+    SERVED_TOL (bins come from the checkpoint's aux, never the config).
+    Returns (row, the linear checkpoint's directory, the waveforms, the
+    served answer)."""
     from audiodepth_tpu_torch.ckpt import CheckpointManager
     from audiodepth_tpu_torch.data.bins import compute_bin_edges
 
@@ -1712,11 +1773,12 @@ def phase_aux_centers(torch, np, serve, eng, exp_dir, flags):
     assert changed > AUX_CHANGE_MIN * scale, (changed, scale)
     assert err <= SERVED_TOL * float(direct.abs().max()), (err, float(direct.abs().max()))
     del served
-    return {"phase": "aux_centers", "model": "coarse_depth/unet", "checkpoint": source,
-            "served_vs_sid_max_abs": changed, "sid_max_abs": scale,
-            "min_change_rel": AUX_CHANGE_MIN, "served_vs_linear_task_max_abs": err,
-            "tol_rel": SERVED_TOL, "linear_centers_first_last": [float(centers[0]),
-                                                                 float(centers[-1])]}
+    return ({"phase": "aux_centers", "model": "coarse_depth/unet", "checkpoint": source,
+             "served_vs_sid_max_abs": changed, "sid_max_abs": scale,
+             "min_change_rel": AUX_CHANGE_MIN, "served_vs_linear_task_max_abs": err,
+             "tol_rel": SERVED_TOL, "linear_centers_first_last": [float(centers[0]),
+                                                                  float(centers[-1])]},
+            linear_dir, wave.cpu().numpy(), got.cpu().numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -1891,35 +1953,6 @@ class spy:
         setattr(self.cls, self.name, self.orig)
 
 
-def _gpu_activity(trace_path):
-    """From a torch.profiler chrome trace: the GPU events (kernels, copies,
-    memsets) as (cat, name, stream, ts_us, dur_us, bytes)."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    out = []
-    for e in events:
-        cat = str(e.get("cat", "")).lower()
-        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        args = e.get("args", {})
-        out.append((cat, e.get("name", ""), args.get("stream"), float(e["ts"]),
-                    float(e["dur"]), args.get("bytes")))
-    return out
-
-
-def _busy_union_us(acts):
-    """Time the device had any kernel or copy running (intervals merged)."""
-    total, end = 0.0, None
-    for ts, dur in sorted((a[3], a[4]) for a in acts):
-        if end is None or ts > end:
-            total += dur
-            end = ts + dur
-        elif ts + dur > end:
-            total += ts + dur - end
-            end = ts + dur
-    return total
-
-
 def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
     """CORPUS_TIMED_EPOCHS epochs of train steps fed by `make_batches()`
     through `device_prefetch`, as `Engine.fit` feeds them: one warm-up
@@ -1927,8 +1960,6 @@ def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
     profiled pass: the device's busy share (kernels and copies, merged
     over streams) and, for host batches, where each batch copy ran (it
     must come from pinned memory on a stream no kernel of the step uses)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from audiodepth_tpu_torch.data.prefetch import device_prefetch
 
     def run():
@@ -1947,24 +1978,17 @@ def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
     wall = time.perf_counter() - t0
     steps = len(marks)
     intervals = [b - a for a, b in zip([t0] + marks[:-1], marks)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        run()
-        pwall = time.perf_counter() - t1
-    trace = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"), "trace.json")
-    prof.export_chrome_trace(trace)
-    acts = _gpu_activity(trace)
-    shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
-    kernel_streams = {a[2] for a in acts if a[0] == "kernel"}
-    copies = [a for a in acts if a[0] == "gpu_memcpy" and "HtoD" in a[1]
-              and a[5] in batch_bytes]
-    kernel_us = sum(a[4] for a in acts if a[0] == "kernel")
+    trace, pwall, _ = traced(torch, run)
+    acts = trace.activity
+    kernel_streams = {a.stream for a in acts if a.cat == "kernel"}
+    copies = [(a.cat, a.name, a.stream, a.ts, a.dur, a.bytes) for a in acts
+              if a.cat == "gpu_memcpy" and "HtoD" in a.name and a.bytes in batch_bytes]
+    kernel_us = sum(a.dur for a in acts if a.cat == "kernel")
     row = {"phase": "profile", "what": what, "steps": steps, "wall_ms": wall * 1e3,
            "step_ms": wall / steps * 1e3,
            "step_interval_ms_median": statistics.median(intervals) * 1e3,
            "profiled_wall_ms": pwall * 1e3, "kernel_ms": kernel_us / 1e3,
-           "device_busy_share": (_busy_union_us(acts) / 1e6 / pwall if acts
+           "device_busy_share": (trace.busy_us / 1e6 / pwall if acts
                                  else "not measured"),
            "kernel_busy_share": kernel_us / 1e6 / pwall if acts else "not measured",
            "batch_copies": [[name, stream, b] for _, name, stream, _, _, b in copies],
@@ -2351,6 +2375,403 @@ def phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli, kernels, ro
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the tools: the exported inference graph, the step profiler, --profile_dir,
+# AdaBins' remat and the feature-shape contract
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCHES = (1, 16)
+EXPORT_RUNS = 20  # timed calls of each exported program, and of eager predict_meters
+# the fresh process that loads and runs the saved programs: it imports
+# tools.export alone, whose load_exported registers the ops the graphs hold
+EXPORT_CHILD = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+from audiodepth_tpu_torch.tools import export as texport
+
+out = []
+for job in json.load(open(sys.argv[1])):
+    t0 = time.perf_counter()
+    module = texport.load_exported(job["pt2"]).module()
+    load_s = time.perf_counter() - t0
+    kernels = sys.modules["audiodepth_tpu_torch.ops.cuda"].KERNELS
+    for w, _, _ in kernels:
+        w.launches = 0
+        w.variant_launches.clear()
+    wave = torch.from_numpy(np.load(job["wave"])).cuda()
+    times = []
+    with torch.no_grad():
+        got = module(wave)
+        torch.cuda.synchronize()
+        first = {w.name: w.launches for w, _, _ in kernels}
+        for _ in range(job["runs"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            module(wave)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    np.save(job["got"], got.float().cpu().numpy())
+    out.append({"name": job["name"], "load_s": load_s, "first_call": first,
+                "calls": 1 + job["runs"], "launches": {w.name: w.launches for w, _, _ in kernels},
+                "by_variant": {w.name: dict(w.variant_launches) for w, _, _ in kernels},
+                "ms_median": statistics.median(times) * 1e3})
+print("EXPORT_CHILD " + json.dumps(out))
+"""
+
+
+def _eager_ms(torch, task, x, runs=EXPORT_RUNS):
+    """Median ms of one eager `predict_meters` call on a device batch."""
+    times = []
+    with torch.no_grad():
+        task.predict_meters({"waveform": x})
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            task.predict_meters({"waveform": x})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def export_job(torch, np, texport, cfg, task, batch, waves, want, per_call, work, name):
+    """Export `task` at `batch` into `work` (timed), save the waveform and
+    the answer the program must give; returns (the child's job, a row)."""
+    stem = os.path.join(work, name.replace(" ", "_").replace("/", "_"))
+    x = torch.from_numpy(waves).cuda()
+    eager_ms = _eager_ms(torch, task, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pt2 = texport.export_inference(cfg, task, batch, stem + ".pt2")
+    export_s = time.perf_counter() - t0
+    np.save(stem + "_wave.npy", waves)
+    np.save(stem + "_want.npy", want)
+    job = {"name": name, "pt2": pt2, "wave": stem + "_wave.npy", "want": stem + "_want.npy",
+           "got": stem + "_got.npy", "runs": EXPORT_RUNS, "per_call": per_call}
+    return job, {"name": name, "batch": batch, "export_s": export_s,
+                 "pt2_bytes": os.path.getsize(pt2), "eager_ms_median": eager_ms}
+
+
+def export_coarse_job(torch, np, serve_flags, linear_dir, waves, answer, work):
+    """`tools/export.py`'s CLI on the coarse unet's checkpoint whose aux
+    holds linear bins (phase_aux_centers): the graph must answer what
+    aux_centers served."""
+    from audiodepth_tpu_torch.tools import export as texport
+
+    wave_len = waves.shape[-1] + 256  # the export's length: the cut + 256
+    full = np.zeros(waves.shape[:-1] + (wave_len,), np.float32)
+    full[..., :waves.shape[-1]] = waves
+    name = "coarse_depth/unet linear aux"
+    stem = os.path.join(work, "coarse_unet_linear_aux")
+    t0 = time.perf_counter()
+    texport.main(["--device", "cuda", *serve_flags, "--ckpt_dir", os.path.dirname(linear_dir),
+                  "--experiment_name", os.path.basename(linear_dir), "--use_best",
+                  "--batch_size", str(waves.shape[0]), "--out", stem + ".pt2"])
+    export_s = time.perf_counter() - t0
+    np.save(stem + "_wave.npy", full)
+    np.save(stem + "_want.npy", np.clip(answer, 0.0, 30.0))
+    return {"name": name, "pt2": stem + ".pt2", "wave": stem + "_wave.npy",
+            "want": stem + "_want.npy", "got": stem + "_got.npy", "runs": EXPORT_RUNS,
+            "per_call": B1_ONCE,
+            "row": {"name": name, "batch": int(waves.shape[0]), "export_s": export_s,
+                    "pt2_bytes": os.path.getsize(stem + ".pt2")}}
+
+
+def phase_export(torch, np, serve, work, coarse_jobs):
+    """unet_baseline (unet_256, ngf 64) and binaural_attention (base 64,
+    levels 2-5, γ seeded) in bf16 at 256², random init from seed 0, each
+    exported at batch 1 and 16 by `tools/export.py` (timed, `.pt2` bytes),
+    with the coarse unet's linear-aux checkpoint from train_families; then
+    one fresh `python3 -c` process that imports tools.export alone loads
+    and runs every program: each answer finite, within [0, 30] m and within
+    SERVED_TOL of `serve`'s InferenceRunner on the same weights (of the
+    aux_centers answer for the coarse one); B1 once a call, B2 four times
+    a binaural call and never a unet call, B3 never; the median ms of one
+    exported call beside eager `predict_meters`'s."""
+    from audiodepth_tpu_torch.tools import export as texport
+
+    jobs, rows = [], {}
+    for path, spec in SERVE_PATHS.items():
+        args = serve.build_parser().parse_args(
+            ["--random_init", "--seed", "0", *spec["argv"], "--compute_dtype", "bfloat16"])
+        cfg, task, _ = serve.load_serving_state(args)
+        if path == "binaural_attention":
+            set_gammas(torch, np, task.model)
+        runner = serve.InferenceRunner(cfg, task, ladder=list(EXPORT_BATCHES))
+        try:
+            for b in EXPORT_BATCHES:
+                waves = (np.random.default_rng(30 + b).standard_normal(
+                    (b, 2, texport.wave_length(cfg))) * 0.05).astype(np.float32)
+                served = runner.run(np.ascontiguousarray(waves[..., :runner.wave_len]))
+                job, row = export_job(torch, np, texport, cfg, task, b, waves, served,
+                                      spec["per_batch"], work, f"{path} bs{b}")
+                jobs.append(job)
+                rows[job["name"]] = row
+        finally:
+            runner.close()
+        del task, runner
+        torch.cuda.empty_cache()
+    for job in coarse_jobs:
+        rows[job["name"]] = job.pop("row")
+        jobs.append(job)
+    spec_path = os.path.join(work, "jobs.json")
+    with open(spec_path, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", EXPORT_CHILD, spec_path],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    assert child.returncode == 0, child.stderr[-4000:]
+    line = next(ln for ln in child.stdout.splitlines() if ln.startswith("EXPORT_CHILD "))
+    results = {r["name"]: r for r in json.loads(line[len("EXPORT_CHILD "):])}
+    paths = {}
+    for job in jobs:
+        r, row = results[job["name"]], rows[job["name"]]
+        got, want = np.load(job["got"]), np.load(job["want"])
+        assert got.shape == want.shape and got.shape[1:] == (256, 256, 1), (got.shape, want.shape)
+        assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 30.0
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        assert err <= SERVED_TOL * scale, (job["name"], err, scale)
+        per_call = {k: v for k, v in job["per_call"].items()}
+        assert r["first_call"] == per_call, (job["name"], r["first_call"], per_call)
+        expected = {k: v * r["calls"] for k, v in per_call.items()}
+        assert r["launches"] == expected, (job["name"], r["launches"], expected)
+        assert r["launches"]["flash_cross_attention_bwd"] == 0
+        row.update(exported_ms_median=r["ms_median"], load_s=r["load_s"],
+                   launches=r["launches"], launches_per_call=r["first_call"],
+                   launches_by_variant=r["by_variant"], served_vs_exported_max_abs=err,
+                   served_max_abs=scale, tol_rel=SERVED_TOL)
+        emit({"phase": "export", **row})
+        paths[f"export {job['name']}"] = (r["launches"], r["by_variant"])
+    emit({"phase": "export", "fresh_process_s": child_s, "programs": len(jobs)})
+    return paths
+
+
+PROFILE_STEP_RUNS = (("unet_baseline", TRAIN_BATCH), ("unet_baseline", UNET_BIG_BATCH),
+                     ("binaural_attention", TRAIN_BATCH))
+PROFILE_STEPS = 8
+
+
+def phase_profile_step(torch, kernels):
+    """`tools/profile_step.py` in-process for the unet at batch 16 and 256
+    and the binaural net (base 64, levels 2-5, remat) at 16, 8 traced steps
+    each after 3 untraced: its report, and for each hand-written kernel the
+    trace's launches beside its counter (DROPPED where they differ)."""
+    from audiodepth_tpu_torch.tools import profile_step as ps
+
+    paths = {}
+    for model, batch in PROFILE_STEP_RUNS:
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        prof, counters = ps.main(["--model", model, "--batch_size", str(batch),
+                                  "--steps", str(PROFILE_STEPS)])
+        wall = time.perf_counter() - t0
+        launches, by_variant = read_launches(kernels)
+        per_step = PER_TRAIN_STEP if model == "binaural_attention" else UNET_PER_TRAIN_STEP
+        assert counters == {k: v * PROFILE_STEPS for k, v in per_step.items()}, counters
+        assert len(prof.per_step) == PROFILE_STEPS and min(prof.per_step) > 0, prof.per_step
+        rows = hand_written(prof, counters)
+        emit({"phase": "profile_step", "model": model, "batch": batch, "steps": PROFILE_STEPS,
+              "wall_s": wall, "gpu_ms_per_step": prof.total_us / 1e3 / PROFILE_STEPS,
+              "per_step_ms": [t / 1e3 for t in prof.per_step],
+              "busy_union_ms": prof.busy_us / 1e3, "window_ms": prof.window_us / 1e3,
+              "busy_share": prof.busy_us / prof.window_us if prof.window_us else None,
+              "categories_ms_per_step": {k: v / 1e3 / PROFILE_STEPS for k, v in
+                                         sorted(prof.per_category.items(), key=lambda kv: -kv[1])},
+              "hand_written": rows,
+              "dropped": sorted(k for k, v in rows.items() if v["dropped"])})
+        paths[f"profile_step {model} bs{batch}"] = (launches, by_variant)
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_trace_probe(torch, np, ff, fa):
+    """Which hand-written kernels' records the profiler keeps: 10 calls of
+    B1 (a cluster launch, cudaLaunchKernelEx) and of B2 (a plain launch) on
+    the train path's shapes, right after the profiler starts, traced four
+    ways: as is, with a synchronize before the trace stops, with the
+    profiler's CUDA sync events on, and after `prime_trace`."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    from audiodepth_tpu_torch.obs.logging import prime_trace
+    from audiodepth_tpu_torch.tools.profile_step import HAND_WRITTEN, parse_trace
+
+    wave = torch.from_numpy((np.random.default_rng(5).standard_normal((16, 2, 7782)) * 0.05)
+                            .astype(np.float32)).cuda()
+    q, k, v = (torch.randn((32, 256, d), device="cuda", dtype=torch.bfloat16)
+               for d in (64, 64, 512))
+    patterns = dict(HAND_WRITTEN)
+    rows = {}
+    for how in ("as is", "synchronize before stop", "cuda sync events", "after the primer"):
+        config = _ExperimentalConfig(enable_cuda_sync_events=True) if how == "cuda sync events" \
+            else None
+        before = (ff.fused_mel_frontend.launches, fa.flash_cross_attention.launches)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         experimental_config=config) as prof:
+                if how == "after the primer":
+                    prime_trace("cuda")
+                for _ in range(10):
+                    ff.fused_mel_frontend(wave)
+                    fa.flash_cross_attention(q, k, v, 0.125)
+                if how == "synchronize before stop":
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            trace = parse_trace(path, 1)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        counted = (ff.fused_mel_frontend.launches - before[0],
+                   fa.flash_cross_attention.launches - before[1])
+        rows[how] = {"B1 trace": trace.launches(patterns["fused_mel_frontend"]),
+                     "B1 counter": counted[0],
+                     "B2 trace": trace.launches(patterns["flash_cross_attention_fwd"]),
+                     "B2 counter": counted[1],
+                     "kernel names": sorted({a.name[:50] for a in trace.activity})[:12]}
+    emit({"phase": "trace_probe", "rows": rows})
+
+
+def phase_profile_dir(torch, train_cli, kernels):
+    """cli/train.py --profile_dir for the unet (2 epochs of 2 steps at 16,
+    no validation): one trace, epoch 2's, whose kernels `parse_trace` reads
+    (B1 and the convolutions among them) beside epoch 2's counters."""
+    from audiodepth_tpu_torch.tools import profile_step as ps
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_profile_dir_")
+    marks = {}
+
+    def on_step(state, metrics):
+        if state.step == 2:  # the end of epoch 1
+            marks["epoch1"] = {w.name: w.launches for w, _, _ in kernels}
+
+    try:
+        reset_launches(kernels)
+        argv = UNET_TRAIN_ARGV + ["--epochs", "2", "--num_samples", str(2 * TRAIN_BATCH),
+                                  "--validation", "false", "--profile_dir", out]
+        eng, state = train_cli.main(argv, on_step=on_step)
+        launches, by_variant = read_launches(kernels)
+        files = sorted(os.listdir(out))
+        assert files == ["epoch_2.pt.trace.json"], files
+        trace = ps.parse_trace(os.path.join(out, files[0]), 2)
+        counters = {k: launches[k] - marks["epoch1"][k] for k in launches}
+        print(ps.report(trace, 2, 12, counters), flush=True)
+        assert counters == {k: 2 * v for k, v in UNET_PER_TRAIN_STEP.items()}, counters
+        assert trace.per_category.get("convolution forward (cuDNN fprop)", 0) > 0, \
+            trace.per_category
+        emit({"phase": "profile_dir", "flags": argv, "files": files, "steps": state.step,
+              "gpu_ms_per_step": trace.total_us / 1e3 / 2, "n_gpu_events": len(trace.activity),
+              "hand_written": hand_written(trace, counters), "launches": launches})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return launches, by_variant
+
+
+REMAT_TIMED_STEPS = 3
+
+
+def phase_adabins_remat(torch, np, configs, models, kernels):
+    """adabins_distillation at full width (base 64, 128 bins, 256²) and
+    batch 16 with model.extra.remat: in bf16, REMAT_TIMED_STEPS timed train
+    steps with the student recomputed and without, with the peak memory of
+    each (lower with remat); in float32 (TF32 off), the gradients of one
+    loss from the same weights and generator seed with remat and without
+    (twice, for the card's run-to-run floor): the remat gradients within
+    F32_GRAD_FACTOR of that floor, in global relative L2."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.codec import decode_batch
+    from audiodepth_tpu_torch.train.engine import Engine
+
+    def setup(dtype):
+        cfg = configs.load_config("synthetic", "train", model_name="adabins_distillation",
+                                  overrides={"mode.batch_size": TRAIN_BATCH,
+                                             "mode.compute_dtype": dtype,
+                                             "model.extra.remat": True})
+        task = models.make_task(cfg, device="cuda")
+        assert task.model.remat and cfg.model.base_channels == 64 and cfg.model.n_bins == 128
+        models.init_weights(task.model, torch.Generator().manual_seed(0))
+        eng = Engine(cfg, task)
+        batch = eng.encode(next(make_dataset(cfg, "train", num_samples=TRAIN_BATCH,
+                                             with_image=True).batches(TRAIN_BATCH,
+                                                                      shuffle=False)))
+        return cfg, task, eng, batch
+
+    reset_launches(kernels)
+    cfg, task, eng, batch = setup("bfloat16")
+    state = eng.init_state()
+    timing = {}
+    for remat in (False, True, False, True):  # in turns
+        task.model.remat = remat
+        state, _ = eng.train_step(state, batch)  # warm: cuDNN's choices, AdamW's moments
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REMAT_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = eng.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        assert np.isfinite(float(m["loss"]))
+        timing.setdefault(remat, []).append({
+            "step_ms_median": statistics.median(times) * 1e3,
+            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    del state, eng, task
+    torch.cuda.empty_cache()
+
+    cfg, task, eng, batch = setup("float32")
+    dec = decode_batch(eng.put_batch(batch), eng._depth_units)
+
+    def grads(remat):
+        task.model.remat = remat
+        task.model.zero_grad(set_to_none=True)
+        task.begin_step(0)
+        loss, _ = task.loss_fn(dec, 0.0)
+        loss.backward()
+        named = {n: p.grad.detach().clone() for n, p in task.model.named_parameters()
+                 if p.grad is not None}
+        return float(loss), named
+
+    def rel_l2(a, b):
+        num = sum(float((a[n] - b[n]).double().pow(2).sum()) for n in b)
+        den = sum(float(b[n].double().pow(2).sum()) for n in b)
+        return (num / den) ** 0.5
+
+    loss_a, a = grads(False)
+    loss_a2, a2 = grads(False)
+    loss_b, b = grads(True)
+    launches, by_variant = read_launches(kernels)
+    floor, err = rel_l2(a2, a), rel_l2(b, a)
+    assert set(a) == set(b) and all(n.startswith(("audio_", "residual_")) for n in a), \
+        sorted(set(a) ^ set(b))[:4]
+    assert err <= F32_GRAD_FACTOR * floor + 1e-6, (err, floor)
+    peak = {r: max(t["peak_mem_mb"] for t in timing[r]) for r in timing}
+    assert peak[True] < peak[False], peak
+    steps = 2 * 2 * (1 + REMAT_TIMED_STEPS)
+    assert launches["fused_mel_frontend"] == steps + 3, launches
+    emit({"phase": "adabins_remat", "batch": TRAIN_BATCH, "timing_bf16": {
+          "remat": timing[True], "no_remat": timing[False]},
+          "peak_mem_mb": {"remat": peak[True], "no_remat": peak[False]},
+          "f32_loss": {"no_remat": [loss_a, loss_a2], "remat": loss_b},
+          "f32_grad_rel_l2": {"remat_vs_no_remat": err, "no_remat_repeat": floor},
+          "tol": f"{F32_GRAD_FACTOR} x floor + 1e-6", "launches": launches})
+    del task, eng
+    torch.cuda.empty_cache()
+    return launches, by_variant
+
+
+def phase_verify_contracts(torch):
+    """tools/verify_contracts.py on the card at base 64, 256²."""
+    from audiodepth_tpu_torch.tools import verify_contracts as vc
+
+    ok = vc.verify_compatibility(64, 256, verbose=True, device="cuda")
+    shapes = vc.contract_shapes(64, 256, device="cuda")
+    assert ok and all(a == b for a, b in shapes.values()), shapes
+    emit({"phase": "verify_contracts", "ok": ok, "shapes_nchw": shapes})
+
+
 # the prefix of each wrapper's kernels in the ptxas report
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
@@ -2433,14 +2854,28 @@ def main() -> int:
         launches[f"train binaural_attention base {base}"] = phase_train_widths(
             torch, np, train_cli, KERNELS, base)
     families_root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    export_work = tempfile.mkdtemp(prefix="chip_smoke_export_")
     try:
-        for family in FAMILIES:
-            launches.update(phase_train_family(torch, np, train_cli, serve, KERNELS, family,
-                                               families_root))
+        coarse_jobs = []
+        try:
+            for family in FAMILIES:
+                launches.update(phase_train_family(torch, np, train_cli, serve, KERNELS, family,
+                                                   families_root, (export_work, coarse_jobs)))
+        finally:
+            shutil.rmtree(families_root, ignore_errors=True)
+        phase_f32_train_vs_cpu(torch, np, configs, models, "adabins_distillation")
+        phase_f32_train_vs_cpu(torch, np, configs, models, "coarse_depth/hybrid")
+        assert len(coarse_jobs) == 1, coarse_jobs
+        launches.update(phase_export(torch, np, serve, export_work, coarse_jobs))
     finally:
-        shutil.rmtree(families_root, ignore_errors=True)
-    phase_f32_train_vs_cpu(torch, np, configs, models, "adabins_distillation")
-    phase_f32_train_vs_cpu(torch, np, configs, models, "coarse_depth/hybrid")
+        shutil.rmtree(export_work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches.update(phase_profile_step(torch, KERNELS))
+    phase_trace_probe(torch, np, ff, fa)
+    launches["train unet_baseline --profile_dir"] = phase_profile_dir(torch, train_cli, KERNELS)
+    launches["train adabins_distillation remat"] = phase_adabins_remat(torch, np, configs, models,
+                                                                      KERNELS)
+    phase_verify_contracts(torch)
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
         root = os.path.join(work, "BatvisionV2")

@@ -10,7 +10,8 @@
     import with pandas, OpenCV and matplotlib blocked as well: the card's
     machine may lack them;
   * an entry point called without device="cpu" raises here rather than
-    running on the CPU;
+    running on the CPU, the tools' CLIs (export, profile_step,
+    verify_contracts) among them;
   * the fused front end's wrapper sends a CPU tensor to the plain version
     and launches nothing;
   * the port's own copy of the config system gives the JAX package's
@@ -68,6 +69,9 @@ _TRAINING_SLICE = {
     "losses.base_residual", "losses.distillation", "models.coarse_depth", "models.legacy",
     "losses.coarse", "data.bins", "train.tasks_coarse", "tools.import_jax",
 }
+# the tools and the last family pieces
+_TOOLS_SLICE = {"tools.export", "tools.profile_step", "tools.verify_contracts", "obs.logging",
+                "obs.visualize", "models.adabins", "models.unet_cvae", "ops.cuda"}
 # the corpus path's modules
 _CORPUS_SLICE = {
     "data.batvision", "data.native_io", "data.prefetch", "data.device_cache", "obs",
@@ -81,8 +85,9 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     walked = {n.split(".", 1)[1] for n in out.stdout.split()}
-    assert len(walked) >= 45  # every module was walked
-    assert _TRAINING_SLICE | _CORPUS_SLICE <= walked, (_TRAINING_SLICE | _CORPUS_SLICE) - walked
+    assert len(walked) >= 48  # every module was walked
+    slices = _TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE
+    assert slices <= walked, slices - walked
 
 
 def test_corpus_path_imports_without_pandas_opencv_matplotlib():
@@ -103,6 +108,19 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError):
         make_task(cfg, device="cuda")
     assert make_task(cfg, device="cpu").device.type == "cpu"
+
+
+def test_tools_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from audiodepth_tpu_torch.tools import export, profile_step, verify_contracts
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_step.main(["--batch_size", "2", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.main(["--model", "unet_baseline"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        verify_contracts.main([])
 
 
 def test_unported_family_names_its_roadmap_item():

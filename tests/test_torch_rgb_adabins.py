@@ -33,7 +33,13 @@ adabins_distillation (twin AdaBins nets, frozen teacher):
   * `cli.train` trains two steps on paired audio and images; 2 epochs and
     a `--resume`d third equal 3 uninterrupted epochs bit for bit (the
     dropout draws are reseeded from the step; the optimizer state holds
-    the student alone).
+    the student alone);
+  * `model.extra.remat`: the loss, the gradients and the running
+    statistics of a train step with the student recomputed in the backward
+    equal those without, bit for bit in f64 (the keep mask is drawn from
+    the task's generator before the recomputed region, and BatchNorm folds
+    once); the statistics after one step equal JAX's `remat=True` step at
+    1e-10 and three AdamW steps agree at 2e-6.
 """
 
 from __future__ import annotations
@@ -472,3 +478,54 @@ def test_adabins_resume_equals_uninterrupted_bit_for_bit(tmp_path):
     a, b = resumed.optimizer.state_dict()["state"], full.optimizer.state_dict()["state"]
     assert a.keys() == b.keys() and len(a) == len(eng_full.task.trainable_parameters())
     assert all(torch.equal(a[i][k], b[i][k]) for i in a for k in a[i])
+
+
+def test_adabins_remat_equals_no_remat_bit_for_bit_f64():
+    """Drawn masks (no feeding): the generator must advance as without remat."""
+    cfg = load_config("synthetic", "train", model_name="adabins_distillation", overrides=F64)
+    batch = next(make_dataset(cfg, "train", num_samples=2, with_image=True)
+                 .batches(2, shuffle=False))
+    runs = {}
+    for remat in (False, True):
+        task = make_task(cfg, device="cpu")
+        task.model = _ada_port()
+        task.model.remat = remat
+        calls = []
+        task.model.audio_encoder.inc.register_forward_hook(lambda *a: calls.append(1))
+        eng = Engine(cfg, task)
+        state, m = eng.train_step(eng.init_state(), batch)
+        assert len(calls) == (2 if remat else 1)  # recomputed in the backward
+        runs[remat] = (m, task.model, task.generator.get_state())
+    (m0, model0, gen0), (m1, model1, gen1) = runs[False], runs[True]
+    assert m0["loss"].item() == m1["loss"].item()
+    assert m0["grad_norm"].item() == m1["grad_norm"].item()
+    assert torch.equal(gen0, gen1)
+    want = model0.state_dict()
+    for k, v in model1.state_dict().items():  # parameters after the step, statistics
+        assert torch.equal(v, want[k]), k
+
+
+def test_adabins_remat_trajectory_matches_jax_f64(f64, monkeypatch):
+    _feed_masks(monkeypatch)
+    jcfg, jtask, variables, cfg, task, batches = _ada_pair({"model.extra.remat": True})
+    jtask.model = FlaxAdaBins(n_bins=8, base_channels=4, output_size=32, dtype=jnp.float64,
+                              remat=True)
+    assert task.model.remat is False and make_task(cfg, device="cpu").model.remat is True
+    task.model.remat = True
+    jeng = JaxEngine(jcfg, jtask)
+    jstate = jax_state(jeng, variables)
+    eng = Engine(cfg, task)
+    state = eng.init_state()
+    stats = [k for k in task.model.state_dict() if k.endswith(("running_mean", "running_var"))]
+    for i, batch in enumerate(batches):
+        jstate, jm = jeng.train_step(jstate, batch)
+        state, m = eng.train_step(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=2e-6)
+        if i == 0:
+            want = _ada_sd({"params": jstate.params, "batch_stats": jstate.batch_stats})
+            assert_close_rel(state.model.state_dict(), want, 1e-10, "running statistic",
+                             keys=stats)
+    got = state.model.state_dict()
+    want = _ada_sd({"params": jstate.params, "batch_stats": jstate.batch_stats})
+    student = [n for n, _ in task.model.named_parameters() if not n.startswith("rgb_")]
+    assert_close_rel(got, want, 2e-6, "student parameter", keys=student)

@@ -619,7 +619,7 @@ def test_cli_config_from_flags():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--profile_dir", "p"], "A7"), (["--num_devices", "2"], "A8"),
+    (["--num_devices", "8"], "A8"), (["--num_devices", "2"], "A8"),
     (["--num_devices", "4"], "A8"),
 ])
 def test_cli_refuses_unported_flags(flags, item):
