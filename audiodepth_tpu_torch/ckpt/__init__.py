@@ -17,6 +17,13 @@ Tensors are saved on the CPU, so a checkpoint written on the card restores
 on the CPU and back. A save writes a temporary file and renames it, so a
 crash never leaves half a checkpoint. Saves are synchronous (the JAX
 manager's `wait` and `close` have nothing to do here).
+
+In a data-parallel run (`group`) every rank calls `save` and `mark_best`
+at the same points: rank 0 writes and the others wait at a barrier, so a
+checkpoint is complete on the shared file system when any rank goes on.
+Every rank restores from the file, and a file restores on any number of
+ranks: the ranks hold the same replicated state, and the step and the
+epoch (hence the epoch shuffle stream) do not depend on the world size.
 """
 
 from __future__ import annotations
@@ -43,11 +50,20 @@ def _to_cpu(obj):
 
 class CheckpointManager:
     def __init__(self, root: str, experiment_name: str, max_to_keep: int = 20,
-                 create: bool = True):
+                 create: bool = True, group=None):
         self.directory = os.path.abspath(os.path.join(root, experiment_name))
         self.max_to_keep = max_to_keep
+        self.group = group
         if create:
             os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def _writes(self) -> bool:
+        return self.group is None or self.group.is_main
+
+    def _wait_for_writer(self) -> None:
+        if self.group is not None:
+            self.group.barrier()
 
     def path(self, epoch: int) -> str:
         return os.path.join(self.directory, f"checkpoint_{int(epoch)}.pth")
@@ -60,7 +76,13 @@ class CheckpointManager:
     def save(self, epoch: int, state, aux: Optional[Dict[str, Any]] = None,
              metrics: Optional[Dict[str, float]] = None) -> None:
         """Write epoch `epoch` of a TrainState (model, optimizer, step);
-        idempotent per epoch (a best save and a periodic save may coincide)."""
+        idempotent per epoch (a best save and a periodic save may coincide).
+        In a group rank 0 writes and every rank returns after the write."""
+        if self._writes:
+            self._write(epoch, state, aux, metrics)
+        self._wait_for_writer()
+
+    def _write(self, epoch, state, aux, metrics) -> None:
         if epoch in self.all_epochs():
             return
         os.makedirs(self.directory, exist_ok=True)
@@ -91,9 +113,11 @@ class CheckpointManager:
     # any tool can resolve it without knowing the metric history.
     def mark_best(self, epoch: int, metric: Optional[str] = None,
                   value: Optional[float] = None) -> None:
-        with open(os.path.join(self.directory, "best.json"), "w") as f:
-            json.dump({"epoch": int(epoch), "metric": metric,
-                       "value": None if value is None else float(value)}, f)
+        if self._writes:
+            with open(os.path.join(self.directory, "best.json"), "w") as f:
+                json.dump({"epoch": int(epoch), "metric": metric,
+                           "value": None if value is None else float(value)}, f)
+        self._wait_for_writer()
 
     def best_epoch(self) -> Optional[int]:
         path = os.path.join(self.directory, "best.json")

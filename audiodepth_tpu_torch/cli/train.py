@@ -8,7 +8,17 @@ Builds the config from the flags, the train and val splits (BatVision V2 or
 V1 from --dataset_dir, or the synthetic corpus), the task on --device
 (default cuda; it raises without a card) with a seeded init, and the
 Engine, then runs `Engine.fit` and prints one JSON line per epoch with its
-record. --num_devices > 1 (several devices, ROADMAP.md A8) is refused.
+record.
+
+Several devices: --num_devices N trains data-parallel on N ranks, one
+process each (the `spawn` start method: CUDA cannot fork), rank r on cuda:r
+over NCCL, or with --device cpu N gloo ranks on the CPU. As in the JAX CLI,
+the run takes the largest count ≤ N that divides --batch_size, with a
+WARNING when that is fewer. N above the machine's card count exits
+naming the count; there is no fallback to fewer ranks or to the CPU. Each
+rank reads its rows of every train batch; rank 0 prints, logs, draws and
+writes the checkpoints (`train/engine.py`). The CUDA kernels are built
+once, before the ranks start.
 
 Families: unet_baseline, binaural_attention, base_residual, unet_cvae,
 rgb_depth, adabins_distillation and coarse_depth (--model_type unet, lite,
@@ -199,7 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--override", action="append", default=None, metavar="SECTION.KEY=VALUE",
                    help="dotted config override, repeatable, applied after every named flag")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="1 only: several devices are ROADMAP.md A8")
+                   help="data-parallel ranks, one a device (default 1); the largest "
+                        "count <= N that divides the batch size is used")
     p.add_argument("--ckpt_dir", default=None,
                    help="save checkpoints under CKPT_DIR/<experiment name> (default: none)")
     p.add_argument("--saving_checkpoints", type=int, default=None,
@@ -355,9 +366,6 @@ def _refuse_unported(args) -> None:
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: {what} is not ported yet")
-    if args.num_devices is not None and args.num_devices > 1:
-        raise SystemExit("--num_devices > 1: several devices are not ported yet "
-                         "(ROADMAP.md A8)")
     if args.holdout_locations and args.dataset == "synthetic":
         raise SystemExit("--holdout_locations: the synthetic corpus has no locations")
     if args.sparse_method and args.dataset != "batvisionv2":
@@ -490,16 +498,108 @@ def _write_architecture(path: str, exp: str, cfg, task) -> None:
         f.write(repr(task.model) + "\n")
 
 
+def data_ranks(requested: Optional[int], batch_size: int) -> int:
+    """The JAX CLI's rule: the largest rank count <= `requested` (default 1)
+    that divides the global batch, with its WARNING when that is fewer."""
+    n_req = requested or 1
+    n = n_req
+    while n > 1 and batch_size % n != 0:
+        n -= 1
+    if n != n_req:
+        print(f"WARNING: batch_size {batch_size} does not divide "
+              f"{n_req} devices; training on {n} device(s). Pick a "
+              f"batch size divisible by the device count to use all chips.")
+    return n
+
+
+def _check_devices(args, n: int) -> None:
+    """Refuse what N ranks cannot run on: a card count below N (no
+    fallback), or one named card for several ranks. Without a card, cuda
+    raises the entry points' own error."""
+    from .._device import resolve_device
+
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        return
+    count = torch.cuda.device_count()
+    if n > count:
+        raise SystemExit(f"--num_devices {n}: this machine has {count} CUDA device(s); "
+                         "a rank needs a card of its own (NCCL takes one rank a GPU)")
+    if n > 1 and dev.index is not None:
+        raise SystemExit(f"--num_devices {n} runs rank r on cuda:r; pass --device cuda, "
+                         f"not {args.device}")
+
+
 def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
-    """Train from the flags; returns (engine, state). `on_task(task)` runs
-    after the seeded init, before the first step; `on_step` goes to
-    `Engine.fit`."""
+    """Train from the flags; returns (engine, state), or (None, None) from
+    the parent of several ranks. `on_task(task)` runs after the seeded
+    init, before the first step; `on_step` goes to `Engine.fit` (one rank
+    only)."""
     args = build_parser().parse_args(argv)
-    if args.use_wandb:
-        _wandb_sweep(args)
     fold_holdout_args(args)
     _refuse_unported(args)
-    vis_dir = _vis_dir(args)
+    n = data_ranks(args.num_devices, config_from_args(args).mode.batch_size)
+    if args.num_devices is not None:
+        _check_devices(args, args.num_devices)
+    if n == 1:
+        if args.use_wandb:
+            _wandb_sweep(args)
+        return _train(args, on_task=on_task, on_step=on_step)
+    if on_task is not None or on_step is not None:
+        raise ValueError("on_task/on_step run in the training process: one rank only")
+    _spawn_ranks(args, n)
+    return None, None
+
+
+def _spawn_ranks(args, n: int) -> None:
+    """Run `_rank_main` in n processes (spawned: CUDA cannot fork), joined
+    at a file:// rendezvous in a fresh temporary directory. The CUDA
+    kernels are built here first, once."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if torch.device(args.device).type == "cuda":
+        from pathlib import Path
+
+        from ..ops.cuda import KERNELS, _build
+
+        _build.build(sorted({Path(src).stem for _, src, _ in KERNELS}))
+    with tempfile.TemporaryDirectory(prefix="adepth_dist_") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        mp.spawn(_rank_main, args=(args, n, init), nprocs=n, join=True)
+
+
+def _rank_main(rank: int, args, n: int, init: str) -> None:
+    """One rank: join the group (NCCL on cuda:rank, gloo on the CPU), take
+    rank 0's arguments (a wandb sweep overrides them there), train."""
+    import torch.distributed as dist
+
+    from ..parallel import initialize_multihost, shutdown
+
+    on_card = torch.device(args.device).type == "cuda"
+    device = f"cuda:{rank}" if on_card else "cpu"
+    if not on_card:
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    group = initialize_multihost(init, n, rank, backend="nccl" if on_card else "gloo",
+                                 device=device)
+    try:
+        if rank == 0 and args.use_wandb:
+            _wandb_sweep(args)
+        shared = [args]
+        dist.broadcast_object_list(shared, src=0)
+        args = shared[0]
+        args.device = device
+        _train(args, group=group)
+    finally:
+        shutdown()
+
+
+def _train(args, group=None, on_task=None, on_step=None):
+    """The training run of one rank (`group` None: the only one)."""
+    main_rank = group is None or group.is_main
+    shard = None if group is None else (group.rank, group.size)
+    vis_dir = _vis_dir(args) if main_rank else None
     if vis_dir is not None:
         _require_matplotlib()
     from ..ckpt import BestTracker, CheckpointManager
@@ -534,13 +634,13 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
     if on_task is not None:
         on_task(task)
     steps_per_epoch = max(len(train_ds) // cfg.mode.batch_size, 1)
-    eng = Engine(cfg, task, steps_per_epoch=steps_per_epoch)
+    eng = Engine(cfg, task, steps_per_epoch=steps_per_epoch, group=group)
     state = eng.init_state()
     # the reference's suffixes (train.py:288-313): [_IMG][_holdout_{locs}]
     suffixes = (["IMG"] if args.eval_img else []) + (
         ["holdout_" + "_".join(holdout_locs)] if holdout_locs else [])
     exp = experiment_name(cfg, suffix="_".join(suffixes))
-    mgr = CheckpointManager(args.ckpt_dir, exp) if args.ckpt_dir else None
+    mgr = CheckpointManager(args.ckpt_dir, exp, group=group) if args.ckpt_dir else None
     resuming = args.resume or args.checkpoints is not None
     if mgr is not None and not resuming and mgr.all_epochs():
         # a new run would keep the old run's files (saves are idempotent per
@@ -554,12 +654,15 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
         try:
             state, _, restored = mgr.restore(state, epoch=args.checkpoints)
             start_epoch = restored + 1
-            print(json.dumps({"resumed_from_epoch": restored, "step": state.step}), flush=True)
+            if main_rank:
+                print(json.dumps({"resumed_from_epoch": restored, "step": state.step}),
+                      flush=True)
         except FileNotFoundError:
             if args.checkpoints is not None:
                 raise SystemExit(f"no checkpoint of epoch {args.checkpoints} under "
                                  f"{mgr.directory}; available: {mgr.all_epochs()}")
-            print(json.dumps({"resumed_from_epoch": None}), flush=True)
+            if main_rank:
+                print(json.dumps({"resumed_from_epoch": None}), flush=True)
 
     train_src, val_src, cache_bytes = train_ds, val_ds, None
     if args.device_cache:
@@ -569,8 +672,9 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
         if needs_bins:
             train_src = _BinnedView(train_ds, cache_edges, cfg)
             val_src = _BinnedView(val_ds, cache_edges, cfg)
-        train_src = DeviceDatasetCache(train_src, units, task.device)
-        val_src = DeviceDatasetCache(val_src, units, task.device)
+        # row-sharded over the ranks: each holds about 1/N of a split
+        train_src = DeviceDatasetCache(train_src, units, task.device, group=group)
+        val_src = DeviceDatasetCache(val_src, units, task.device, group=group)
         cache_bytes = {"train": train_src.nbytes(), "val": val_src.nbytes()}
 
     # the reshuffle stream: epoch e draws seed mode.seed * 100003 + e + 1,
@@ -591,12 +695,14 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
 
     def train_batches():
         epoch_seed[0] += 1
+        # this rank's rows of each global batch
         return wrap(train_src.batches(cfg.mode.batch_size, shuffle=cfg.mode.shuffle,
-                                      seed=epoch_seed[0]))
+                                      seed=epoch_seed[0], shard=shard))
 
     def val_batches():
         # keep the ragged tail: a val split smaller than the batch would
-        # otherwise evaluate nothing
+        # otherwise evaluate nothing. Global batches: Engine.evaluate takes
+        # each rank's rows
         return wrap(val_src.batches(cfg.mode.batch_size, shuffle=False, drop_last=False))
 
     # each held-out location's rows of the full train split (with the
@@ -611,24 +717,27 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
                                                       drop_last=False)))
                for loc, sub in held_out.items()} or None
 
-    logger = MetricLogger(args.log_dir, exp, use_wandb=args.use_wandb,
-                          wandb_project=args.wandb_project, wandb_entity=args.wandb_entity,
-                          wandb_mode=args.wandb_mode, config=dataclasses.asdict(cfg))
-    if args.log_dir:
+    logger = (MetricLogger(args.log_dir, exp, use_wandb=args.use_wandb,
+                           wandb_project=args.wandb_project, wandb_entity=args.wandb_entity,
+                           wandb_mode=args.wandb_mode, config=dataclasses.asdict(cfg))
+              if main_rank else None)
+    if args.log_dir and main_rank:
         _write_architecture(os.path.join(args.log_dir, f"{exp}_architecture.txt"),
                             exp, cfg, task)
     vis_callback = (_make_vis_callback(cfg, os.path.join(vis_dir, exp), logger)
                     if vis_dir is not None else None)
-    print(json.dumps({"train": len(train_ds), "val": len(val_ds), "model": cfg.model.name,
-                      "device": str(task.device), "compute_dtype": cfg.mode.compute_dtype,
-                      "steps_per_epoch": steps_per_epoch, "experiment": exp,
-                      "checkpoints": mgr.directory if mgr else None,
-                      "holdout": {loc: len(sub) for loc, sub in held_out.items()} or None,
-                      "device_cache_bytes": cache_bytes, "log": logger.path,
-                      "visualize": os.path.join(vis_dir, exp) if vis_dir else None,
-                      "start_epoch": start_epoch}), flush=True)
+    if main_rank:
+        print(json.dumps({"train": len(train_ds), "val": len(val_ds), "model": cfg.model.name,
+                          "device": str(task.device), "compute_dtype": cfg.mode.compute_dtype,
+                          "steps_per_epoch": steps_per_epoch, "experiment": exp,
+                          "checkpoints": mgr.directory if mgr else None,
+                          "holdout": {loc: len(sub) for loc, sub in held_out.items()} or None,
+                          "device_cache_bytes": cache_bytes, "log": logger.path,
+                          "visualize": os.path.join(vis_dir, exp) if vis_dir else None,
+                          "start_epoch": start_epoch,
+                          "ranks": 1 if group is None else group.size}), flush=True)
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and main_rank:
         from ..obs import ProfilerHook
 
         profiler = ProfilerHook(args.profile_dir)
@@ -639,7 +748,8 @@ def main(argv: Optional[Sequence[str]] = None, on_task=None, on_step=None):
                         logger=logger, holdout_batches=holdout, vis_callback=vis_callback,
                         profiler=profiler)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return eng, state
 
 

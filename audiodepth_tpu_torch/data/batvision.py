@@ -26,6 +26,10 @@ numbers and an empty cell as NaN; here such a cell stays the string it is
 in the file ('12', ''). The columns the loaders read are paths and file
 names, which are strings either way. pandas is not needed.
 
+Every `batches()` takes `shard=(rank, world_size)` for data-parallel
+training: each rank then reads only its contiguous rows of every global
+batch (`parallel.local_batch_slice`) of the same epoch permutation.
+
 BV2's `batches()` decodes in the native thread pool (`data/native_io.py`)
 and yields the compact transport dtypes (int16 waveform, uint16 depth);
 `batches(native=False)` and BV1 yield float32 from the Python decoder.
@@ -48,13 +52,17 @@ import copy
 import csv
 import functools
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..configs import Config
+from ..parallel.multihost import local_batch_slice
 from ..ops.resize import resize_nearest_cv2_np
 from .frontend import tof_cut_samples
+
+# (rank, world_size) of a data-parallel loader; None reads whole batches
+Shard = Optional[Tuple[int, int]]
 
 
 def load_wav(path: str):
@@ -106,8 +114,10 @@ def _read_csv(path: str) -> List[Dict[str, str]]:
 
 @functools.lru_cache(maxsize=None)
 def _image_pool() -> concurrent.futures.ThreadPoolExecutor:
-    """The thread pool of camera-image decodes (the native pool's 8)."""
-    return concurrent.futures.ThreadPoolExecutor(max_workers=8)
+    """The thread pool of camera-image decodes: ADEPTH_IMAGE_THREADS
+    threads (default 8, the native pool's), as the JAX package sizes it."""
+    return concurrent.futures.ThreadPoolExecutor(
+        max_workers=int(os.environ.get("ADEPTH_IMAGE_THREADS", "8")))
 
 
 def _cv2():
@@ -199,19 +209,19 @@ class BatvisionV2Dataset:
         return out
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_last: bool = True, native: bool = True
+                drop_last: bool = True, native: bool = True, shard: Shard = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
         """Batch iterator. native=True decodes WAV and depth in the native
         thread pool, and images in the image pool, and yields int16 waveform
         / uint16 depth / uint8 image (the compact transport dtypes);
         native=False yields `sample`'s float32."""
         if not native:
-            yield from _batch_iter(self, batch_size, shuffle, seed, drop_last)
+            yield from _batch_iter(self, batch_size, shuffle, seed, drop_last, shard)
             return
         from . import native_io
 
         size = self.cfg.dataset.images_size
-        for idx in _batch_order(len(self), batch_size, shuffle, seed, drop_last):
+        for idx in _batch_order(len(self), batch_size, shuffle, seed, drop_last, shard):
             rows = [self.instances[int(j)] for j in idx]
             images = None
             if self.use_image:
@@ -284,23 +294,31 @@ class BatvisionV1Dataset:
         return {"waveform": _fix_length(wav, self.wave_len), "depth": depth[..., None]}
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        yield from _batch_iter(self, batch_size, shuffle, seed, drop_last)
+                drop_last: bool = True, shard: Shard = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        yield from _batch_iter(self, batch_size, shuffle, seed, drop_last, shard)
 
 
-def _batch_order(n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool):
+def _batch_order(n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool,
+                 shard: Shard = None):
     """The index arrays of an epoch's batches: a seeded permutation of
     range(n) when shuffling, cut into batch_size pieces (the ragged tail
-    kept unless drop_last)."""
+    kept unless drop_last). With `shard=(rank, world_size)`, each global
+    batch's rows of that rank (`parallel.local_batch_slice`, which refuses
+    a batch the world does not divide)."""
     order = np.arange(n)
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     end = n - batch_size + 1 if drop_last else n
-    return [order[i:i + batch_size] for i in range(0, max(end, 0), batch_size)]
+    out = [order[i:i + batch_size] for i in range(0, max(end, 0), batch_size)]
+    if shard is not None:
+        out = [idx[local_batch_slice(len(idx), *shard)] for idx in out]
+    return out
 
 
-def _batch_iter(dataset, batch_size: int, shuffle: bool, seed: int, drop_last: bool):
-    for idx in _batch_order(len(dataset), batch_size, shuffle, seed, drop_last):
+def _batch_iter(dataset, batch_size: int, shuffle: bool, seed: int, drop_last: bool,
+                shard: Shard = None):
+    for idx in _batch_order(len(dataset), batch_size, shuffle, seed, drop_last, shard):
         samples = [dataset.sample(int(j)) for j in idx]
         yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 

@@ -100,8 +100,8 @@ class SparseDepthDataset:
         return out
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        yield from _batch_iter(self, batch_size, shuffle, seed, drop_last)
+                drop_last: bool = True, shard=None) -> Iterator[Dict[str, np.ndarray]]:
+        yield from _batch_iter(self, batch_size, shuffle, seed, drop_last, shard)
 
 
 class BinnedSparseDepthDataset(SparseDepthDataset):

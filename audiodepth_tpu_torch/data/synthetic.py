@@ -17,6 +17,7 @@ from typing import Dict, Iterator
 import numpy as np
 
 from ..configs import Config
+from .batvision import _batch_iter
 from .frontend import SPEED_OF_SOUND, tof_cut_samples
 
 
@@ -82,13 +83,6 @@ class SyntheticEchoDataset:
         return self.num_samples
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(self.num_samples)
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        for i in range(0, self.num_samples - (batch_size - 1 if drop_last else 0), batch_size):
-            idx = order[i : i + batch_size]
-            if len(idx) == 0:
-                break
-            samples = [self.sample(int(j)) for j in idx]
-            yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+                drop_last: bool = True, shard=None) -> Iterator[Dict[str, np.ndarray]]:
+        """`shard=(rank, world_size)`: that rank's rows of each global batch."""
+        yield from _batch_iter(self, batch_size, shuffle, seed, drop_last, shard)

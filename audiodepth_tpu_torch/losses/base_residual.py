@@ -8,7 +8,8 @@
 
 The adaptive schedule anneals λ_recon and λ_base linearly over
 warmup_epochs, then holds them. The frequency-aware variant splits the gt
-with a centred 2-D FFT. Maps are NHWC, single channel.
+with a centred 2-D FFT. Maps are NHWC, single channel. Every mean is over
+the global batch (`parallel.global_sum`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .basic import l1_loss, l2_loss, silog_loss
+from ..parallel.mesh import global_mean
+from .basic import l1_loss, l2_loss, masked_mean, silog_loss
 
 
 @torch.no_grad()
@@ -72,7 +74,7 @@ def frequency_aware_base_residual_loss(base, residual, final, gt, lambda_recon: 
     gt_low, gt_high = (t.detach() for t in separate_frequencies(gt, freq_cutoff))
     loss_base_low = l1_loss(base, gt_low)
     loss_res_high = l1_loss(residual, gt_high)
-    loss_sparse = residual.abs().mean()
+    loss_sparse = global_mean(residual.abs())
     total = (lambda_recon * loss_recon + lambda_base_low * loss_base_low
              + lambda_res_high * loss_res_high + lambda_sparse * loss_sparse)
     return total, {"recon": loss_recon, "base_low": loss_base_low, "res_high": loss_res_high,
@@ -92,8 +94,7 @@ def base_residual_loss(base, residual, final, gt, mask, lambda_recon=1.0, lambda
     else:
         loss_recon = l1_loss(final, gt, mask)
     loss_base = l1_loss(base, gt_struct, mask)
-    w = mask.to(residual.dtype)  # the heads' outputs are at least fp32
-    loss_sparse = (residual.abs() * w).sum() / w.sum().clamp_min(1.0)
+    loss_sparse = masked_mean(residual.abs(), mask)
     total = lambda_recon * loss_recon + lambda_base * loss_base + lambda_sparse * loss_sparse
     return total, {"recon": loss_recon, "base": loss_base, "sparse": loss_sparse,
                    "total": total}

@@ -9,6 +9,11 @@ pixels without a data-dependent shape.
 SIlog (the reference's utils_loss.py):
     d = log(clamp(pred, eps)) - log(clamp(target, eps))
     SIlog = sqrt(max(mean(d^2) - lam * mean(d)^2, 0))
+
+Every mean is over the global batch: its sums go through
+`parallel.global_sum`, the count's clamp applies once to the global count,
+and SIlog takes the square root of the global moments. On one rank the
+sums are the local ones.
 """
 
 from __future__ import annotations
@@ -17,27 +22,32 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import global_mean, global_sum
 
-def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Σ x·m / max(Σ m, 1) over the global batch (the plain mean without a
+    mask)."""
     if mask is None:
-        return x.mean()
+        return global_mean(x)
     w = mask.to(x.dtype)
-    return (x * w).sum() / w.sum().clamp_min(1.0)
+    sums = global_sum(torch.stack([(x * w).sum(), w.sum()]))
+    return sums[0] / sums[1].clamp_min(1.0)
 
 
 def l1_loss(pred, target, mask=None):
-    return _masked_mean((pred - target).abs(), mask)
+    return masked_mean((pred - target).abs(), mask)
 
 
 def l2_loss(pred, target, mask=None):
     d = pred - target
-    return _masked_mean(d * d, mask)
+    return masked_mean(d * d, mask)
 
 
 def silog_loss(pred, target, mask=None, lambda_scale: float = 0.5, eps: float = 1e-6):
     d = torch.log(pred.clamp_min(eps)) - torch.log(target.clamp_min(eps))
-    m2 = _masked_mean(d * d, mask)
-    m1 = _masked_mean(d, mask)
+    m2 = masked_mean(d * d, mask)
+    m1 = masked_mean(d, mask)
     return torch.sqrt((m2 - lambda_scale * m1 * m1).clamp_min(0.0))
 
 

@@ -7,7 +7,8 @@ Components, on NHWC single-channel maps with the gt > 0 validity mask m:
            mask (a 3×3 max-pool of m; the reference calls it "eroded")
   smooth = Σ (|∇x pred| + |∇y pred|) · exp(−|∇gt|) · m / (Σm + 1e-6)
 The Sobel maps are computed in float32, as the JAX package computes them
-(also in its float64 mode).
+(also in its float64 mode). Every sum is over the global batch
+(`parallel.global_sum`), the `+ 1e-6` added once to the global mask sums.
 
 Also the RGB teacher's loss: unmasked L1 + mean first-difference smoothness.
 """
@@ -18,6 +19,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import global_mean, global_sum
 
 _SOBEL = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 
@@ -41,17 +44,22 @@ def binaural_attention_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_recon=1
                             lambda_edge=0.2, lambda_smooth=0.1
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     m = (gt > 0).to(torch.float32)
-    msum = m.sum() + 1e-6
-    loss_recon = (pred * m - gt * m).abs().sum() / msum
+    recon_sum = global_sum((pred * m - gt * m).abs().sum())
 
     pred_grad = _grad_mag(pred)
     gt_grad = _grad_mag(gt)
     m_dil = F.max_pool2d(m.permute(0, 3, 1, 2), 3, stride=1, padding=1).permute(0, 2, 3, 1)
-    loss_edge = (pred_grad * m_dil - gt_grad * m_dil).abs().sum() / (m_dil.sum() + 1e-6)
-
     pgx, pgy = _sobel(pred)
     smooth = pgx.abs() + pgy.abs()
-    loss_smooth = (smooth * torch.exp(-gt_grad) * m).sum() / msum
+    # the float32 sums in one all-reduce: Σm, Σm_dil, the edge and the
+    # smoothness numerators
+    sums = global_sum(torch.stack([
+        m.sum(), m_dil.sum(), (pred_grad * m_dil - gt_grad * m_dil).abs().sum(),
+        (smooth * torch.exp(-gt_grad) * m).sum()]))
+    msum = sums[0] + 1e-6
+    loss_recon = recon_sum / msum
+    loss_edge = sums[2] / (sums[1] + 1e-6)
+    loss_smooth = sums[3] / msum
 
     total = lambda_recon * loss_recon + lambda_edge * loss_edge + lambda_smooth * loss_smooth
     return total, {"recon": loss_recon, "edge": loss_edge, "smooth": loss_smooth,
@@ -71,9 +79,9 @@ def adaptive_binaural_weights(epoch: float, warmup_epochs: int = 20):
 def rgb_depth_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_l1: float = 1.0,
                    lambda_smooth: float = 0.1):
     """RGB teacher loss: UNMASKED L1 + first-difference smoothness."""
-    l1 = (pred - gt).abs().mean()
-    dx = (pred[:, :, :-1, :] - pred[:, :, 1:, :]).abs().mean()
-    dy = (pred[:, :-1, :, :] - pred[:, 1:, :, :]).abs().mean()
+    l1 = global_mean((pred - gt).abs())
+    dx = global_mean((pred[:, :, :-1, :] - pred[:, :, 1:, :]).abs())
+    dy = global_mean((pred[:, :-1, :, :] - pred[:, 1:, :, :]).abs())
     smooth = dx + dy
     total = lambda_l1 * l1 + lambda_smooth * smooth
     return total, {"l1": l1, "smooth": smooth, "total": total}

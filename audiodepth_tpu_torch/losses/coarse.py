@@ -17,6 +17,7 @@ package casts them with `astype(jnp.float32)`.
     regularization (+ coarse L1 for monitoring);
   * `dual_regression_loss`: masked L1 on coarse and final + offset
     regularization.
+Every mean is over the global batch (`parallel.global_sum`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_mean
 from .basic import l1_loss, l2_loss
 
 
@@ -43,7 +45,7 @@ def ordinal_regression_loss(logits: torch.Tensor, target_bins: torch.Tensor) -> 
     labels = (bin_idx <= target_bins[..., None]).to(CE_DTYPE)
     # BCE with logits: max(x, 0) - x·z + log(1 + exp(-|x|))
     bce = x.clamp_min(0) - x * labels + torch.log1p(torch.exp(-x.abs()))
-    return bce.mean()
+    return global_mean(bce)
 
 
 def soft_cross_entropy_loss(logits: torch.Tensor, target_bins: torch.Tensor,
@@ -53,7 +55,7 @@ def soft_cross_entropy_loss(logits: torch.Tensor, target_bins: torch.Tensor,
     t = target_bins[..., None].to(CE_DTYPE)
     soft = torch.exp(-0.5 * ((bin_idx - t) / sigma) ** 2)
     soft = soft / (soft.sum(dim=-1, keepdim=True) + 1e-8)
-    return (-(soft * logp).sum(dim=-1)).mean()
+    return global_mean(-(soft * logp).sum(dim=-1))
 
 
 def hard_cross_entropy_loss(logits: torch.Tensor, target_bins: torch.Tensor,
@@ -63,7 +65,7 @@ def hard_cross_entropy_loss(logits: torch.Tensor, target_bins: torch.Tensor,
     onehot = F.one_hot(target_bins.long(), n).to(logp.dtype)
     if label_smoothing > 0:
         onehot = onehot * (1 - label_smoothing) + label_smoothing / n
-    return (-(onehot * logp).sum(dim=-1)).mean()
+    return global_mean(-(onehot * logp).sum(dim=-1))
 
 
 def focal_loss(logits: torch.Tensor, target_bins: torch.Tensor,
@@ -71,7 +73,7 @@ def focal_loss(logits: torch.Tensor, target_bins: torch.Tensor,
     logp = _log_softmax_bins(logits)
     ce = -torch.gather(logp, -1, target_bins[..., None].long())[..., 0]
     pt = torch.exp(-ce)
-    return (((1.0 - pt) ** gamma) * ce).mean()
+    return global_mean(((1.0 - pt) ** gamma) * ce)
 
 
 def coarse_depth_loss(logits, pred_depth, target_bins, target_depth, mask=None,
@@ -98,7 +100,7 @@ def coarse_offset_loss(logits, coarse_depth, offset, final_depth, target_depth, 
     ce = hard_cross_entropy_loss(logits, target_bins, label_smoothing)
     reg_fn = l1_loss if regression == "l1" else l2_loss
     reg = reg_fn(final_depth, target_depth)          # unmasked (the reference's)
-    offset_reg = offset.abs().mean()
+    offset_reg = global_mean(offset.abs())
     total = ce_weight * ce + regression_weight * reg + offset_reg_weight * offset_reg
     return total, {"ce": ce, "regression": reg, "offset_reg": offset_reg,
                    "coarse_l1": l1_loss(coarse_depth, target_depth), "total": total}
@@ -111,6 +113,6 @@ def dual_regression_loss(coarse_depth, offset, final_depth, target_depth,
     mask = target_depth > 0
     coarse = l1_loss(coarse_depth, target_depth, mask)
     final = l1_loss(final_depth, target_depth, mask)
-    offset_reg = offset.abs().mean()
+    offset_reg = global_mean(offset.abs())
     total = coarse_weight * coarse + final_weight * final + offset_reg_weight * offset_reg
     return total, {"coarse": coarse, "final": final, "offset_reg": offset_reg, "total": total}

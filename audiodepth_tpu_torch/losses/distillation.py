@@ -12,7 +12,8 @@
 
 The output dict is the model's (`models/adabins.py`), NCHW; gt and mask
 are NCHW too ([B, 1, H, W]). The teacher's tensors carry no gradient (the
-model computes them under no_grad).
+model computes them under no_grad). Every mean over the batch is the global
+batch's (`parallel.global_sum`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..models.layers import at_least_f32
-from .basic import l1_loss, l2_loss
+from ..parallel.mesh import global_mean
+from .basic import l1_loss, l2_loss, masked_mean
 
 LEVELS = ("x1", "x2", "x3", "x4", "x5")
 
@@ -36,7 +38,7 @@ def feature_cosine_distance(audio_feats: Dict, rgb_feats: Dict) -> torch.Tensor:
             a2, r2 = a.reshape(b, c, -1), r.reshape(b, c, -1)  # [B, C, HW]
             an = a2 / torch.linalg.vector_norm(a2, dim=2, keepdim=True).clamp_min(1e-12)
             rn = r2 / torch.linalg.vector_norm(r2, dim=2, keepdim=True).clamp_min(1e-12)
-            total = total + (1.0 - torch.mean(torch.sum(an * rn, dim=2)))
+            total = total + (1.0 - global_mean(torch.sum(an * rn, dim=2)))
             count += 1
     return total / max(count, 1)
 
@@ -47,7 +49,7 @@ def bin_distribution_kl(audio_logits, rgb_logits, temperature: float = 4.0) -> t
     r = at_least_f32(rgb_logits).mean(dim=(2, 3)) / temperature
     log_p_audio = torch.log_softmax(a, dim=1)
     log_p_rgb = torch.log_softmax(r, dim=1)
-    return torch.mean(torch.sum(log_p_rgb.exp() * (log_p_rgb - log_p_audio), dim=1))
+    return global_mean(torch.sum(log_p_rgb.exp() * (log_p_rgb - log_p_audio), dim=1))
 
 
 def distillation_loss(output: Dict, gt: torch.Tensor, mask: torch.Tensor,
@@ -57,13 +59,12 @@ def distillation_loss(output: Dict, gt: torch.Tensor, mask: torch.Tensor,
     """The loss class's defaults; the task passes the training script's."""
     audio, rgb = output["audio"], output.get("rgb")
     loss_task = l1_loss(audio["final_depth"], gt, mask)
-    w = mask.to(audio["residual"].dtype)
-    loss_sparse = (audio["residual"].abs() * w).sum() / w.sum().clamp_min(1.0)
+    loss_sparse = masked_mean(audio["residual"].abs(), mask)
     if rgb is not None:
         loss_response = l2_loss(audio["final_depth"], rgb["final_depth"], mask)
         loss_feature = feature_cosine_distance(audio["features"], rgb["features"])
         loss_bin = bin_distribution_kl(audio["bin_logits"], rgb["bin_logits"], temperature)
-        loss_centers = torch.mean((audio["bin_centers"] - rgb["bin_centers"]) ** 2)
+        loss_centers = global_mean((audio["bin_centers"] - rgb["bin_centers"]) ** 2)
     else:
         loss_response = loss_feature = loss_bin = loss_centers = torch.zeros(
             (), dtype=torch.float32, device=gt.device)

@@ -41,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw_global
 from .base_residual import SharedEncoder
 from .layers import Conv2d, UpBilinear, at_least_f32, remat
 
@@ -48,8 +49,12 @@ DROPOUT = 0.1
 
 
 def dropout_keep(h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """The bin predictor's dropout keep mask over `h`, drawn from `generator`."""
-    return torch.empty_like(h).bernoulli_(1.0 - DROPOUT, generator=generator) > 0
+    """The bin predictor's dropout keep mask over `h` [B, F], drawn from
+    `generator` for the global batch of a data-parallel step, this rank's
+    rows kept (`parallel.draw_global`)."""
+    return draw_global(lambda n: torch.empty((n,) + tuple(h.shape[1:]), dtype=h.dtype,
+                                             device=h.device).bernoulli_(
+        1.0 - DROPOUT, generator=generator) > 0, h.shape[0])
 
 
 class BinPredictor(nn.Module):

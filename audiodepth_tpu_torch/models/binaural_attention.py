@@ -20,8 +20,9 @@ projections are 1×1 convs ([O, I, 1, 1]) applied to tokens as matrix
 products. With `remat` (the config's `model.extra.remat`, on by default as
 in the JAX package) both encoders recompute their activations in the
 backward of a train-mode forward instead of keeping them, and BatchNorm
-folds its statistics once. `sp_axis` of the JAX model is a multi-device tool
-and is not ported (ROADMAP.md A8).
+folds its statistics once. `sp_axis` of the JAX model (sequence
+parallelism) is not ported yet (ROADMAP.md A8b); data parallelism is
+(`parallel/`).
 """
 
 from __future__ import annotations

@@ -32,6 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import active_group, global_sum
+
 
 def normal_init(std: float = 0.02) -> Callable[[torch.Tensor, Optional[torch.Generator]], None]:
     """Initializer filling a tensor with N(0, std) drawn in float32 on the
@@ -135,7 +137,15 @@ class BatchNorm(nn.BatchNorm2d):
     In train mode it normalizes with the batch statistics and folds them,
     with torch's unbiased variance, into the running buffers in place and in
     their stored dtype, whatever the compute dtype (the JAX package's
-    `models/layers.py:86-95`). Eval mode normalizes with the buffers."""
+    `models/layers.py:86-95`). Eval mode normalizes with the buffers.
+
+    Inside a data-parallel step (`parallel.use_group`) the statistics are
+    the global batch's, as under a JAX mesh: the count and the per-channel
+    sums are reduced first, then Σ(x − mean)² (two passes: one pass of Σx²
+    loses fp32 precision on bf16 activations), both through the
+    differentiable `parallel.global_sum`. The buffers fold the unbiased
+    variance over the global count. torch's `SyncBatchNorm` would drop the
+    dtype rules and the fold-once of `remat`, so it is not used."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -147,6 +157,8 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             y = F.batch_norm(xs, self.running_mean.to(sdt), self.running_var.to(sdt), w, b,
                              training=False, momentum=0.0, eps=self.eps)
+        elif active_group() is not None:
+            y = self._global_batch_norm(xs, w, b)
         elif self.running_mean.dtype == sdt:
             # the buffers themselves: the fused kernel folds them in place. A
             # recompute folds into copies, so that it saves the same tensors
@@ -162,14 +174,38 @@ class BatchNorm(nn.BatchNorm2d):
                 self._fold(xs)
         return y.to(self.compute_dtype)
 
+    def _global_batch_norm(self, xs: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+        """Train-mode normalization with the global batch's statistics; the
+        fold runs once a forward, not in a `remat` recompute (which runs the
+        same collectives in the same order on every rank)."""
+        dims = (0,) + tuple(range(2, xs.dim()))
+        shape = (1, -1) + (1,) * (xs.dim() - 2)
+        sums = global_sum(torch.cat([xs.sum(dim=dims),
+                                     xs.new_tensor([xs.numel() // xs.shape[1]])]))
+        count = sums[-1]
+        mean = sums[:-1] / count
+        centred = xs - mean.reshape(shape)
+        sq = global_sum((centred * centred).sum(dim=dims))
+        inv_std = torch.rsqrt(sq / count + self.eps)
+        y = centred * (inv_std * w).reshape(shape) + b.reshape(shape)
+        if not _recomputing():
+            with torch.no_grad():
+                self._fold_stats(mean, sq / (count - 1))
+        return y
+
     @torch.no_grad()
     def _fold(self, xs: torch.Tensor) -> None:
         """running ← (1 − momentum)·running + momentum·batch, in the
         buffers' dtype (a compute dtype other than the buffers')."""
         dims = (0,) + tuple(range(2, xs.dim()))
         var, mean = torch.var_mean(xs, dim=dims, correction=1)
+        self._fold_stats(mean, var)
+
+    @torch.no_grad()
+    def _fold_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
-            buf.mul_(1.0 - self.momentum).add_(self.momentum * stat.to(buf.dtype))
+            buf.mul_(1.0 - self.momentum).add_(self.momentum * stat.detach().to(buf.dtype))
 
 
 class _InstanceNorm(nn.Module):

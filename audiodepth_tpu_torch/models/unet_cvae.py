@@ -19,8 +19,10 @@ two and the innermost block's `downnorm`), so a reference `.pth` loads with
 strict=True.
 
 The latent: with `sample`, eps ~ N(0, 1) is drawn from the `generator`
-passed to `forward` (an explicit torch.Generator on the model's device);
-without it, z = μ. forward(x) → (depth NCHW in at least fp32, kl).
+passed to `forward` (an explicit torch.Generator on the model's device),
+for the global batch of a data-parallel step, each rank keeping its rows
+(`parallel.draw_global`); without it, z = μ. The KL's batch mean is the
+global batch's. forward(x) → (depth NCHW in at least fp32, kl).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw_global, global_mean
 from .layers import ConvDown, ConvUp, at_least_f32, make_norm
 
 
@@ -53,13 +56,15 @@ class VAEBottleneck(nn.Module):
         logvar = self.fc_logvar(flat)
         if sample:
             if eps is None:
-                eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                                  device=mu.device)
+                # drawn for the global batch, this rank's rows kept
+                eps = draw_global(lambda n: torch.randn(
+                    (n,) + tuple(mu.shape[1:]), generator=generator, dtype=mu.dtype,
+                    device=mu.device), b)
             z = mu + eps * torch.exp(0.5 * logvar)
         else:
             z = mu  # the posterior mean (parity tests)
         recon = self.fc_dec(z)
-        kl = torch.mean(-0.5 * torch.sum(1.0 + logvar - mu * mu - torch.exp(logvar), dim=1))
+        kl = global_mean(-0.5 * torch.sum(1.0 + logvar - mu * mu - torch.exp(logvar), dim=1))
         recon = recon.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return recon.to(h.dtype), kl
 

@@ -20,8 +20,20 @@ final epoch, and on SIGTERM (the last completed epoch). It evaluates the
 holdout loaders at each validation, logs the JAX fit's keys to a
 `obs.MetricLogger`, and runs the negative and stuck-at-zero detectors (and
 a visualization callback) on the first validation batch, and with a
-profiler hook (`obs.ProfilerHook`) traces the train steps of one epoch. Not
-ported yet: meshes (ROADMAP.md A8).
+profiler hook (`obs.ProfilerHook`) traces the train steps of one epoch.
+
+Data parallelism (`group`, a `parallel.DataGroup`): the N-rank step is the
+one-rank step on the global batch, as a JAX ('data',) mesh's is. Each rank
+trains on its contiguous rows of every global batch
+(`parallel.local_batch_slice`); the losses, BatchNorm and the random draws
+are the global batch's (`parallel.global_sum`, `parallel.draw_global`),
+the gradients are all-reduced and divided by N, and the norm and the clip
+come from the reduced gradients, equal on every rank. The engine
+broadcasts rank 0's parameters and buffers when it is built. `evaluate`
+takes GLOBAL batches, each rank keeping its rows (`parallel.local_shard`,
+ragged tails padded with a `_valid` mask), and all-reduces the metric sums.
+`fit` logs, draws and checkpoints on rank 0 (the manager writes there), and
+a SIGTERM on any rank stops every rank at the same step boundary.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ import torch
 from ..configs import Config
 from ..data.codec import decode_batch, depth_storage_units, encode_batch
 from ..data.prefetch import device_prefetch
+from ..parallel import (DataGroup, all_reduce_grads_, broadcast_module, local_shard,
+                        use_group)
 from .optim import clip_by_global_norm_, global_norm, make_optimizer, make_schedule
 from .tasks import Task
 
@@ -53,10 +67,14 @@ class TrainState:
 
 
 class Engine:
-    def __init__(self, cfg: Config, task: Task, steps_per_epoch: int = 1):
+    def __init__(self, cfg: Config, task: Task, steps_per_epoch: int = 1,
+                 group: Optional[DataGroup] = None):
         self.cfg = cfg
         self.task = task
+        self.group = group
         self.device = task.device
+        if group is not None:
+            broadcast_module(task.model, group)
         self.schedule = make_schedule(cfg.mode, steps_per_epoch)
         self.steps_per_epoch = steps_per_epoch
         # compact-transport decode scale: the dataset's STORED depth range
@@ -94,11 +112,15 @@ class Engine:
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         self.task.begin_step(state.step)
-        loss, aux = self.task.loss_fn(batch, float(epoch))
-        loss.backward()
+        # the backward too runs in the group: remat recomputes BatchNorm there
+        with use_group(self.group):
+            loss, aux = self.task.loss_fn(batch, float(epoch))
+            loss.backward()
         # a frozen part's parameters have no gradient: its zeros add nothing
         # to the norm
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        if self.group is not None:
+            all_reduce_grads_(grads, self.group)
         norm = global_norm(grads)
         clip = self.cfg.mode.grad_clip_norm
         if clip and clip > 0:
@@ -151,27 +173,45 @@ class Engine:
         """The depth prediction in meters of a DECODED device batch."""
         return self.task.predict_meters(batch)
 
+    def local_rows(self, batch):
+        """This rank's rows of a GLOBAL eval batch (`parallel.local_shard`:
+        padded to a multiple of N with a `_valid` mask); the batch itself
+        on one rank."""
+        if self.group is None:
+            return batch
+        return local_shard(batch, self.group.size, self.group.rank, self.group.size)
+
     def evaluate(self, state: TrainState, batches: Iterable,
                  epoch: float = 0.0) -> Dict[str, float]:
         """Mean per-sample metrics over an eval split (pad rows excluded);
         `criterion_loss` is the equal-weight mean of the per-batch criterion
-        where the task defines one (train.py:842)."""
+        where the task defines one (train.py:842). `batches` are global: in
+        a group each rank evaluates its rows and the sums are all-reduced;
+        the criterion is the global batch's already. Sums accumulate in
+        float64, so N ranks' partial sums add up to one rank's."""
         sums: Dict[str, float] = {}
         count = 0.0
         crit_sum, n_batches = 0.0, 0
-        for batch in batches:
-            out = dict(self.eval_step(state, batch, epoch))
-            valid = out.pop("_valid", None)
-            bl = out.pop("_batch_criterion_loss", None)
-            if bl is not None:
-                crit_sum += float(bl)
-                n_batches += 1
-            if valid is not None:
-                count += float(valid.sum())
-            else:
-                count += int(next(iter(out.values())).shape[0])
-            for k, v in out.items():
-                sums[k] = sums.get(k, 0.0) + float(v.sum())
+        with use_group(self.group):
+            for batch in batches:
+                out = dict(self.eval_step(state, self.local_rows(batch), epoch))
+                valid = out.pop("_valid", None)
+                bl = out.pop("_batch_criterion_loss", None)
+                if bl is not None:
+                    crit_sum += float(bl)
+                    n_batches += 1
+                if valid is not None:
+                    count += float(valid.sum())
+                else:
+                    count += int(next(iter(out.values())).shape[0])
+                for k, v in out.items():
+                    sums[k] = sums.get(k, 0.0) + float(v.sum(dtype=torch.float64))
+        if self.group is not None:
+            keys = sorted(sums)
+            total = torch.tensor([sums[k] for k in keys] + [count], dtype=torch.float64,
+                                 device=self.device)
+            total = self.group.all_reduce_(total).tolist()
+            sums, count = dict(zip(keys, total[:-1])), total[-1]
         if count == 0:
             return {}
         result = {k: v / count for k, v in sums.items()}
@@ -199,10 +239,21 @@ class Engine:
     def _detectors(self, state, epoch: int, first, vis_callback) -> None:
         """The negative and stuck-at-zero prediction warnings, and the
         visualization callback, on the first validation batch: one more
-        eval-mode forward (one more front end launch) each validation."""
-        dec = decode_batch(self.put_batch({k: v for k, v in first.items() if k != "_valid"}),
-                           self._depth_units)
-        pred = self.predict_meters(state, dec).detach().float().cpu().numpy()
+        eval-mode forward (one more front end launch) each validation. In a
+        group every rank predicts its rows and rank 0 gathers the whole
+        batch's prediction, as a JAX mesh's detectors read it, and runs the
+        checks and the callback alone."""
+        rows = int(next(iter(first.values())).shape[0])
+        local = self.local_rows({k: v for k, v in first.items() if k != "_valid"})
+        local.pop("_valid", None)
+        with use_group(self.group):
+            dec = decode_batch(self.put_batch(local), self._depth_units)
+            pred = self.predict_meters(state, dec).detach().float()
+        if self.group is not None:
+            pred = self.group.all_gather_rows(pred)[:rows]
+            if not self.group.is_main:
+                return
+        pred = pred.cpu().numpy()
         if (pred < 0).any():
             print(f"WARNING epoch {epoch}: negative depth predictions (min={pred.min():.4f})")
         if np.abs(pred).max() < 1e-6:
@@ -229,7 +280,9 @@ class Engine:
         `on_step(state, metrics)` runs after every step, while the step's
         gradients are still on the parameters. train_batches, val_batches
         and each holdout loader are zero-argument callables that return a
-        fresh iterator of host batches (or of the device cache's).
+        fresh iterator of host batches (or of the device cache's): in a
+        group, this rank's rows of each train batch and the global eval
+        batches.
 
         With a `ckpt_manager`, the state is saved every saving_checkpoints
         epochs (train.py:1005-1021), when `best_tracker.update` reports a new
@@ -242,16 +295,33 @@ class Engine:
         discards the partial epoch, saves the last completed epoch's state
         (kept as a clone taken at each epoch's end, since the parameters and
         the optimizer's state change in place) and returns that state, with
-        `self.preempted` set; --resume continues from there."""
+        `self.preempted` set; --resume continues from there. In a group the
+        ranks agree at every step boundary whether any of them was
+        signalled (an all-reduce of the flag), so all stop at the same step;
+        `log` and `logger` run on rank 0 alone."""
         mode = self.cfg.mode
         epochs = epochs or mode.epochs
         self.preempted = False
+        group = self.group
+        if group is not None and not group.is_main:
+            log = logger = None
+        world = 1 if group is None else group.size
 
         def save(epoch, metrics=None):
             aux = getattr(self.task, "checkpoint_aux", lambda: None)()
             ckpt_manager.save(epoch, state, aux=aux, metrics=metrics)
 
         preempt = {"sig": None}
+
+        def stopping() -> bool:
+            """Whether this rank, or in a group any rank, was signalled."""
+            if group is None:
+                return preempt["sig"] is not None
+            if group.any(preempt["sig"] is not None):
+                preempt["sig"] = preempt["sig"] or signal.SIGTERM
+                return True
+            return False
+
         installed, old_handler = False, None
         if ckpt_manager is not None and getattr(mode, "save_on_preempt", True):
             def on_term(signum, frame):
@@ -277,7 +347,7 @@ class Engine:
         profile_epoch = min(start_epoch + 1, epochs) if profiler is not None else None
         try:
             for epoch in range(start_epoch, epochs + 1):
-                if preempt["sig"] is not None:
+                if stopping():
                     break
                 if epoch == profile_epoch:
                     profiler.start(f"epoch_{epoch}")
@@ -287,9 +357,9 @@ class Engine:
                 last: Dict[str, torch.Tensor] = {}
                 for batch in device_prefetch(train_batches(), self.device,
                                              encode_units=self._encode_units):
-                    if preempt["sig"] is not None:
+                    if stopping():
                         break
-                    n_samples += int(next(iter(batch.values())).shape[0])
+                    n_samples += int(next(iter(batch.values())).shape[0]) * world
                     state, last = self.train_step(state, batch, epoch=float(epoch - 1))
                     if on_step is not None:
                         on_step(state, last)
@@ -297,7 +367,7 @@ class Engine:
                         if k != "grad_norm" and v.dim() == 0:
                             sums[k] = sums[k] + v if k in sums else v
                     n_steps += 1
-                if preempt["sig"] is not None:
+                if stopping():
                     break  # the partial epoch is discarded
                 # the one host readback of the epoch, and its time's sync point
                 record: Dict[str, object] = {"epoch": epoch}
@@ -319,7 +389,7 @@ class Engine:
                         "train/grad_norm": record.get("grad_norm"),
                         "train/lr": record["lr"],
                         "train/epoch_time": dt,
-                        "train/pairs_per_sec_per_chip": record["pairs_per_sec"],
+                        "train/pairs_per_sec_per_chip": record["pairs_per_sec"] / world,
                     }, step=epoch)
                 if (val_batches is not None and mode.validation
                         and epoch % mode.validation_iter == 0):
@@ -327,7 +397,9 @@ class Engine:
                     record["val"] = val
                     if logger is not None and val:
                         logger.log({f"val/{k}": v for k, v in val.items()}, step=epoch)
-                    if vis_callback is not None or logger is not None:
+                    # in a group every rank takes part (rank 0 alone has the
+                    # logger)
+                    if group is not None or vis_callback is not None or logger is not None:
                         first = next(iter(val_batches()), None)
                         if first is not None:
                             self._detectors(state, epoch, first, vis_callback)
@@ -357,7 +429,7 @@ class Engine:
                 profiler.stop()  # a preemption inside the profiled epoch
             if installed:
                 signal.signal(signal.SIGTERM, old_handler or signal.SIG_DFL)
-        if preempt["sig"] is not None:
+        if stopping():
             self.preempted = True
             state = self._restore_snapshot(state, completed)
             if completed_epoch >= start_epoch:

@@ -192,6 +192,24 @@ non-zero:
              weights and seed within F32_GRAD_FACTOR of the card's
              run-to-run floor;
   verify_contracts  `tools/verify_contracts.py` on the card at base 64, 256²;
+  train_dp   data parallelism (`parallel/`) on the one card. A world of one
+             NCCL rank in a child process: unet_256 (ngf 64, bf16, batch
+             16, 4 steps) beside the plain engine from the same init and
+             batches (|Δ| of losses and parameters printed), B1 once a
+             step. Two gloo ranks time-sharing cuda:0 (NCCL refuses two
+             ranks on one GPU; every collective staged through pinned host
+             memory), 8 + 8 rows of one repeated batch, 3 bf16 steps of the
+             unet and of the binaural net (base 64, γ seeded): both ranks'
+             parameters and buffers bit-equal after every step (a sha256 of
+             each state), one loss, falling, every parameter moved, B1 once
+             and B2 / B3 four times a rank and step. In each world a float32
+             step (TF32 off; the unet with the sigmoid head, see `_dp_cfg`)
+             whose reduced gradient is within F32_GRAD_FACTOR × the plain
+             engine's own error + DP_F32_SLACK of a CPU float64 step on the
+             same global batch. `cli.train --num_devices` above the card
+             count exits naming the count; `--num_devices 1` trains. The
+             step times are two processes time-sharing one card, not
+             scaling;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -2778,6 +2796,309 @@ PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_bwd": "flash_bwd"}
 
 
+# data parallelism on the one card (`parallel/`): a world of one NCCL rank
+# in a child process (no process group leaks into the phases after it), and
+# two gloo ranks time-sharing cuda:0 (NCCL refuses two ranks on one GPU)
+DP_GLOBAL_BATCH = 16      # 8 + 8 rows on the two gloo ranks
+DP_NCCL_STEPS = 4         # the NCCL world's bf16 steps, beside the plain engine's
+DP_STEPS = 3              # the gloo world's bf16 steps on one repeated batch
+DP_MODELS = ("unet_baseline", "binaural_attention")
+# the float32 gradient check's global batch: small enough for the CPU's
+# float64 reference at full width (one row a rank for the binaural net)
+DP_F32_BATCH = {"unet_baseline": 4, "binaural_attention": 2}
+DP_F32_SLACK = 1e-6       # added to F32_GRAD_FACTOR × the plain engine's error
+DP_PER_STEP = {"unet_baseline": UNET_PER_TRAIN_STEP, "binaural_attention": PER_TRAIN_STEP}
+DP_WORLD_TIMEOUT_S = 420
+DP_DEVICE = "cuda:0"      # every rank's card
+DP_ONE_RANK_BACKEND = "nccl"
+
+
+def _dp_cfg(configs, model, dtype, batch, f32_check=False):
+    """The model at full width (unet_256 ngf 64, or the binaural net at
+    base 64), 256², synthetic. `f32_check`: plain SGD without a clip, which
+    leaves a train step's reduced gradient on the parameters as it was, and
+    for the unet the sigmoid head (depth_norm): at init the default head's
+    outputs sit at the SIlog's clamp, where the gradient is discontinuous,
+    and there a float32 gradient is 14-18 % off float64 on the card and on
+    the CPU alike (f32_train_vs_cpu), which no bound of 2× can resolve."""
+    over = {"mode.compute_dtype": dtype, "mode.batch_size": batch, "mode.seed": 0}
+    if f32_check:
+        over.update({"mode.optimizer": "SGD", "mode.grad_clip_norm": 0.0})
+        if model == "unet_baseline":
+            over["dataset.depth_norm"] = True
+    return configs.load_config("synthetic", "train", model_name=model, overrides=over)
+
+
+def _dp_task(torch, np, models, cfg, device):
+    task = models.make_task(cfg, device=device)
+    models.init_weights(task.model, torch.Generator().manual_seed(0))
+    if cfg.model.name == "binaural_attention":
+        set_gammas(torch, np, task.model)
+    return task
+
+
+def _dp_digest(torch, model) -> str:
+    """sha256 of every parameter's and buffer's bytes, in state_dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_local(batch, group):
+    from audiodepth_tpu_torch.parallel import local_batch_slice
+
+    if group is None:
+        return batch
+    rows = local_batch_slice(next(iter(batch.values())).shape[0], group.rank, group.size)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _dp_f32_grads(torch, np, configs, models, model, group, state_dict, batch):
+    """The float32 (TF32 off) gradient of one engine step on the global
+    `batch` (this rank's rows in a group), on the card."""
+    from audiodepth_tpu_torch.train.engine import Engine
+
+    cfg = _dp_cfg(configs, model, "float32", DP_F32_BATCH[model], f32_check=True)
+    task = models.make_task(cfg, device=DP_DEVICE)
+    task.model.load_state_dict(state_dict, strict=True)
+    eng = Engine(cfg, task, group=group)
+    state = eng.init_state()
+    eng.train_step(state, _dp_local(batch, group))
+    return {n: p.grad.detach().cpu().double() for n, p in task.model.named_parameters()
+            if p.grad is not None}
+
+
+def _dp_f32_check(torch, np, configs, models, model, group):
+    """The group's float32 gradient against a CPU float64 step on the same
+    global batch, beside the plain engine's (no group) on the card: the
+    group's error (global relative L2, worst tensor) within F32_GRAD_FACTOR
+    × the plain engine's + DP_F32_SLACK. Rank 0 measures; every rank takes
+    the group's step."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    n = DP_F32_BATCH[model]
+    cfg64 = _dp_cfg(configs, model, "float64", n, f32_check=True)
+    ref = _dp_task(torch, np, models, cfg64, "cpu")
+    state_dict = {k: v.float() if v.is_floating_point() else v
+                  for k, v in ref.model.state_dict().items()}
+    batch = next(make_dataset(cfg64, "train", num_samples=n).batches(n, shuffle=False))
+    got = _dp_f32_grads(torch, np, configs, models, model, group, state_dict, batch)
+    if group is not None and not group.is_main:
+        group.barrier()
+        return None
+    plain = _dp_f32_grads(torch, np, configs, models, model, None, state_dict, batch)
+    t0 = time.perf_counter()
+    ref.model.double().load_state_dict(state_dict, strict=True)
+    ref.model.zero_grad(set_to_none=True)
+    loss, _ = ref.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()}, 0.0)
+    loss.backward()
+    want = {n: p.grad.detach().double() for n, p in ref.model.named_parameters()
+            if p.grad is not None}
+    cpu_s = time.perf_counter() - t0
+    gmax = max(float(g.abs().max()) for g in want.values())
+    ref_l2 = float(torch.sqrt(sum((g * g).sum() for g in want.values())))
+
+    def errors(grads):
+        per = {k: float((grads[k] - w).abs().max()) / max(float(w.abs().max()), 1e-3 * gmax)
+               for k, w in want.items()}
+        l2 = float(torch.sqrt(sum(((grads[k] - w) ** 2).sum() for k, w in want.items())))
+        return l2 / ref_l2, max(per.values())
+
+    assert set(got) == set(plain) == set(want), model
+    got_l2, got_worst = errors(got)
+    plain_l2, plain_worst = errors(plain)
+    if group is not None:
+        group.barrier()
+    assert got_l2 <= F32_GRAD_FACTOR * plain_l2 + DP_F32_SLACK, (model, got_l2, plain_l2)
+    assert got_worst <= F32_GRAD_FACTOR * plain_worst + DP_F32_SLACK, (
+        model, got_worst, plain_worst)
+    return {"model": model, "global_batch": n, "group_vs_f64_global_l2_rel": got_l2,
+            "plain_vs_f64_global_l2_rel": plain_l2, "group_vs_f64_worst_tensor": got_worst,
+            "plain_vs_f64_worst_tensor": plain_worst, "grad_factor": F32_GRAD_FACTOR,
+            "slack": DP_F32_SLACK, "cpu_f64_seconds": cpu_s}
+
+
+def _dp_bf16_steps(torch, np, configs, models, kernels, model, group, steps, batches):
+    """`steps` bf16 engine steps (this rank's rows of each global batch)
+    from the seeded init: losses, step times, launches (counts reset just
+    before, read just after), a digest of the state after each step, and
+    the parameters that did not move."""
+    from audiodepth_tpu_torch.train.engine import Engine
+
+    cfg = _dp_cfg(configs, model, "bfloat16", DP_GLOBAL_BATCH)
+    task = _dp_task(torch, np, models, cfg, DP_DEVICE)
+    eng = Engine(cfg, task, steps_per_epoch=steps, group=group)
+    state = eng.init_state()
+    before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+    local = [_dp_local(eng.encode(b), group) for b in batches]
+    losses, times, digests = [], [], []
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = eng.train_step(state, local[i % len(local)])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if group is not None and group.size > 1:
+            digests.append(_dp_digest(torch, task.model))
+    launches, by_variant = read_launches(kernels)
+    unmoved = [n for n, p in task.model.named_parameters()
+               if p.requires_grad and torch.equal(p.detach(), before[n])]
+    params = {n: p.detach().float().cpu() for n, p in task.model.named_parameters()}
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times], "digests": digests,
+            "launches": launches, "by_variant": by_variant, "unmoved": unmoved}, params
+
+
+def _dp_rank(rank, world, backend, init, outdir):
+    """One rank of a train_dp world, on cuda:0: its cases, then
+    rank<r>.json in `outdir`."""
+    import torch
+    import numpy as np
+
+    from audiodepth_tpu_torch import configs, models
+    from audiodepth_tpu_torch._device import configure_precision
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.ops.cuda import KERNELS
+    from audiodepth_tpu_torch.parallel import initialize_multihost, shutdown
+
+    configure_precision()
+    group = initialize_multihost(init, world, rank, backend=backend, device=DP_DEVICE)
+    out = {"rank": rank, "world": world, "backend": backend}
+    try:
+        one_rank = world == 1
+        for model in (("unet_baseline",) if one_rank else DP_MODELS):
+            cfg = _dp_cfg(configs, model, "bfloat16", DP_GLOBAL_BATCH)
+            n_batches = DP_NCCL_STEPS if one_rank else 1
+            ds = make_dataset(cfg, "train", num_samples=DP_GLOBAL_BATCH * n_batches)
+            batches = list(ds.batches(DP_GLOBAL_BATCH, shuffle=False))
+            steps = DP_NCCL_STEPS if one_rank else DP_STEPS
+            row, params = _dp_bf16_steps(torch, np, configs, models, KERNELS, model, group,
+                                         steps, batches)
+            if one_rank:  # the plain engine from the same init and batches
+                plain, plain_params = _dp_bf16_steps(torch, np, configs, models, KERNELS,
+                                                     model, None, steps, batches)
+                row["plain_losses"] = plain["losses"]
+                row["plain_step_ms"] = plain["step_ms"]
+                row["max_abs_loss_delta"] = max(abs(a - b) for a, b in
+                                                zip(row["losses"], plain["losses"]))
+                row["max_abs_param_delta"] = max(float((params[k] - plain_params[k]).abs().max())
+                                                 for k in params)
+            del params
+            row["f32"] = _dp_f32_check(torch, np, configs, models, model, group)
+            out[model] = row
+            torch.cuda.empty_cache()
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def _dp_world(world, backend):
+    """Spawn the world (file:// rendezvous), wait at most
+    DP_WORLD_TIMEOUT_S, and return every rank's results; a rank that fails
+    or hangs fails the phase, and no rank outlives it."""
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        ctx = mp.start_processes(_dp_rank, args=(world, backend,
+                                                 "file://" + os.path.join(work, "rdv"), work),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + DP_WORLD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"train_dp {backend} world of {world}: no end "
+                                       f"within {DP_WORLD_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        results = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train_dp(torch, np, train_cli, kernels, smi):
+    """Data-parallel training on the one card (module note). Returns the
+    launches of each rank's path for the kernels line."""
+    launches = {}
+    t0 = time.perf_counter()
+    (one,) = _dp_world(1, DP_ONE_RANK_BACKEND)
+    nccl_s = time.perf_counter() - t0
+    row = one["unet_baseline"]
+    assert all(np.isfinite(row["losses"])) and len(row["losses"]) == DP_NCCL_STEPS, row
+    want = {k: v * DP_NCCL_STEPS for k, v in UNET_PER_TRAIN_STEP.items()}
+    assert row["launches"] == want, (row["launches"], want)
+    assert not row["unmoved"], row["unmoved"][:8]
+    launches["train_dp nccl world of 1 unet_baseline"] = (row["launches"], row["by_variant"])
+    emit({"phase": "train_dp", "world": "1 nccl rank", "model": "unet_baseline",
+          "card": smi, "global_batch": DP_GLOBAL_BATCH, "steps": DP_NCCL_STEPS,
+          "losses": row["losses"], "plain_losses": row["plain_losses"],
+          "max_abs_loss_delta": row["max_abs_loss_delta"],
+          "max_abs_param_delta": row["max_abs_param_delta"],
+          "step_ms": row["step_ms"], "plain_step_ms": row["plain_step_ms"],
+          "launches": row["launches"], "f32": row["f32"], "world_s": nccl_s})
+
+    t0 = time.perf_counter()
+    ranks = _dp_world(2, "gloo")
+    gloo_s = time.perf_counter() - t0
+    for model in DP_MODELS:
+        rows = [r[model] for r in ranks]
+        per_step = {k: v * DP_STEPS for k, v in DP_PER_STEP[model].items()}
+        for rank, r in enumerate(rows):
+            assert all(np.isfinite(r["losses"])), (model, rank, r["losses"])
+            assert r["losses"][-1] < r["losses"][0], (model, rank, r["losses"])
+            assert not r["unmoved"], (model, rank, r["unmoved"][:8])
+            assert r["launches"] == per_step, (model, rank, r["launches"], per_step)
+            launches[f"train_dp gloo rank {rank} of 2 {model}"] = (r["launches"],
+                                                                  r["by_variant"])
+        # one replicated state: both ranks' parameters and buffers bit-equal
+        # after every step, and one global loss
+        assert rows[0]["digests"] == rows[1]["digests"], model
+        assert rows[0]["losses"] == rows[1]["losses"], model
+        assert rows[0]["f32"] is not None and rows[1]["f32"] is None
+        emit({"phase": "train_dp", "world": "2 gloo ranks time-sharing one card",
+              "model": model, "card": smi, "global_batch": DP_GLOBAL_BATCH,
+              "rows_per_rank": DP_GLOBAL_BATCH // 2, "steps": DP_STEPS,
+              "losses": rows[0]["losses"],
+              "step_ms": {f"rank {i}": r["step_ms"] for i, r in enumerate(rows)},
+              "note": "two processes time-sharing one card, collectives staged "
+                      "through host memory: not a scaling measurement",
+              "launches_per_rank": rows[0]["launches"], "f32": rows[0]["f32"],
+              "state_digest_after_each_step": rows[0]["digests"]})
+
+    # the CLI: more ranks than cards exits naming the count; one rank trains
+    count = torch.cuda.device_count()
+    proc = subprocess.run([sys.executable, "-m", "audiodepth_tpu_torch.cli.train",
+                           "--dataset", "synthetic", "--num_devices", str(count + 1)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    said = proc.stdout + proc.stderr
+    assert proc.returncode != 0 and f"this machine has {count} CUDA device" in said, said[-2000:]
+    eng, state = train_cli.main([
+        "--dataset", "synthetic", "--model", "unet_baseline", "--compute_dtype", "bfloat16",
+        "--batch_size", str(DP_GLOBAL_BATCH), "--num_samples", str(DP_GLOBAL_BATCH),
+        "--epochs", "1", "--validation", "false", "--seed", "0", "--num_devices", "1"])
+    assert state.step == 1 and np.isfinite(eng.history[-1]["loss"]), eng.history
+    emit({"phase": "train_dp", "cli_num_devices_over_count": {
+        "num_devices": count + 1, "returncode": proc.returncode,
+        "message": said.strip().splitlines()[-1]},
+          "cli_num_devices_1_steps": state.step, "gloo_world_s": gloo_s})
+    return launches
+
+
 def kernel_entry(wrapper, source, replaces, rows, main_row, launches, peak_name, ptxas, sass):
     """One entry of the `kernels` line: numbers at the kernel's main shape,
     the largest error over all its shapes, launches summed over the paths
@@ -2876,6 +3197,8 @@ def main() -> int:
     launches["train adabins_distillation remat"] = phase_adabins_remat(torch, np, configs, models,
                                                                       KERNELS)
     phase_verify_contracts(torch)
+    launches.update(phase_train_dp(torch, np, train_cli, KERNELS, smi))
+    torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
         root = os.path.join(work, "BatvisionV2")

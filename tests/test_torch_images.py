@@ -9,6 +9,7 @@ package's, and the paths that read them, on fabricated trees.
     (on the CPU), the batches equal the JAX device cache's, and decode to
     the JAX codec's float32 image;
   * the image path needs OpenCV and says so when it does not import;
+  * ADEPTH_IMAGE_THREADS sizes the image pool, as in the JAX package;
   * `cli.train --eval_img` trains the baseline on camera images under the
     JAX CLI's experiment name (with IMG), and `cli.evaluate --eval_img`
     scores its checkpoint on images; BatVision V1, which has no camera,
@@ -88,6 +89,28 @@ def test_bv2_image_samples_and_batches_match_jax(tree, use_image):
                 _assert_equal(g, w)
             if native:
                 assert gb[0]["image"].dtype == np.uint8
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+def test_image_pool_width_follows_env_and_batches_match_jax(tree, threads, monkeypatch):
+    """ADEPTH_IMAGE_THREADS sets the camera-image pool's width (default 8),
+    as in the JAX package, and the image batches stay bit-equal to JAX's."""
+    monkeypatch.setenv("ADEPTH_IMAGE_THREADS", str(threads))
+    monkeypatch.setattr(jbv, "_IMAGE_POOL", None)
+    bv._image_pool.cache_clear()
+    try:
+        assert bv._image_pool()._max_workers == threads
+        jcfg, cfg = _cfgs(tree)
+        got = bv.BatvisionV2Dataset(cfg, "train.csv", use_image="both")
+        want = jbv.BatvisionV2Dataset(jcfg, "train.csv", use_image="both")
+        gb = list(got.batches(3, seed=5, drop_last=False))
+        wb = list(want.batches(3, seed=5, drop_last=False))
+        assert jbv._image_pool()._max_workers == threads
+        assert len(gb) == len(wb) == 3
+        for g, w in zip(gb, wb):
+            _assert_equal(g, w)
+    finally:
+        bv._image_pool.cache_clear()
 
 
 @pytest.mark.parametrize("use_image", [True, "both"])

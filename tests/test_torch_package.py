@@ -3,7 +3,7 @@
   * every module of `audiodepth_tpu_torch` imports with jax, flax, optax
     and the JAX package blocked (by exact top-level name: a prefix check on
     "audiodepth_tpu" would also match the port), the training slice's
-    modules among them;
+    modules among them, and the data-parallel ones (`parallel`);
   * the corpus path's modules (the loaders, the native decoder, prefetch,
     the device cache, the metric sink, both CLIs, the sparse datasets and
     the sparse-depth preprocessor, which imports OpenCV in its functions)
@@ -72,6 +72,9 @@ _TRAINING_SLICE = {
 # the tools and the last family pieces
 _TOOLS_SLICE = {"tools.export", "tools.profile_step", "tools.verify_contracts", "obs.logging",
                 "obs.visualize", "models.adabins", "models.unet_cvae", "ops.cuda"}
+# the data-parallel modules
+_PARALLEL_SLICE = {"parallel", "parallel.mesh", "parallel.multihost", "train.engine", "ckpt",
+                   "data.device_cache", "cli.train"}
 # the corpus path's modules
 _CORPUS_SLICE = {
     "data.batvision", "data.native_io", "data.prefetch", "data.device_cache", "obs",
@@ -86,7 +89,7 @@ def test_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked = {n.split(".", 1)[1] for n in out.stdout.split()}
     assert len(walked) >= 48  # every module was walked
-    slices = _TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE
+    slices = _TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE | _PARALLEL_SLICE
     assert slices <= walked, slices - walked
 
 

@@ -618,13 +618,19 @@ def test_cli_config_from_flags():
     assert cfg.dataset.images_size == 32
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--num_devices", "8"], "A8"), (["--num_devices", "2"], "A8"),
-    (["--num_devices", "4"], "A8"),
+@pytest.mark.parametrize("cards,flags,err,match", [
+    # more ranks than cards on cuda: no fallback to fewer ranks or the CPU
+    (1, ["--num_devices", "2"], SystemExit, "this machine has 1 CUDA device"),
+    (2, ["--num_devices", "4"], SystemExit, "this machine has 2 CUDA device"),
+    # no card at all, and no --device cpu: the entry points' own error
+    (0, ["--num_devices", "2"], RuntimeError, "device='cpu'"),
 ])
-def test_cli_refuses_unported_flags(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-        train_cli.main(_CPU_ARGS + flags)
+def test_cli_refuses_unported_flags(cards, flags, err, match, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    args = [a for a in _CPU_ARGS if a not in ("--device", "cpu")]
+    with pytest.raises(err, match=match):
+        train_cli.main(args + flags)
 
 
 # ---------------------------------------------------------------------------
