@@ -16,6 +16,9 @@ the previous step's compute. Two rules keep the buffers safe:
   * a pinned buffer is refilled only after the event of the copy that read
     it has completed (a host wait on that event), so a batch in flight is
     never overwritten.
+`copies` counts the host→device batch copies issued and the events
+recorded after them (reset and read like the kernels' launch counters), so
+a caller can tell every copy ran without a trace, which may drop records.
 A batch whose values are all tensors on the device already (from
 `DeviceDatasetCache`) passes through. On a CPU device, which a caller asks
 for, it is a plain generator: each batch is encoded and wrapped as tensors,
@@ -31,6 +34,23 @@ import numpy as np
 import torch
 
 from .codec import encode_batch
+
+
+class CopyCounts:
+    """The batch copies `device_prefetch` issued to a card (one a tensor)
+    and the events it recorded after them (one a batch), since `reset`."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.copies = self.events = 0
+
+    def read(self) -> Dict[str, int]:
+        return {"copies": self.copies, "events": self.events}
+
+
+copies = CopyCounts()
 
 
 def _on_device(batch, device: torch.device) -> bool:
@@ -100,8 +120,10 @@ def device_prefetch(
                    for k, h in host.items()}
             for k, h in host.items():
                 dev[k].copy_(h, non_blocking=True)
+                copies.copies += 1
             slot.event = torch.cuda.Event()
             slot.event.record(copy_stream)
+            copies.events += 1
         return dev, slot.event
 
     queue: collections.deque = collections.deque()

@@ -20,14 +20,22 @@ projections are 1×1 convs ([O, I, 1, 1]) applied to tokens as matrix
 products. With `remat` (the config's `model.extra.remat`, on by default as
 in the JAX package) both encoders recompute their activations in the
 backward of a train-mode forward instead of keeping them, and BatchNorm
-folds its statistics once. `sp_axis` of the JAX model (sequence
-parallelism) is not ported yet (ROADMAP.md A8b); data parallelism is
-(`parallel/`).
+folds its statistics once.
+
+Sequence parallelism (`sp_axis`, the JAX model's field, default None):
+with `sp_axis="model"` and a ('data', 'model') group active
+(`parallel.use_group` of a `MeshGroup`) whose model axis has sp > 1 ranks,
+each attention computes q, K and V on every token, then its ⌈N/sp⌉ query
+rows against all N keys (B2 on the card at Nq = N/sp, B3 in the backward),
+and all-gathers the outputs (`parallel/sequence.py`); everything else runs
+replicated over the model axis. `build_binaural` leaves it None, as the JAX
+factory does; set it on the net (`net.sp_axis = "model"`), which sets it on
+every attention. Data parallelism is `parallel/`'s.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -35,6 +43,8 @@ import torch.nn.functional as F
 
 from ..ops.cuda.flash_attention import cross_attention
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import active_axis
+from ..parallel.sequence import sequence_parallel_attention
 from .base_residual import SharedEncoder
 from .layers import BatchNorm, Conv2d, UpBilinear, at_least_f32, init_modules, kaiming_init
 
@@ -64,11 +74,13 @@ class _Projection(Conv2d):
 
 
 class BinauralCrossAttention(nn.Module):
-    """Bidirectional cross-channel attention with shared projections."""
+    """Bidirectional cross-channel attention with shared projections;
+    `sp_axis`: the mesh axis its query rows are split over (module note)."""
 
     def __init__(self, channels: int, reduction: int = ATTENTION_REDUCTION,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, sp_axis: Optional[str] = None):
         super().__init__()
+        self.sp_axis = sp_axis
         inner = channels // reduction
         self.query = _Projection(channels, inner, 1, dtype=dtype)
         self.key = _Projection(channels, inner, 1, dtype=dtype)
@@ -83,8 +95,12 @@ class BinauralCrossAttention(nn.Module):
         # L→R and R→L share the projections: one attention call over 2B rows
         both = torch.cat([lt, rt], dim=0)
         swapped = torch.cat([rt, lt], dim=0)
-        att = cross_attention(self.query(both), self.key(swapped), self.value(swapped),
-                              self.scale)
+        group = None if self.sp_axis is None else active_axis(self.sp_axis)
+        q, k, v = self.query(both), self.key(swapped), self.value(swapped)
+        if group is None or group.size == 1:
+            att = cross_attention(q, k, v, self.scale)
+        else:
+            att = sequence_parallel_attention(cross_attention, q, k, v, self.scale, group)
         out = self.out(att)
         # γ is an fp32 parameter: the gated sum promotes, then casts back
         left_out = (lt + self.gamma * out[:b]).to(left.dtype)
@@ -99,7 +115,8 @@ class BinauralCrossAttention(nn.Module):
 class BinauralAttentionNet(nn.Module):
     def __init__(self, base_channels: int = 64, max_depth: float = 30.0,
                  attention_levels: Sequence[int] = (2, 3, 4, 5), output_size: int = 256,
-                 remat: bool = False, dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32,
+                 sp_axis: Optional[str] = None):
         super().__init__()
         c = base_channels
         ch = level_channels(c)
@@ -110,7 +127,7 @@ class BinauralAttentionNet(nn.Module):
         self.left_encoder = SharedEncoder(1, c, dtype=dtype, remat=remat)
         self.right_encoder = SharedEncoder(1, c, dtype=dtype, remat=remat)
         self.attention_modules = nn.ModuleDict({
-            f"attn_{lv}": BinauralCrossAttention(ch[lv], dtype=dtype)
+            f"attn_{lv}": BinauralCrossAttention(ch[lv], dtype=dtype, sp_axis=sp_axis)
             for lv in self.attention_levels})
         self.fusion_layers = nn.ModuleDict({
             f"fusion_{lv}": nn.Sequential(Conv2d(2 * ch[lv], ch[lv], 1, dtype=dtype),
@@ -121,6 +138,17 @@ class BinauralAttentionNet(nn.Module):
         self.up3 = UpBilinear(c * 2 + ch[2], c, dtype=dtype)
         self.up4 = UpBilinear(c + ch[1], c, dtype=dtype)
         self.outc = nn.Sequential(Conv2d(c, 1, 1, dtype=dtype))
+
+    @property
+    def sp_axis(self) -> Optional[str]:
+        """The mesh axis every attention splits its query rows over."""
+        return next(iter(self.attention_modules.values())).sp_axis \
+            if self.attention_modules else None
+
+    @sp_axis.setter
+    def sp_axis(self, axis: Optional[str]) -> None:
+        for m in self.attention_modules.values():
+            m.sp_axis = axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, 2, H, W] → [B, 1, S, S] depth in meters (S = output_size)."""

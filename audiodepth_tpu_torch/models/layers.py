@@ -23,10 +23,12 @@ blocks name them `conv` and `pool_conv` (the `inner` / `pool` arguments).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -309,8 +311,51 @@ class Down(nn.Module):
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """2× bilinear upsample with torch's align_corners=True phase (the JAX
-    package reproduces it with `scale_and_translate`)."""
+    package reproduces it with `scale_and_translate`). On a card in torch's
+    deterministic mode (`torch.use_deterministic_algorithms`, which a
+    sequence-parallel engine turns on around its steps) its backward is two
+    products with the interpolation matrices: torch's own adds with atomics,
+    in an order that differs from run to run, and refuses to run in that
+    mode."""
+    if x.is_cuda and torch.are_deterministic_algorithms_enabled():
+        return _Upsample2xDeterministic.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _align_corners_matrix(n: int, device: torch.device,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[2n, n] weights of the 2× align_corners=True interpolation in `dtype`
+    (float32 or float64), computed as torch's kernel computes them in its
+    accumulation type (the scale and source index in that type); made once
+    for each (n, device, dtype)."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    out = 2 * n
+    scale = ft((n - 1) / (out - 1)) if out > 1 else ft(0.0)
+    src = scale * np.arange(out, dtype=ft)
+    i0 = src.astype(np.int64)
+    i1 = np.minimum(i0 + 1, n - 1)
+    lam1 = src - i0.astype(ft)
+    m = np.zeros((out, n), ft)
+    np.add.at(m, (np.arange(out), i0), ft(1.0) - lam1)
+    np.add.at(m, (np.arange(out), i1), lam1)
+    return torch.from_numpy(m).to(device)
+
+
+class _Upsample2xDeterministic(torch.autograd.Function):
+    """torch's 2× align_corners upsample forward; backward Aₕᵀ·g·A_w in at
+    least float32 (`_align_corners_matrix`)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.hw = x.shape[-2:]
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        acc = torch.promote_types(g.dtype, torch.float32)
+        ah, aw = (_align_corners_matrix(n, g.device, acc) for n in ctx.hw)
+        return torch.matmul(torch.matmul(ah.t(), g.to(acc)), aw).to(g.dtype)
 
 
 class UpBilinear(nn.Module):

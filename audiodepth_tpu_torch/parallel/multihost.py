@@ -4,6 +4,8 @@
     group = initialize_multihost("file:///tmp/init", num_processes=2, process_id=r)
     eng = Engine(cfg, task, steps_per_epoch, group=group)
     # each rank loads local_batch_slice(global_batch) of every train batch
+    mesh = make_global_mesh(("data", "model"), (2, 2))   # 4 ranks, DP × SP
+    # each rank loads mesh.local_rows(global_batch): its data index's rows
 
 `torch.distributed` needs its address, world size and rank given: nothing
 tells a process of a cluster. The backend is NCCL on cards and gloo on the
@@ -13,13 +15,13 @@ refuses two ranks on one GPU).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import DataGroup, pad_batch_to
+from .mesh import DataGroup, make_mesh_group, pad_batch_to
 
 
 def initialize_multihost(coordinator_address: str, num_processes: int, process_id: int,
@@ -39,6 +41,26 @@ def initialize_multihost(coordinator_address: str, num_processes: int, process_i
     dist.init_process_group(backend, init_method=init, world_size=int(num_processes),
                             rank=int(process_id))
     return DataGroup()
+
+
+def make_global_mesh(axis_names: Sequence[str] = ("data",),
+                     shape: Optional[Sequence[int]] = None):
+    """The group over every rank of the initialized world (the JAX
+    package's mesh over all devices): a 1-D ("data",) `DataGroup` by
+    default, or with axis_names ("data", "model") the `MeshGroup` of
+    `shape` (dp, sp), default (world, 1). A collective call on a 2-D
+    mesh: every rank makes it."""
+    axis_names = tuple(axis_names)
+    n = dist.get_world_size()
+    if axis_names == ("data",):
+        if shape is not None and tuple(shape) != (n,):
+            raise ValueError(f"a ('data',) mesh over {n} ranks has shape ({n},), not {shape}")
+        return DataGroup()
+    if axis_names != ("data", "model"):
+        raise ValueError(f"the port's meshes are ('data',) and ('data', 'model'), "
+                         f"not {axis_names}")
+    dp, sp = (n, 1) if shape is None else (int(shape[0]), int(shape[1]))
+    return make_mesh_group(dp, sp)
 
 
 def shutdown() -> None:

@@ -34,15 +34,31 @@ takes GLOBAL batches, each rank keeping its rows (`parallel.local_shard`,
 ragged tails padded with a `_valid` mask), and all-reduces the metric sums.
 `fit` logs, draws and checkpoints on rank 0 (the manager writes there), and
 a SIGTERM on any rank stops every rank at the same step boundary.
+
+A ('data', 'model') group (`parallel.MeshGroup` of dp × sp ranks) is the
+JAX engine's 2-D mesh: the ranks of one data index hold the same rows and
+run the same program on them, replicated over the model axis, except the
+layers that split their work over it (the binaural attention with
+`sp_axis`, the plain STFT front end, which the engine attaches when sp > 1).
+The batch reductions, the gradient all-reduce (divided by dp), evaluation's
+sums and the row slices run over the data axis; the initial broadcast, the
+SIGTERM flag, rank 0's logs and checkpoints over the whole world. The model
+ranks' gradients come out equal by construction, so nothing reduces them
+over the model axis; on a card that needs the replicated part of the step
+computed deterministically, which the engine turns on around its steps and
+off after them (`deterministic_kernels`). A `DataGroup` is a mesh of one
+axis.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import os
 import signal
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -50,10 +66,41 @@ import torch
 from ..configs import Config
 from ..data.codec import decode_batch, depth_storage_units, encode_batch
 from ..data.prefetch import device_prefetch
-from ..parallel import (DataGroup, all_reduce_grads_, broadcast_module, local_shard,
-                        use_group)
+from ..parallel import (MeshGroup, all_reduce_grads_, broadcast_module, data_axis,
+                        local_shard, use_group, world_of)
 from .optim import clip_by_global_norm_, global_norm, make_optimizer, make_schedule
 from .tasks import Task
+
+
+@contextlib.contextmanager
+def deterministic_kernels(on: bool = True) -> Iterator[None]:
+    """Torch's deterministic mode for the enclosed steps (nothing when not
+    `on`), its flags restored after: the ranks of a model axis compute the
+    replicated part of a step (everything but the attention's query rows)
+    each on its own, so a kernel that adds in a run-dependent order (cuDNN's
+    atomic convolution backwards, the bilinear upsample's backward) would
+    part their states by a rounding a step. cuBLAS needs its workspace fixed
+    for it (CUBLAS_WORKSPACE_CONFIG, set for the steps where unset). New
+    tensors are not filled (the mode's default would write every
+    `torch.empty`), so the kernels see their buffers as on every other path."""
+    if not on:
+        yield
+        return
+    import torch.utils.deterministic as det
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = prev[2]
+        if prev[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 @dataclass
@@ -67,14 +114,20 @@ class TrainState:
 
 
 class Engine:
-    def __init__(self, cfg: Config, task: Task, steps_per_epoch: int = 1,
-                 group: Optional[DataGroup] = None):
+    def __init__(self, cfg: Config, task: Task, steps_per_epoch: int = 1, group=None):
         self.cfg = cfg
         self.task = task
         self.group = group
+        # the batch reductions' ranks, and every rank
+        self.data_group, self.world = data_axis(group), world_of(group)
         self.device = task.device
+        sequence_parallel = isinstance(group, MeshGroup) and group.axis_size("model") > 1
+        if sequence_parallel:
+            task.attach_group(group)  # the frame-sharded STFT front end
+        # the model ranks' replicated computation, bit-alike on a card
+        self._deterministic = sequence_parallel and self.device.type == "cuda"
         if group is not None:
-            broadcast_module(task.model, group)
+            broadcast_module(task.model, self.world)
         self.schedule = make_schedule(cfg.mode, steps_per_epoch)
         self.steps_per_epoch = steps_per_epoch
         # compact-transport decode scale: the dataset's STORED depth range
@@ -108,27 +161,28 @@ class Engine:
         if "_valid" in batch:
             raise ValueError("padded batches (_valid mask) are eval-only; train loaders "
                              "must produce full batches (drop_last)")
-        batch = decode_batch(self.put_batch(batch), self._depth_units)
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        self.task.begin_step(state.step)
-        # the backward too runs in the group: remat recomputes BatchNorm there
-        with use_group(self.group):
-            loss, aux = self.task.loss_fn(batch, float(epoch))
-            loss.backward()
-        # a frozen part's parameters have no gradient: its zeros add nothing
-        # to the norm
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        if self.group is not None:
-            all_reduce_grads_(grads, self.group)
-        norm = global_norm(grads)
-        clip = self.cfg.mode.grad_clip_norm
-        if clip and clip > 0:
-            clip_by_global_norm_(grads, norm, clip)
-        lr = self.schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with deterministic_kernels(self._deterministic):
+            batch = decode_batch(self.put_batch(batch), self._depth_units)
+            opt = state.optimizer
+            opt.zero_grad(set_to_none=True)
+            self.task.begin_step(state.step)
+            # the backward too runs in the group: remat recomputes BatchNorm there
+            with use_group(self.group):
+                loss, aux = self.task.loss_fn(batch, float(epoch))
+                loss.backward()
+            # a frozen part's parameters have no gradient: its zeros add nothing
+            # to the norm
+            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+            if self.data_group is not None and self.data_group.size > 1:
+                all_reduce_grads_(grads, self.data_group)
+            norm = global_norm(grads)
+            clip = self.cfg.mode.grad_clip_norm
+            if clip and clip > 0:
+                clip_by_global_norm_(grads, norm, clip)
+            lr = self.schedule(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["grad_norm"] = norm
@@ -174,12 +228,13 @@ class Engine:
         return self.task.predict_meters(batch)
 
     def local_rows(self, batch):
-        """This rank's rows of a GLOBAL eval batch (`parallel.local_shard`:
-        padded to a multiple of N with a `_valid` mask); the batch itself
-        on one rank."""
-        if self.group is None:
+        """This rank's rows of a GLOBAL eval batch (`parallel.local_shard`
+        over the data axis: padded to a multiple of its size with a `_valid`
+        mask); the batch itself on one rank."""
+        dg = self.data_group
+        if dg is None:
             return batch
-        return local_shard(batch, self.group.size, self.group.rank, self.group.size)
+        return local_shard(batch, dg.size, dg.rank, dg.size)
 
     def evaluate(self, state: TrainState, batches: Iterable,
                  epoch: float = 0.0) -> Dict[str, float]:
@@ -192,7 +247,7 @@ class Engine:
         sums: Dict[str, float] = {}
         count = 0.0
         crit_sum, n_batches = 0.0, 0
-        with use_group(self.group):
+        with use_group(self.group), deterministic_kernels(self._deterministic):
             for batch in batches:
                 out = dict(self.eval_step(state, self.local_rows(batch), epoch))
                 valid = out.pop("_valid", None)
@@ -210,7 +265,7 @@ class Engine:
             keys = sorted(sums)
             total = torch.tensor([sums[k] for k in keys] + [count], dtype=torch.float64,
                                  device=self.device)
-            total = self.group.all_reduce_(total).tolist()
+            total = self.data_group.all_reduce_(total).tolist()
             sums, count = dict(zip(keys, total[:-1])), total[-1]
         if count == 0:
             return {}
@@ -246,12 +301,12 @@ class Engine:
         rows = int(next(iter(first.values())).shape[0])
         local = self.local_rows({k: v for k, v in first.items() if k != "_valid"})
         local.pop("_valid", None)
-        with use_group(self.group):
+        with use_group(self.group), deterministic_kernels(self._deterministic):
             dec = decode_batch(self.put_batch(local), self._depth_units)
             pred = self.predict_meters(state, dec).detach().float()
         if self.group is not None:
-            pred = self.group.all_gather_rows(pred)[:rows]
-            if not self.group.is_main:
+            pred = self.data_group.all_gather_rows(pred)[:rows]
+            if not self.world.is_main:
                 return
         pred = pred.cpu().numpy()
         if (pred < 0).any():
@@ -302,10 +357,11 @@ class Engine:
         mode = self.cfg.mode
         epochs = epochs or mode.epochs
         self.preempted = False
-        group = self.group
+        group = self.world
         if group is not None and not group.is_main:
             log = logger = None
         world = 1 if group is None else group.size
+        data_ranks = 1 if group is None else self.data_group.size
 
         def save(epoch, metrics=None):
             aux = getattr(self.task, "checkpoint_aux", lambda: None)()
@@ -359,7 +415,7 @@ class Engine:
                                              encode_units=self._encode_units):
                     if stopping():
                         break
-                    n_samples += int(next(iter(batch.values())).shape[0]) * world
+                    n_samples += int(next(iter(batch.values())).shape[0]) * data_ranks
                     state, last = self.train_step(state, batch, epoch=float(epoch - 1))
                     if on_step is not None:
                         on_step(state, last)

@@ -61,6 +61,13 @@ class Task:
         """Adopt a checkpoint's aux payload before evaluating (the coarse
         family's bins); nothing for the other families."""
 
+    def attach_group(self, group) -> None:
+        """Rebuild the front end for a ('data', 'model') group (the engine
+        calls this when the group's model axis has more than one rank):
+        plain-STFT waveforms then run through the halo-exchange sharded STFT
+        (`parallel/sharded_stft.py`)."""
+        self._frontend = make_frontend(self.cfg, group=group)
+
     def begin_step(self, step: int) -> None:
         """Reseed the task's generator for train step `step` (the engine
         calls this before each step's loss)."""

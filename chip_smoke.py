@@ -110,11 +110,13 @@ non-zero:
              alone and logged, B1 once per step, per eval batch and per
              detector forward (B2 and B3 never), the batches the steps got
              on the card bit-equal to the host loader's (and, cached, to the
-             streamed ones), the first-step losses of the two runs within
-             LOSS_REL_TOL; each run's steps timed and profiled (busy share;
-             each streamed batch copy from pinned memory on a stream no
-             kernel uses; no batch copy when cached), the preemption
-             snapshot's seconds and the cache's bytes;
+             streamed ones) in every epoch, the first-step losses of the two
+             runs within LOSS_REL_TOL, and prefetch's counter of batch copies
+             (two tensors and one event a step; none when cached); each
+             run's steps timed and profiled (busy share; the counter again;
+             each streamed batch copy the trace keeps from pinned memory on
+             a stream no kernel uses; no batch copy when cached), the
+             preemption snapshot's seconds and the cache's bytes;
   evaluate   `cli/evaluate.py` on the card against the streamed run's best
              checkpoint (--use_best --eval_on val --save_tensors): its means
              equal that epoch's val record within EVAL_REL_TOL, B1 once per
@@ -210,6 +212,26 @@ non-zero:
              count exits naming the count; `--num_devices 1` trains. The
              step times are two processes time-sharing one card, not
              scaling;
+  train_sp   sequence parallelism (`parallel/`, the binaural net's
+             `sp_axis`) on the one card: two gloo ranks time-sharing cuda:0
+             as a 1 × 2 ('data', 'model') group, each with the whole global
+             batch of 8, 3 bf16 steps of the binaural net at full width
+             (base 64, levels 2-5, 256², γ seeded) with every attention's
+             query rows split over the two ranks: both ranks' states
+             bit-equal after every step, one loss, falling, every parameter
+             moved, B1 once and B2 / B3 four times a rank and step, each
+             attention at Nq = N/2 against all N keys, and the step's
+             collectives by kind and bytes equal to their formulas
+             (`sp_collectives_want`); a float32 step at batch 2 whose
+             gradient is within F32_GRAD_FACTOR × the plain engine's own
+             error + DP_F32_SLACK of a CPU float64 step; and the
+             plain-spectrogram front end of a batch of 8 BV2-length
+             waveforms with its STFT's frames split over the two ranks
+             (halo exchange), within SP_STFT_TOL of the one-device front
+             end on the card. The steps run in torch's deterministic mode,
+             which the engine scopes to them; the same steps are timed
+             once more without it, for its cost. The step times are
+             time-sharing, not scaling;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -220,6 +242,7 @@ any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -288,6 +311,13 @@ B2_SHAPES = [
     ("dk 128, dv 64, ragged", 2, 300, 200, 128, 64, "bfloat16"),
     ("dk 64, dv 520, ragged", 2, 300, 200, 64, 520, "bfloat16"),
     ("dk 12, dv 36, ragged", 2, 333, 129, 12, 36, "bfloat16"),
+    # sequence parallelism: a rank's query rows against all keys; the sp 2
+    # rows are train_sp's launches (2B = 16 there, 32 at level 2 here)
+    ("level 2, sp 2 q rows", 32, 8192, 16384, 16, 128, "bfloat16"),
+    ("level 3, sp 2 q rows", 16, 2048, 4096, 32, 256, "bfloat16"),
+    ("level 4, sp 2 q rows", 16, 512, 1024, 64, 512, "bfloat16"),
+    ("level 5, sp 2 q rows", 16, 128, 256, 64, 512, "bfloat16"),
+    ("level 4, sp 4 q rows", 32, 256, 1024, 64, 512, "bfloat16"),
 ]
 B2_MAIN = "level 2"
 # B3 vs its plain version, relative to the plain version's max |·| of each
@@ -1989,6 +2019,8 @@ def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
         torch.cuda.synchronize()
         return marks
 
+    from audiodepth_tpu_torch.data import prefetch
+
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1996,7 +2028,9 @@ def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
     wall = time.perf_counter() - t0
     steps = len(marks)
     intervals = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    prefetch.copies.reset()
     trace, pwall, _ = traced(torch, run)
+    issued = prefetch.copies.read()
     acts = trace.activity
     kernel_streams = {a.stream for a in acts if a.cat == "kernel"}
     copies = [(a.cat, a.name, a.stream, a.ts, a.dur, a.bytes) for a in acts
@@ -2010,6 +2044,7 @@ def profile_corpus_steps(torch, eng, state, make_batches, what, batch_bytes):
                                  else "not measured"),
            "kernel_busy_share": kernel_us / 1e6 / pwall if acts else "not measured",
            "batch_copies": [[name, stream, b] for _, name, stream, _, _, b in copies],
+           "prefetch_counts": issued,
            "kernel_streams": sorted(map(str, kernel_streams))}
     assert acts, f"{what}: the profiler recorded no device activity"
     return row, copies, kernel_streams
@@ -2029,6 +2064,7 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
     import itertools
 
     from audiodepth_tpu_torch.configs import experiment_name
+    from audiodepth_tpu_torch.data import prefetch
     from audiodepth_tpu_torch.data.batvision import make_dataset
     from audiodepth_tpu_torch.data.device_cache import DeviceDatasetCache
     from audiodepth_tpu_torch.train.engine import Engine
@@ -2050,6 +2086,7 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
         argv = CORPUS_ARGV + ["--dataset_dir", root, "--log_dir", log_dir,
                               "--ckpt_dir", ckpt_dir] + extra
         received, evaluated, caches = [], [], []
+        prefetch.copies.reset()
         with spy(Engine, "train_step", lambda eng, state, batch, epoch=0.0: received.append(
                      {k: v.clone() for k, v in batch.items()})), \
              spy(Engine, "eval_step", lambda eng, state, batch, epoch=0.0: evaluated.append(
@@ -2058,6 +2095,7 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
              spy(DeviceDatasetCache, "__init__", lambda c, *a, **k: caches.append(c)):
             eng, state, steps, launches, by_variant, seen = _train_run(
                 torch, train_cli, kernels, argv)
+        fit_copies = prefetch.copies.read()
         task = seen["task"]
         cfg = task.cfg
         assert cfg.model.generator == "unet_256" and cfg.model.ngf == UNET_NGF
@@ -2088,11 +2126,18 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
                 assert not holdout_rows & {r.tobytes() for r in val}
                 assert {r.tobytes() for r in hold} == holdout_rows
             ds = make_dataset(cfg, "train", location_blacklist=[CORPUS_HOLDOUT])
-            host = list(ds.batches(TRAIN_BATCH, shuffle=True, seed=2))  # epoch 1: seed·100003+2
-            for got, want in zip(received[:steps_per_epoch], host):
+            # every epoch's steps (epoch e shuffles with seed·100003 + e + 1)
+            host = [b for e in range(1, CORPUS_EPOCHS + 1)
+                    for b in ds.batches(TRAIN_BATCH, shuffle=True, seed=e + 1)]
+            assert len(host) == len(received), (len(host), len(received))
+            for step, (got, want) in enumerate(zip(received, host)):
                 for k in want:
-                    assert np.array_equal(got[k], want[k]), f"prefetched {k} != host batch"
+                    assert np.array_equal(got[k], want[k]), \
+                        f"step {step}: prefetched {k} != host batch"
+            # every batch copied: two tensors and one event a step
+            assert fit_copies == {"copies": 2 * len(steps), "events": len(steps)}, fit_copies
         else:
+            assert fit_copies == {"copies": 0, "events": 0}, fit_copies
             for got, want in zip(received, out["streamed"]["received"]):
                 for k in ("waveform", "depth"):
                     assert np.array_equal(got[k], want[k]), f"cached {k} != streamed"
@@ -2110,21 +2155,25 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
         prof_row, copies, kernel_streams = profile_corpus_steps(
             torch, eng, state, make, f"unet_256 corpus steps, {name}", batch_bytes)
         if name == "streamed":
-            # the trace may drop some copy records; every one it keeps must
-            # be a pinned copy on a stream no kernel of the steps ran on
+            # the trace may drop some copy records (the prefetch counter
+            # shows every copy ran); every one it keeps must be a pinned
+            # copy on a stream no kernel of the steps ran on
             issued = 2 * steps_per_epoch * CORPUS_TIMED_EPOCHS
             prof_row["batch_copies_issued"] = issued
+            assert prof_row["prefetch_counts"] == {"copies": issued, "events": issued // 2}, \
+                prof_row
             assert 2 <= len(copies) <= issued, prof_row
             bad = [c for c in copies if "Pinned" not in c[1] or c[2] in kernel_streams]
             assert not bad, f"batch copies not from pinned memory on a side stream: {bad}"
         else:
             assert not copies, f"the cached run copied batches: {copies}"
+            assert prof_row["prefetch_counts"] == {"copies": 0, "events": 0}, prof_row
         emit(prof_row)
         out[name] = {"losses": losses, "received": received}
         emit({"phase": "train_corpus", "run": name, "flags": argv, "steps": len(steps),
               "losses": losses, "grad_norms": norms, "launches": launches,
               "expected_launches": expected, "epoch_records": eng.history,
-              "main_wall_s": seen["wall"],
+              "main_wall_s": seen["wall"], "prefetch_counts": fit_copies,
               "epoch_step_ms": [r["epoch_time"] / r["steps"] * 1e3 for r in eng.history],
               "device_cache_nbytes": {s: c.nbytes() for s, c in zip(("train", "val"), caches)},
               "preemption_snapshot_s": eng.snapshot_seconds,
@@ -2688,6 +2737,7 @@ def phase_profile_dir(torch, train_cli, kernels):
 
 
 REMAT_TIMED_STEPS = 3
+REMAT_FLOOR_PAIRS = 3  # repeated no-remat float32 passes, each paired with the first
 
 
 def phase_adabins_remat(torch, np, configs, models, kernels):
@@ -2696,8 +2746,9 @@ def phase_adabins_remat(torch, np, configs, models, kernels):
     steps with the student recomputed and without, with the peak memory of
     each (lower with remat); in float32 (TF32 off), the gradients of one
     loss from the same weights and generator seed with remat and without
-    (twice, for the card's run-to-run floor): the remat gradients within
-    F32_GRAD_FACTOR of that floor, in global relative L2."""
+    (without four times: the card's run-to-run floor is the largest
+    distance of the three repeats from the first): the remat gradients
+    within F32_GRAD_FACTOR of that floor + 1e-6, in global relative L2."""
     from audiodepth_tpu_torch.data.batvision import make_dataset
     from audiodepth_tpu_torch.data.codec import decode_batch
     from audiodepth_tpu_torch.train.engine import Engine
@@ -2758,22 +2809,26 @@ def phase_adabins_remat(torch, np, configs, models, kernels):
         return (num / den) ** 0.5
 
     loss_a, a = grads(False)
-    loss_a2, a2 = grads(False)
+    repeats = [grads(False) for _ in range(REMAT_FLOOR_PAIRS)]
     loss_b, b = grads(True)
     launches, by_variant = read_launches(kernels)
-    floor, err = rel_l2(a2, a), rel_l2(b, a)
+    # the card's run-to-run floor: the largest of REMAT_FLOOR_PAIRS repeated
+    # no-remat pairs (one pair understates it)
+    floors = [rel_l2(r, a) for _, r in repeats]
+    floor, err = max(floors), rel_l2(b, a)
     assert set(a) == set(b) and all(n.startswith(("audio_", "residual_")) for n in a), \
         sorted(set(a) ^ set(b))[:4]
     assert err <= F32_GRAD_FACTOR * floor + 1e-6, (err, floor)
     peak = {r: max(t["peak_mem_mb"] for t in timing[r]) for r in timing}
     assert peak[True] < peak[False], peak
     steps = 2 * 2 * (1 + REMAT_TIMED_STEPS)
-    assert launches["fused_mel_frontend"] == steps + 3, launches
+    assert launches["fused_mel_frontend"] == steps + 2 + REMAT_FLOOR_PAIRS, launches
     emit({"phase": "adabins_remat", "batch": TRAIN_BATCH, "timing_bf16": {
           "remat": timing[True], "no_remat": timing[False]},
           "peak_mem_mb": {"remat": peak[True], "no_remat": peak[False]},
-          "f32_loss": {"no_remat": [loss_a, loss_a2], "remat": loss_b},
-          "f32_grad_rel_l2": {"remat_vs_no_remat": err, "no_remat_repeat": floor},
+          "f32_loss": {"no_remat": [loss_a] + [l for l, _ in repeats], "remat": loss_b},
+          "f32_grad_rel_l2": {"remat_vs_no_remat": err, "no_remat_repeats": floors,
+                              "floor": floor},
           "tol": f"{F32_GRAD_FACTOR} x floor + 1e-6", "launches": launches})
     del task, eng
     torch.cuda.empty_cache()
@@ -2829,11 +2884,12 @@ def _dp_cfg(configs, model, dtype, batch, f32_check=False):
     return configs.load_config("synthetic", "train", model_name=model, overrides=over)
 
 
-def _dp_task(torch, np, models, cfg, device):
+def _dp_task(torch, np, models, cfg, device, sp_axis=None):
     task = models.make_task(cfg, device=device)
     models.init_weights(task.model, torch.Generator().manual_seed(0))
     if cfg.model.name == "binaural_attention":
         set_gammas(torch, np, task.model)
+        task.model.sp_axis = sp_axis
     return task
 
 
@@ -2849,22 +2905,24 @@ def _dp_digest(torch, model) -> str:
 
 
 def _dp_local(batch, group):
-    from audiodepth_tpu_torch.parallel import local_batch_slice
+    """This rank's rows of a global batch (its data index's in a
+    ('data', 'model') group)."""
+    from audiodepth_tpu_torch.parallel import shard_global_batch
 
-    if group is None:
-        return batch
-    rows = local_batch_slice(next(iter(batch.values())).shape[0], group.rank, group.size)
-    return {k: v[rows] for k, v in batch.items()}
+    return shard_global_batch(batch, group)
 
 
 def _dp_f32_grads(torch, np, configs, models, model, group, state_dict, batch):
     """The float32 (TF32 off) gradient of one engine step on the global
     `batch` (this rank's rows in a group), on the card."""
+    from audiodepth_tpu_torch.parallel import MeshGroup
     from audiodepth_tpu_torch.train.engine import Engine
 
     cfg = _dp_cfg(configs, model, "float32", DP_F32_BATCH[model], f32_check=True)
     task = models.make_task(cfg, device=DP_DEVICE)
     task.model.load_state_dict(state_dict, strict=True)
+    if isinstance(group, MeshGroup):
+        task.model.sp_axis = "model"
     eng = Engine(cfg, task, group=group)
     state = eng.init_state()
     eng.train_step(state, _dp_local(batch, group))
@@ -2923,36 +2981,57 @@ def _dp_f32_check(torch, np, configs, models, model, group):
             "slack": DP_F32_SLACK, "cpu_f64_seconds": cpu_s}
 
 
-def _dp_bf16_steps(torch, np, configs, models, kernels, model, group, steps, batches):
+def _dp_bf16_steps(torch, np, configs, models, kernels, model, group, steps, batches,
+                   global_batch=DP_GLOBAL_BATCH, sp_axis=None):
     """`steps` bf16 engine steps (this rank's rows of each global batch)
     from the seeded init: losses, step times, launches (counts reset just
-    before, read just after), a digest of the state after each step, and
-    the parameters that did not move."""
+    before, read just after), a digest of the state after each step, the
+    parameters that did not move, the collectives of the last step and the
+    (2B, Nq, Nk) of every attention launch."""
+    from audiodepth_tpu_torch.ops.cuda import flash_attention as fa
+    from audiodepth_tpu_torch.parallel import collectives
     from audiodepth_tpu_torch.train.engine import Engine
 
-    cfg = _dp_cfg(configs, model, "bfloat16", DP_GLOBAL_BATCH)
-    task = _dp_task(torch, np, models, cfg, DP_DEVICE)
+    cfg = _dp_cfg(configs, model, "bfloat16", global_batch)
+    task = _dp_task(torch, np, models, cfg, DP_DEVICE, sp_axis)
     eng = Engine(cfg, task, steps_per_epoch=steps, group=group)
     state = eng.init_state()
     before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
     local = [_dp_local(eng.encode(b), group) for b in batches]
     losses, times, digests = [], [], []
-    torch.cuda.synchronize()
-    reset_launches(kernels)
-    for i in range(steps):
-        t0 = time.perf_counter()
-        state, metrics = eng.train_step(state, local[i % len(local)])
-        losses.append(float(metrics["loss"]))
+    shapes = {"fwd": set(), "bwd": set()}
+    wrappers = {"fwd": fa.flash_cross_attention, "bwd": fa.flash_cross_attention_bwd}
+    for kind, w in wrappers.items():
+        def seen(q, k, *rest, launch=w._launch, kind=kind):
+            shapes[kind].add((int(q.shape[0]), int(q.shape[1]), int(k.shape[1])))
+            return launch(q, k, *rest)
+
+        w._launch = seen
+    try:
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if group is not None and group.size > 1:
-            digests.append(_dp_digest(torch, task.model))
-    launches, by_variant = read_launches(kernels)
+        reset_launches(kernels)
+        for i in range(steps):
+            if i == steps - 1:
+                collectives.reset()
+            t0 = time.perf_counter()
+            state, metrics = eng.train_step(state, local[i % len(local)])
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if group is not None and group.size > 1:
+                digests.append(_dp_digest(torch, task.model))
+        last_step_collectives = collectives.read()
+        launches, by_variant = read_launches(kernels)
+    finally:
+        for w in wrappers.values():
+            del w._launch
     unmoved = [n for n, p in task.model.named_parameters()
                if p.requires_grad and torch.equal(p.detach(), before[n])]
     params = {n: p.detach().float().cpu() for n, p in task.model.named_parameters()}
     return {"losses": losses, "step_ms": [t * 1e3 for t in times], "digests": digests,
-            "launches": launches, "by_variant": by_variant, "unmoved": unmoved}, params
+            "launches": launches, "by_variant": by_variant, "unmoved": unmoved,
+            "collectives": last_step_collectives,
+            "attention_shapes": {k: sorted(v) for k, v in shapes.items()}}, params
 
 
 def _dp_rank(rank, world, backend, init, outdir):
@@ -2999,23 +3078,24 @@ def _dp_rank(rank, world, backend, init, outdir):
         shutdown()
 
 
-def _dp_world(world, backend):
-    """Spawn the world (file:// rendezvous), wait at most
-    DP_WORLD_TIMEOUT_S, and return every rank's results; a rank that fails
-    or hangs fails the phase, and no rank outlives it."""
+def _dp_world(world, backend, rank_fn=None, timeout_s=DP_WORLD_TIMEOUT_S):
+    """Spawn the world (file:// rendezvous) of `rank_fn` (default
+    `_dp_rank`), wait at most `timeout_s`, and return every rank's results;
+    a rank that fails or hangs fails the phase, and no rank outlives it."""
     import torch.multiprocessing as mp
 
+    rank_fn = rank_fn or _dp_rank
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
-        ctx = mp.start_processes(_dp_rank, args=(world, backend,
-                                                 "file://" + os.path.join(work, "rdv"), work),
+        ctx = mp.start_processes(rank_fn, args=(world, backend,
+                                                "file://" + os.path.join(work, "rdv"), work),
                                  nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + DP_WORLD_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         try:
             while not ctx.join(timeout=5):
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"train_dp {backend} world of {world}: no end "
-                                       f"within {DP_WORLD_TIMEOUT_S} s")
+                    raise TimeoutError(f"{rank_fn.__name__} {backend} world of {world}: "
+                                       f"no end within {timeout_s} s")
         finally:
             for p in ctx.processes:
                 if p.is_alive():
@@ -3096,6 +3176,164 @@ def phase_train_dp(torch, np, train_cli, kernels, smi):
         "num_devices": count + 1, "returncode": proc.returncode,
         "message": said.strip().splitlines()[-1]},
           "cli_num_devices_1_steps": state.step, "gloo_world_s": gloo_s})
+    return launches
+
+
+# sequence parallelism (`parallel/`, `sp_axis`) on the one card: a world of
+# two gloo ranks time-sharing cuda:0 as a 1 × 2 ('data', 'model') group,
+# each holding the whole global batch and half of every attention's query
+# rows
+SP_GLOBAL_BATCH = 8
+SP_STEPS = 3
+SP_STFT_TOL = 1e-5        # sharded vs one-device plain-STFT front end, relative to max
+SP_WORLD_TIMEOUT_S = 420
+
+
+def _sp_levels(size=256, base=64, rows=SP_GLOBAL_BATCH):
+    """(2B, N, C) of each attention level of the binaural net."""
+    ch = {2: 2 * base, 3: 4 * base, 4: 8 * base, 5: 8 * base}
+    return [(2 * rows, (size // 2 ** (lv - 1)) ** 2, ch[lv]) for lv in (2, 3, 4, 5)]
+
+
+def sp_collectives_want(sp, itemsize=2):
+    """A rank's collectives of one dp 1 × sp binaural step at full width
+    (the formulas of tests/test_torch_sequence_parallel.py): the attention
+    outputs and dq all-gathered over the model axis in the compute dtype,
+    dK and dV all-reduced in float32; nothing over the data axis of one."""
+    levels = _sp_levels()
+    return {"all-gather": {"count": 2 * len(levels), "bytes": sum(
+                b2 * n * c * itemsize + b2 * n * (c // 8) * itemsize for b2, n, c in levels)},
+            "all-reduce": {"count": 2 * len(levels), "bytes": sum(
+                b2 * n * (c // 8) * 4 + b2 * n * c * 4 for b2, n, c in levels)}}
+
+
+def _sp_stft_check(torch, np, configs, mesh):
+    """The plain-spectrogram front end on a global batch of 8 synthetic
+    BV2 waveforms (7,782 samples after the time-of-flight cut) with its
+    STFT's frames split over the model axis, against the one-device front
+    end, both on the card in float32 (TF32 off); times and collectives."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.data.frontend import make_frontend, tof_cut_samples
+    from audiodepth_tpu_torch.parallel import collectives
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.load_config("synthetic", "train", overrides={
+        "dataset.audio_format": "spectrogram", "mode.batch_size": SP_GLOBAL_BATCH,
+        "mode.compute_dtype": "float32"})
+    cut = tof_cut_samples(cfg.dataset.max_depth, cfg.dataset.sample_rate)
+    assert cut == 7782, cut
+    wave = next(make_dataset(cfg, "train", num_samples=SP_GLOBAL_BATCH).batches(
+        SP_GLOBAL_BATCH, shuffle=False))["waveform"]
+    x = torch.from_numpy(wave).to(DP_DEVICE)
+    sharded, plain = make_frontend(cfg, group=mesh), make_frontend(cfg)
+    collectives.reset()
+    got = sharded(x)
+    calls = collectives.read()
+    want = plain(x)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert got.shape == want.shape and rel <= SP_STFT_TOL, (rel, SP_STFT_TOL)
+    return {"waveform": list(x.shape), "cut": cut, "out": list(got.shape), "rel_err": rel,
+            "tol": SP_STFT_TOL, "collectives": calls,
+            "sharded_ms": time_ms(torch, lambda: sharded(x), runs=10),
+            "plain_ms": time_ms(torch, lambda: plain(x), runs=10)}
+
+
+def _sp_rank(rank, world, backend, init, outdir):
+    """One rank of the train_sp world, on cuda:0: SP_STEPS bf16 steps of
+    the full-width binaural net with its query rows split over the model
+    axis, the float32 gradient check and the sharded STFT, then
+    rank<r>.json in `outdir`."""
+    import torch
+    import numpy as np
+
+    from audiodepth_tpu_torch import configs, models
+    from audiodepth_tpu_torch._device import configure_precision
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+    from audiodepth_tpu_torch.ops.cuda import KERNELS
+    from audiodepth_tpu_torch.parallel import initialize_multihost, make_mesh_group, shutdown
+    from audiodepth_tpu_torch.train import engine as engine_mod
+
+    configure_precision()
+    initialize_multihost(init, world, rank, backend=backend, device=DP_DEVICE)
+    out = {"rank": rank, "world": world, "backend": backend}
+    try:
+        mesh = make_mesh_group(1, world)
+        model = "binaural_attention"
+        cfg = _dp_cfg(configs, model, "bfloat16", SP_GLOBAL_BATCH)
+        batches = list(make_dataset(cfg, "train", num_samples=SP_GLOBAL_BATCH).batches(
+            SP_GLOBAL_BATCH, shuffle=False))
+        row, params = _dp_bf16_steps(torch, np, configs, models, KERNELS, model, mesh,
+                                     SP_STEPS, batches, SP_GLOBAL_BATCH, sp_axis="model")
+        del params
+        torch.cuda.empty_cache()
+        # what the deterministic mode costs: the same steps without it (the
+        # ranks' states then part by a rounding a step; only timed)
+        scoped = engine_mod.deterministic_kernels
+        engine_mod.deterministic_kernels = lambda on=True: contextlib.nullcontext()
+        try:
+            off, params = _dp_bf16_steps(torch, np, configs, models, KERNELS, model, mesh,
+                                         SP_STEPS, batches, SP_GLOBAL_BATCH, sp_axis="model")
+        finally:
+            engine_mod.deterministic_kernels = scoped
+        del params
+        torch.cuda.empty_cache()
+        assert not torch.are_deterministic_algorithms_enabled()  # scoped to the steps
+        row["nondeterministic"] = {"losses": off["losses"], "step_ms": off["step_ms"]}
+        row["f32"] = _dp_f32_check(torch, np, configs, models, model, mesh)
+        row["stft"] = _sp_stft_check(torch, np, configs, mesh)
+        out[model] = row
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def phase_train_sp(torch, np, kernels, smi):
+    """Sequence parallelism on the one card (module note). Returns the
+    launches of each rank's path for the kernels line."""
+    t0 = time.perf_counter()
+    ranks = _dp_world(2, "gloo", _sp_rank, SP_WORLD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    rows = [r["binaural_attention"] for r in ranks]
+    per_step = {k: v * SP_STEPS for k, v in PER_TRAIN_STEP.items()}
+    want_shapes = sorted((b2, n // 2, n) for b2, n, _ in _sp_levels())
+    # every query-row shape of the phase is held to its plain version
+    held = {(n, m, dk, dv) for _, _, n, m, dk, dv, dtype in B2_SHAPES if dtype == "bfloat16"}
+    for _, n, c in _sp_levels():
+        assert (n // 2, n, c // 8, c) in held, (n, c)
+    launches = {}
+    for rank, r in enumerate(rows):
+        assert all(np.isfinite(r["losses"])), (rank, r["losses"])
+        assert r["losses"][-1] < r["losses"][0], (rank, r["losses"])
+        assert not r["unmoved"], (rank, r["unmoved"][:8])
+        assert r["launches"] == per_step, (rank, r["launches"], per_step)
+        for kind in ("fwd", "bwd"):  # half the query rows against all keys
+            got = sorted(tuple(s) for s in r["attention_shapes"][kind])
+            assert got == want_shapes, (rank, kind, got, want_shapes)
+        assert r["collectives"] == sp_collectives_want(2), (rank, r["collectives"])
+        assert r["stft"]["rel_err"] <= SP_STFT_TOL, r["stft"]
+        launches[f"train_sp gloo rank {rank} of 2 binaural_attention"] = (r["launches"],
+                                                                          r["by_variant"])
+    # one replicated state: both ranks' parameters and buffers bit-equal
+    # after every step, and one loss
+    assert rows[0]["digests"] == rows[1]["digests"]
+    assert rows[0]["losses"] == rows[1]["losses"]
+    assert rows[0]["f32"] is not None and rows[1]["f32"] is None
+    emit({"phase": "train_sp", "world": "2 gloo ranks time-sharing one card, layout 1 x 2",
+          "model": "binaural_attention", "card": smi, "global_batch": SP_GLOBAL_BATCH,
+          "rows_per_rank": SP_GLOBAL_BATCH, "steps": SP_STEPS, "losses": rows[0]["losses"],
+          "step_ms": {f"rank {i}": r["step_ms"] for i, r in enumerate(rows)},
+          "step_ms_deterministic_mode_off": {f"rank {i}": r["nondeterministic"]["step_ms"]
+                                             for i, r in enumerate(rows)},
+          "losses_deterministic_mode_off": rows[0]["nondeterministic"]["losses"],
+          "note": "two processes time-sharing one card, collectives staged through host "
+                  "memory: not a scaling measurement",
+          "launches_per_rank": rows[0]["launches"],
+          "attention_shapes_2B_Nq_Nk": rows[0]["attention_shapes"],
+          "collectives_per_rank_step": rows[0]["collectives"], "f32": rows[0]["f32"],
+          "sharded_stft": rows[0]["stft"],
+          "state_digest_after_each_step": rows[0]["digests"], "world_s": world_s})
     return launches
 
 
@@ -3198,6 +3436,7 @@ def main() -> int:
                                                                       KERNELS)
     phase_verify_contracts(torch)
     launches.update(phase_train_dp(torch, np, train_cli, KERNELS, smi))
+    launches.update(phase_train_sp(torch, np, KERNELS, smi))
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:

@@ -3,7 +3,9 @@
   * every module of `audiodepth_tpu_torch` imports with jax, flax, optax
     and the JAX package blocked (by exact top-level name: a prefix check on
     "audiodepth_tpu" would also match the port), the training slice's
-    modules among them, and the data-parallel ones (`parallel`);
+    modules among them, the data-parallel ones (`parallel`) and the
+    sequence-parallel ones (`parallel.sharded_stft`, `parallel.sequence`,
+    `tools.multichip_scaling`);
   * the corpus path's modules (the loaders, the native decoder, prefetch,
     the device cache, the metric sink, both CLIs, the sparse datasets and
     the sparse-depth preprocessor, which imports OpenCV in its functions)
@@ -11,7 +13,7 @@
     machine may lack them;
   * an entry point called without device="cpu" raises here rather than
     running on the CPU, the tools' CLIs (export, profile_step,
-    verify_contracts) among them;
+    verify_contracts, multichip_scaling) among them;
   * the fused front end's wrapper sends a CPU tensor to the plain version
     and launches nothing;
   * the port's own copy of the config system gives the JAX package's
@@ -75,6 +77,9 @@ _TOOLS_SLICE = {"tools.export", "tools.profile_step", "tools.verify_contracts", 
 # the data-parallel modules
 _PARALLEL_SLICE = {"parallel", "parallel.mesh", "parallel.multihost", "train.engine", "ckpt",
                    "data.device_cache", "cli.train"}
+# the sequence-parallel modules
+_SEQUENCE_SLICE = {"parallel.sharded_stft", "parallel.sequence", "tools.multichip_scaling",
+                   "models.binaural_attention", "data.frontend"}
 # the corpus path's modules
 _CORPUS_SLICE = {
     "data.batvision", "data.native_io", "data.prefetch", "data.device_cache", "obs",
@@ -89,7 +94,7 @@ def test_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked = {n.split(".", 1)[1] for n in out.stdout.split()}
     assert len(walked) >= 48  # every module was walked
-    slices = _TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE | _PARALLEL_SLICE
+    slices = _TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE | _PARALLEL_SLICE | _SEQUENCE_SLICE
     assert slices <= walked, slices - walked
 
 
@@ -124,6 +129,15 @@ def test_tools_need_a_card_unless_asked_for_cpu():
         export.main(["--model", "unet_baseline"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         verify_contracts.main([])
+
+
+def test_scaling_tool_needs_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from audiodepth_tpu_torch.tools import multichip_scaling
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multichip_scaling.main(["--fast"])
 
 
 def test_unported_family_names_its_roadmap_item():

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import os
 import signal
 from typing import Dict
@@ -36,8 +37,9 @@ from audiodepth_tpu_torch.models import init_weights, make_task
 from audiodepth_tpu_torch.models.layers import BatchNorm, Conv2d, remat
 from audiodepth_tpu_torch.models.unet import UNetGenerator
 from audiodepth_tpu_torch.models.unet_cvae import UNetCVAE
-from audiodepth_tpu_torch.parallel import (all_reduce_grads_, global_sum, initialize_multihost,
-                                           local_batch_slice, local_shard, shutdown, use_group)
+from audiodepth_tpu_torch.parallel import (MeshGroup, all_reduce_grads_, global_sum,
+                                           initialize_multihost, local_batch_slice, local_shard,
+                                           shutdown, use_group)
 from audiodepth_tpu_torch.train.engine import Engine
 
 WORLD = 2
@@ -55,8 +57,8 @@ CLI_LR = "1e-4"
 EPOCH_SAMPLES = 8  # two steps of the global batch an epoch
 
 
-def family_config(family: str, optimizer: str = "AdamW"):
-    over = {"dataset.images_size": 32, "mode.compute_dtype": "float64",
+def family_config(family: str, optimizer: str = "AdamW", size: int = 32):
+    over = {"dataset.images_size": size, "mode.compute_dtype": "float64",
             "mode.optimizer": optimizer, "mode.grad_clip_norm": CLIP,
             "mode.batch_size": GLOBAL_BATCH, "mode.saving_checkpoints": 1}
     if family in ("unet_baseline", "unet_cvae"):
@@ -71,9 +73,10 @@ def family_config(family: str, optimizer: str = "AdamW"):
     return load_config("synthetic", "train", model_name=family, overrides=over)
 
 
-def build(family: str, optimizer: str = "AdamW"):
-    """(config, task) of a family's small float64 model, seeded."""
-    cfg = family_config(family, optimizer)
+def build(family: str, optimizer: str = "AdamW", size: int = 32, sp_axis=None):
+    """(config, task) of a family's small float64 model, seeded; the
+    binaural net's attention split over `sp_axis` where given."""
+    cfg = family_config(family, optimizer, size)
     task = make_task(cfg, device="cpu")
     if family == "unet_baseline":
         task.model = UNetGenerator(2, 1, num_downs=5, ngf=8, depth_norm=True,
@@ -89,6 +92,7 @@ def build(family: str, optimizer: str = "AdamW"):
         with torch.no_grad():
             for m, g in zip(task.model.attention_modules.values(), gammas):
                 m.gamma.fill_(float(g))
+        task.model.sp_axis = sp_axis
     return cfg, task
 
 
@@ -108,8 +112,12 @@ def global_batches(cfg, task, family: str, n: int = 3):
 
 
 def rows_of(group) -> slice:
+    """This rank's rows of a global batch: its data index's in a
+    ('data', 'model') group."""
     if group is None:
         return slice(None)
+    if isinstance(group, MeshGroup):
+        return group.local_rows(GLOBAL_BATCH)
     return local_batch_slice(GLOBAL_BATCH, group.rank, group.size)
 
 
@@ -131,21 +139,33 @@ def _clone(named) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in named}
 
 
-def run_family(family: str, group=None, steps: int = 3, optimizer: str = "AdamW") -> dict:
+def digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes, in state_dict order."""
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_family(family: str, group=None, steps: int = 3, optimizer: str = "AdamW",
+               size: int = 32, sp_axis=None) -> dict:
     """`steps` train steps on the global batches (this rank's rows): the
     losses and norms, the first step's gradients (after the reduction and
-    the clip) and buffers, and the final state."""
+    the clip) and buffers, a digest of the state after every step, and the
+    final state."""
     with f64_ce(family):
-        cfg, task = build(family, optimizer)
+        cfg, task = build(family, optimizer, size, sp_axis)
         batches = global_batches(cfg, task, family)
         eng = Engine(cfg, task, steps_per_epoch=steps, group=group)
         state = eng.init_state()
         rows = rows_of(group)
-        out: dict = {"loss": [], "grad_norm": []}
+        out: dict = {"loss": [], "grad_norm": [], "digests": []}
         for i, b in enumerate(batches[:steps]):
             state, m = eng.train_step(state, {k: v[rows] for k, v in b.items()})
             out["loss"].append(float(m["loss"]))
             out["grad_norm"].append(float(m["grad_norm"]))
+            out["digests"].append(digest(task.model))
             if i == 0:
                 out["aux"] = {k: float(v) for k, v in m.items()}
                 out["grads"] = {n: p.grad.detach().clone()
