@@ -55,9 +55,27 @@
 // layout V's sub-tiles already had. dv is sliced (<= 256 a block), so it
 // has no limit.
 //
-// fp32 runs a CUDA-core tiling (256 threads, 4 q rows x 4 keys of S and 4
-// rows x 8 columns of O a thread, P through shared memory, dk in chunks of
-// 64 through shared memory): it serves the parity checks only.
+// fp32 (`--compute_dtype float32`, the reference's own numerics) runs the
+// same design on the tensor cores with every operand in three bf16 pieces
+// (x = x1 + x2 + x3 exactly: 8 + 8 + 8 significant bits, B1's split) and
+// every product as six piece products, smallest first (a3.b1, a1.b3, a2.b2,
+// a2.b1, a1.b2, a1.b1; the three dropped ones are below 2^-26 of it), into
+// fp32 accumulators: products exact, sums fp32. The tensor core's fp32 adds
+// truncate, and the bias of many tiles summed into one accumulator put o
+// past its tolerance at M = 4096 on the H100, so each key tile's
+// P.V sums in a fresh accumulator `tacc` that is added to O in fp32
+// (tests/test_torch_attention_numerics.py emulates both). The pieces of q,
+// k and v come from flash_split3_kernel, launched by the same call into a
+// bf16 [3, B, rows, cols] scratch buffer a tensor (6 bytes an element, TMA
+// boxes as in bf16); P is split in registers where it is made. The
+// accurate exp2f, and the O rescale only when a row's max moves
+// (ex2.approx compounding once a tile put lse 3.2e-4 off float64 at M =
+// 16384). Tripled tiles need 3x the shared memory and the fresh
+// accumulator registers, so dv slices are 64 columns and the plan picks
+// the stages. Bound: six bf16 passes at 989 TFLOP/s (15.0 ms at level 2,
+// 2B = 32; the CUDA cores' 67 TFLOP/s would take 36.9 ms for one fp32
+// pass; PERF.md has the card's times). 3xTF32 was not taken: TF32 wgmma
+// reads only K-major operands, and B3 reads four MN-major ones.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,9 +86,9 @@
 
 namespace {
 
-constexpr int kBQ = 64;    // q rows per block (wgmma's M; also the fp32 path's)
+constexpr int kBQ = 64;    // q rows per block (wgmma's M)
 constexpr int kBK = 64;    // keys per k/v tile
-constexpr int kDVS = 128;  // dv columns per block of the fp32 forward
+constexpr int kMaxHeadDk = 128;  // the largest dk: the wgmma paths' dkp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -102,17 +120,116 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// x = p1 + p2 + p3 exactly, for both x0 (low halves) and x1 (high halves):
+// each piece holds the next 8 significant bits, each subtraction is exact
+// (fused_frontend.cu's split)
+__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& p1, uint32_t& p2,
+                                            uint32_t& p3) {
+  p1 = pack_bf16(x0, x1);
+  x0 -= __uint_as_float(p1 << 16);
+  x1 -= __uint_as_float(p1 & 0xffff0000u);
+  p2 = pack_bf16(x0, x1);
+  x0 -= __uint_as_float(p2 << 16);
+  x1 -= __uint_as_float(p2 & 0xffff0000u);
+  p3 = pack_bf16(x0, x1);
+}
+
+// The products of one operand pair in P pieces each: P = 1, the bf16 product;
+// P = 3, six piece products smallest first (a3.b1, a1.b3, a2.b2, a2.b1,
+// a1.b2, a1.b1), product i reading A piece a(i) and B piece b(i).
+template <int P>
+struct Pieces {
+  static_assert(P == 1 || P == 3, "one piece (bf16) or three (fp32)");
+  static constexpr int kProducts = P == 3 ? 6 : 1;
+  __host__ __device__ static constexpr int a(int i) { return P == 1 ? 0 : i == 0 ? 2 : i == 2 || i == 3 ? 1 : 0; }
+  __host__ __device__ static constexpr int b(int i) { return P == 1 ? 0 : i == 1 ? 2 : i == 2 || i == 4 ? 1 : 0; }
+};
+
 // The accumulator layout of a 64-column wgmma (32 floats a thread: columns
 // 8j + 2t, +1 of rows g and g + 8 in d[4j..4j+3]) as the four A fragments
-// of the next product's k-steps of 16, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+// of the next product's k-steps of 16 in each of P pieces: a[piece * 4 +
+// kk], rounded to bf16 (P = 1) or split exactly (P = 3).
+template <int P>
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4 * P][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (P == 1)
+        a[kk][j] = pack_bf16(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+      else
+        split3_bf16(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1], a[kk][j], a[4 + kk][j],
+                    a[8 + kk][j]);
+    }
   }
+}
+
+// An accumulator the next product starts afresh (scale_d = 0): its old
+// values become dead here, at no instruction. wgmma's asm names its
+// accumulators read-write, so without this they would stay live, in
+// registers, from their last use to the next product.
+template <int N>
+__device__ __forceinline__ void fresh_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
+}
+
+// exp2 of the softmax: ex2.approx in bf16, the accurate exp2f in fp32
+template <int P>
+__device__ __forceinline__ float softmax_exp2(float x) {
+  if constexpr (P == 1) return fast_exp2(x);
+  else return exp2f(x);
+}
+
+// Two outputs of a thread's accumulator pair at `dst`: bf16 (P = 1) or fp32.
+template <int P>
+__device__ __forceinline__ void store2(void* dst, float x0, float x1) {
+  if constexpr (P == 1) *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
+  else *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+}
+
+// Up to four fp32 tensors of n4 float4s each into three bf16 pieces:
+// out[p * n4 + i] holds piece p of x[i] (an element's pieces are [3, n]
+// apart). grid (blocks, jobs); the widths are multiples of 8, so every
+// tensor is whole float4s and its pieces start 16-byte aligned.
+struct Split3Jobs {
+  const float4* x[4];
+  uint2* out[4];
+  size_t n4[4];
+};
+
+__global__ void __launch_bounds__(256) flash_split3_kernel(const Split3Jobs jobs) {
+  const int j = blockIdx.y;
+  const float4* x = jobs.x[j];
+  uint2* out = jobs.out[j];
+  const size_t n4 = jobs.n4[j];
+  for (size_t i = size_t(blockIdx.x) * 256 + threadIdx.x; i < n4; i += size_t(gridDim.x) * 256) {
+    const float4 v = x[i];
+    uint32_t h0, m0, l0, h1, m1, l1;
+    split3_bf16(v.x, v.y, h0, m0, l0);
+    split3_bf16(v.z, v.w, h1, m1, l1);
+    out[i] = make_uint2(h0, h1);
+    out[n4 + i] = make_uint2(m0, m1);
+    out[2 * n4 + i] = make_uint2(l0, l1);
+  }
+}
+
+// Launch flash_split3_kernel on `count` (x, elements) pairs, the pieces of
+// each after those of the one before in `pieces`.
+inline cudaError_t split3(cudaStream_t stream, __nv_bfloat16* pieces, int count,
+                          const void* const* xs, const size_t* elems) {
+  Split3Jobs jobs{};
+  size_t most = 0;
+  for (int j = 0; j < count; ++j) {
+    jobs.x[j] = static_cast<const float4*>(xs[j]);
+    jobs.out[j] = reinterpret_cast<uint2*>(pieces);
+    jobs.n4[j] = elems[j] / 4;
+    most = jobs.n4[j] > most ? jobs.n4[j] : most;
+    pieces += 3 * elems[j];
+  }
+  const size_t blocks = (most + 255) / 256;
+  flash_split3_kernel<<<dim3(unsigned(blocks < 2048 ? blocks : 2048), count), 256, 0, stream>>>(jobs);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -121,17 +238,18 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][
 
 // Shared memory of the forward, in bytes from the 1024-aligned base: the Q
 // tile, `stages` K tiles, `stages` V tiles (DVS / 64 sub-tiles of 64 x 64,
-// 8 KB each), then 1 + stages mbarriers. The plan mirrors this.
+// 8 KB each), each tile as P pieces one after the other, then 1 + stages
+// mbarriers. The plan mirrors this.
 struct FwdLayout {
   int k_off, v_off, bar_off, k_stage, v_stage;
   size_t bytes;
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int dkp, int dvs, int stages) {
+__host__ __device__ inline FwdLayout fwd_layout(int dkp, int dvs, int stages, int pieces) {
   FwdLayout L;
-  L.k_stage = kBK * dkp * 2;  // 2, 4 or 8 KB
-  L.v_stage = kBK * dvs * 2;  // a multiple of 8 KB
-  L.k_off = kBQ * dkp * 2;
+  L.k_stage = pieces * kBK * dkp * 2;  // a piece: 2, 4, 8 or 16 KB
+  L.v_stage = pieces * kBK * dvs * 2;  // a piece: a multiple of 8 KB
+  L.k_off = pieces * kBQ * dkp * 2;
   L.v_off = L.k_off + stages * L.k_stage;
   L.bar_off = L.v_off + stages * L.v_stage;
   L.bytes = size_t(L.bar_off) + 8 * (1 + stages) + 1024;  // + slack to align the base
@@ -140,18 +258,21 @@ __host__ __device__ inline FwdLayout fwd_layout(int dkp, int dvs, int stages) {
 
 // grid (q_tiles * n_slices, B); block 128 (one warpgroup). DKP = dk padded
 // to 16, 32, 64 or 128 (QkRows), DVS = the dv slice padded to a multiple of
-// 64.
-template <int DKP, int DVS>
-__global__ void __launch_bounds__(128, DVS <= 128 ? 3 : 2)
+// 64. P = 1: q, k, v and o bf16; P = 3: the maps read the pieces [3B, rows,
+// cols] of fp32 q, k, v (piece p of batch row b is row p * B + b) and o is
+// fp32.
+template <int DKP, int DVS, int P>
+__global__ void __launch_bounds__(128, P == 3 || DVS > 128 ? 2 : 3)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       const __grid_constant__ CUtensorMap tv, void* __restrict__ o,
                        float* __restrict__ lse, int N, int M, int dv, int n_slices, int stages,
                        float c /* scale * log2(e) */) {
   using namespace sm90;
   using R = QkRows<DKP>;
+  using Pc = Pieces<P>;
   constexpr int SW = R::SW;
-  constexpr uint32_t kTileBytes = kBK * DKP * 2, vTileBytes = kBK * DVS * 2;
-  const FwdLayout L = fwd_layout(DKP, DVS, stages);
+  constexpr uint32_t kTileBytes = kBK * DKP * 2, vTileBytes = kBK * DVS * 2;  // one piece
+  const FwdLayout L = fwd_layout(DKP, DVS, stages, P);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bar_off);  // [0] Q, [1 + s] stage s
@@ -161,46 +282,82 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   const int slice = blockIdx.x % n_slices;
   const int q0 = (blockIdx.x / n_slices) * kBQ;
   const int col0 = slice * DVS;
-  const int b = blockIdx.y;
+  const int b = blockIdx.y, nb = gridDim.y;
   const int n_tiles = (M + kBK - 1) / kBK;
 
   auto issue = [&](int tile, int st) {
     uint64_t* bar = bars + 1 + st;
-    mbar_arrive_expect_tx(bar, kTileBytes + vTileBytes);
+    mbar_arrive_expect_tx(bar, P * (kTileBytes + vTileBytes));
 #pragma unroll
-    for (int h = 0; h < R::BOXES; ++h)
-      tma_load_3d(sm + L.k_off + st * L.k_stage + h * R::BOX_BYTES, &tk, bar, h * SW / 2,
-                  tile * kBK, b);
+    for (int p = 0; p < P; ++p) {
 #pragma unroll
-    for (int j = 0; j < DVS / 64; ++j)
-      tma_load_3d(sm + L.v_off + st * L.v_stage + j * 8192, &tv, bar, col0 + 64 * j, tile * kBK, b);
+      for (int h = 0; h < R::BOXES; ++h)
+        tma_load_3d(sm + L.k_off + st * L.k_stage + p * kTileBytes + h * R::BOX_BYTES, &tk, bar,
+                    h * SW / 2, tile * kBK, p * nb + b);
+#pragma unroll
+      for (int j = 0; j < DVS / 64; ++j)
+        tma_load_3d(sm + L.v_off + st * L.v_stage + p * vTileBytes + j * 8192, &tv, bar,
+                    col0 + 64 * j, tile * kBK, p * nb + b);
+    }
   };
   if (tid == 0) {
     for (int s = 0; s <= stages; ++s) mbar_init(bars + s, 1);
     fence_mbar_init();
-    mbar_arrive_expect_tx(bars, kBQ * DKP * 2);
-    for (int h = 0; h < R::BOXES; ++h) tma_load_3d(sm + h * R::BOX_BYTES, &tq, bars, h * SW / 2, q0, b);
+    mbar_arrive_expect_tx(bars, P * kBQ * DKP * 2);
+    for (int p = 0; p < P; ++p)
+      for (int h = 0; h < R::BOXES; ++h)
+        tma_load_3d(sm + p * kBQ * DKP * 2 + h * R::BOX_BYTES, &tq, bars, h * SW / 2, q0, p * nb + b);
     for (int s = 0; s < stages && s < n_tiles; ++s) issue(s, s);
   }
   __syncthreads();
 
   const uint64_t q_desc = make_desc(sm, 16, 8 * SW, SW);
-  // S = Q.K^T: both K-major, one k-step of 16 per 32 bytes of row
+  // S = Q.K^T: both K-major, one k-step of 16 per 32 bytes of row; the
+  // pieces' products smallest first, each over every k-step
   auto qk = [&](float (&s)[32], int st) {
     const uint64_t k_desc = make_desc(sm + L.k_off + st * L.k_stage, 16, 8 * SW, SW);
 #pragma unroll
-    for (int ks = 0; ks < DKP / 16; ++ks)
-      wgmma_ss<64, 0, 0>(s, desc_advance(q_desc, R::kstep(ks)), desc_advance(k_desc, R::kstep(ks)),
-                         ks > 0);
+    for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+      for (int ks = 0; ks < DKP / 16; ++ks)
+        wgmma_ss<64, 0, 0>(s, desc_advance(q_desc, Pc::a(i) * kBQ * DKP * 2 + R::kstep(ks)),
+                           desc_advance(k_desc, Pc::b(i) * kTileBytes + R::kstep(ks)),
+                           i > 0 || ks > 0);
   };
-  float acc[DVS / 2];
+  // O: bf16 adds each tile's P.V into acc; fp32 sums a tile's in a fresh
+  // accumulator `tacc` and adds that into acc in fp32 (rounded to nearest),
+  // since the tensor core's adds truncate and a bias over hundreds of tiles
+  // in one accumulator would outgrow fp32's tolerance
+  float acc[DVS / 2], tacc[P == 3 ? DVS / 2 : 1];
 #pragma unroll
   for (int i = 0; i < DVS / 2; ++i) acc[i] = 0.f;
-  // O += P.V: V read MN-major, 16 keys (2 KB of rows) a k-step, sub-tiles 8 KB apart
-  auto pv = [&](const uint32_t (&pa)[4][4], int st) {
+  // P.V: V read MN-major, 16 keys (2 KB of rows) a k-step, sub-tiles 8 KB apart
+  auto pv = [&](const uint32_t (&pa)[4 * P][4], int st) {
     const uint64_t v_desc = make_desc(sm + L.v_off + st * L.v_stage, 8192, 1024, 128);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DVS, 1>(acc, pa[kk], desc_advance(v_desc, 2048 * kk), 1);
+    for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t vd = desc_advance(v_desc, Pc::b(i) * vTileBytes + 2048 * kk);
+        if constexpr (P == 1) wgmma_rs<DVS, 1>(acc, pa[kk], vd, 1);
+        else wgmma_rs<DVS, 1>(tacc, pa[Pc::a(i) * 4 + kk], vd, i > 0 || kk > 0);
+      }
+  };
+  // acc = (acc + this tile's P.V) * alpha (fp32); bf16: acc *= alpha
+  auto fold = [&](float alpha_lo, float alpha_hi) {
+#pragma unroll
+    for (int j = 0; j < DVS / 8; ++j) {
+      if constexpr (P == 3) {
+        acc[4 * j] += tacc[4 * j];
+        acc[4 * j + 1] += tacc[4 * j + 1];
+        acc[4 * j + 2] += tacc[4 * j + 2];
+        acc[4 * j + 3] += tacc[4 * j + 3];
+      }
+      acc[4 * j] *= alpha_lo;
+      acc[4 * j + 1] *= alpha_lo;
+      acc[4 * j + 2] *= alpha_hi;
+      acc[4 * j + 3] *= alpha_hi;
+    }
   };
 
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the raw scores (rows g, g + 8)
@@ -229,17 +386,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
     // every tile holds at least one key < M, so mx is finite
     const float sc_lo = mx_lo * c, sc_hi = mx_hi * c;
-    alpha_lo = fast_exp2(m_lo * c - sc_lo);  // 0 on the first tile
-    alpha_hi = fast_exp2(m_hi * c - sc_hi);
+    if constexpr (P == 1) {
+      alpha_lo = fast_exp2(m_lo * c - sc_lo);  // 0 on the first tile
+      alpha_hi = fast_exp2(m_hi * c - sc_hi);
+    } else {  // no rounding while the max holds
+      alpha_lo = mx_lo == m_lo ? 1.f : exp2f(m_lo * c - sc_lo);
+      alpha_hi = mx_hi == m_hi ? 1.f : exp2f(m_hi * c - sc_hi);
+    }
     m_lo = mx_lo;
     m_hi = mx_hi;
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      s[4 * j] = fast_exp2(fmaf(s[4 * j], c, -sc_lo));
-      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], c, -sc_lo));
-      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], c, -sc_hi));
-      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], c, -sc_hi));
+      s[4 * j] = softmax_exp2<P>(fmaf(s[4 * j], c, -sc_lo));
+      s[4 * j + 1] = softmax_exp2<P>(fmaf(s[4 * j + 1], c, -sc_lo));
+      s[4 * j + 2] = softmax_exp2<P>(fmaf(s[4 * j + 2], c, -sc_hi));
+      s[4 * j + 3] = softmax_exp2<P>(fmaf(s[4 * j + 3], c, -sc_hi));
       sum_lo += s[4 * j] + s[4 * j + 1];
       sum_hi += s[4 * j + 2] + s[4 * j + 3];
     }
@@ -247,7 +409,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     l_hi = l_hi * alpha_hi + sum_hi;
   };
 
-  uint32_t pa[4][4];  // P of the tile whose P.V is next, bf16 A fragments
+  uint32_t pa[4 * P][4];  // P of the tile whose P.V is next, bf16 A fragments (pieces)
   mbar_wait(bars, 0);
   {
     float s[32], alo, ahi;
@@ -258,41 +420,64 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     wgmma_wait<0>();
     fence_regs(s);
     softmax(s, 0, alo, ahi);  // acc is zero: nothing to rescale
-    acc_to_a(s, pa);
+    acc_to_a<P>(s, pa);
   }
+  // fp32 at dkp 128 runs each tile's P.V before the next S (as one stage
+  // must): S's accumulators and P's pieces are then never live together,
+  // which keeps the registers within 255 without spilling
+  constexpr bool kSerial = P == 3 && DKP == 128;
   for (int it = 1; it < n_tiles; ++it) {
     const int st = it % stages, prev = (it - 1) % stages;
-    mbar_wait(bars + 1 + st, (it / stages) & 1);
     float s[32], alpha_lo, alpha_hi;
     fence_regs(acc);
-    wgmma_fence();
-    qk(s, st);  // S of this tile first ...
-    wgmma_commit();
-    pv(pa, prev);  // ... then P.V of the last one
-    wgmma_commit();
-    wgmma_wait<1>();  // S has landed; P.V runs on under the softmax
-    fence_regs(s);
-    softmax(s, it, alpha_lo, alpha_hi);
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(pa);
-    __syncthreads();  // every warp is done with stage `prev`
-    if (tid == 0 && it - 1 + stages < n_tiles) issue(it - 1 + stages, prev);
-#pragma unroll
-    for (int j = 0; j < DVS / 8; ++j) {
-      acc[4 * j] *= alpha_lo;
-      acc[4 * j + 1] *= alpha_lo;
-      acc[4 * j + 2] *= alpha_hi;
-      acc[4 * j + 3] *= alpha_hi;
+    if (kSerial || stages == 1) {  // P.V of the last tile first, then free its stage
+      if constexpr (P == 3) fresh_regs(tacc);
+      wgmma_fence();
+      pv(pa, prev);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if constexpr (P == 3) fence_regs(tacc);
+      fence_regs(pa);
+      __syncthreads();  // every warp is done with stage `prev`
+      if (tid == 0 && it - 1 + stages < n_tiles) issue(it - 1 + stages, prev);
+      mbar_wait(bars + 1 + st, (it / stages) & 1);
+      wgmma_fence();
+      qk(s, st);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(s, it, alpha_lo, alpha_hi);
+    } else {
+      mbar_wait(bars + 1 + st, (it / stages) & 1);
+      if constexpr (P == 3) fresh_regs(tacc);
+      wgmma_fence();
+      qk(s, st);  // S of this tile first ...
+      wgmma_commit();
+      pv(pa, prev);  // ... then P.V of the last one
+      wgmma_commit();
+      wgmma_wait<1>();  // S has landed; P.V runs on under the softmax
+      fence_regs(s);
+      softmax(s, it, alpha_lo, alpha_hi);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if constexpr (P == 3) fence_regs(tacc);
+      fence_regs(pa);
+      __syncthreads();  // every warp is done with stage `prev`
+      if (tid == 0 && it - 1 + stages < n_tiles) issue(it - 1 + stages, prev);
     }
-    acc_to_a(s, pa);
+    fold(alpha_lo, alpha_hi);
+    acc_to_a<P>(s, pa);
   }
   fence_regs(acc);
+  if constexpr (P == 3) fresh_regs(tacc);
   wgmma_fence();
   pv(pa, (n_tiles - 1) % stages);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
+  if constexpr (P == 3) fence_regs(tacc);
+  fold(1.f, 1.f);
 
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
@@ -300,17 +485,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
   const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
-  __nv_bfloat16* ob = o + size_t(b) * N * dv;
+  constexpr int kOutBytes = P == 1 ? 2 : 4;
+  uint8_t* ob = static_cast<uint8_t*>(o) + size_t(b) * N * dv * kOutBytes;
 #pragma unroll
   for (int j = 0; j < DVS / 8; ++j) {
     const int col = col0 + j * 8 + 2 * t;
     if (col < dv) {
       if (r_lo < N)
-        *reinterpret_cast<uint32_t*>(ob + size_t(r_lo) * dv + col) =
-            pack_bf16(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
+        store2<P>(ob + (size_t(r_lo) * dv + col) * kOutBytes, acc[4 * j] * inv_lo,
+                  acc[4 * j + 1] * inv_lo);
       if (r_hi < N)
-        *reinterpret_cast<uint32_t*>(ob + size_t(r_hi) * dv + col) =
-            pack_bf16(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
+        store2<P>(ob + (size_t(r_hi) * dv + col) * kOutBytes, acc[4 * j + 2] * inv_hi,
+                  acc[4 * j + 3] * inv_hi);
     }
   }
   if (slice == 0 && t == 0) {
@@ -319,21 +505,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   }
 }
 
-template <int DKP, int DVS>
+template <int DKP, int DVS, int P>
 cudaError_t launch_fwd_wgmma(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
                              const void* k, const void* v, void* o, float* lse, int B, int N,
                              int M, int dk, int dv, int n_slices, int stages, float c) {
   constexpr int SW = QkRows<DKP>::SW;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBQ, SW / 2, SW);
-  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBK, SW / 2, SW);
-  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, B, M, dv, kBK, 64, 128);
+  cudaError_t err = sm90::make_map_bf16(&tq, q, P * B, N, dk, kBQ, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, P * B, M, dk, kBK, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, P * B, M, dv, kBK, 64, 128);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DKP, DVS>,
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DKP, DVS, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<DKP, DVS><<<grid, 128, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, N, M, dv, n_slices, stages, c);
+  flash_fwd_wgmma_kernel<DKP, DVS, P><<<grid, 128, smem, stream>>>(
+      tq, tk, tv, o, lse, N, M, dv, n_slices, stages, c);
   return cudaGetLastError();
 }
 
@@ -343,183 +529,23 @@ cudaError_t launch_fwd_wgmma_dvs(int dvs, dim3 grid, size_t smem, cudaStream_t s
                                  int B, int N, int M, int dk, int dv, int n_slices, int stages,
                                  float c) {
   switch (dvs) {
-    case 64: return launch_fwd_wgmma<DKP, 64>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
-    case 128: return launch_fwd_wgmma<DKP, 128>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
-    case 192: return launch_fwd_wgmma<DKP, 192>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
-    case 256: return launch_fwd_wgmma<DKP, 256>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 64: return launch_fwd_wgmma<DKP, 64, 1>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 128: return launch_fwd_wgmma<DKP, 128, 1>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 192: return launch_fwd_wgmma<DKP, 192, 1>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
+    case 256: return launch_fwd_wgmma<DKP, 256, 1>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// ---------------------------------------------------------------------------
-// B2, fp32: a tiling on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kThreadsF32 = 256;  // 16 x 16: ty owns rows 4ty..4ty+3
-constexpr int kDkChunk = 64;      // q/k columns a shared-memory tile holds (fp32 paths)
-constexpr int kRowStride = kDkChunk + 1;  // q/k/p rows in floats (odd: no bank conflicts)
-constexpr int kMaxHeadDk = 128;   // the largest dk: the wgmma paths' dkp
-
-struct F32Smem {
-  static constexpr int q = 0;
-  static constexpr int k = q + kBQ * kRowStride;
-  static constexpr int p = k + kBK * kRowStride;
-  static constexpr int v = p + kBQ * kRowStride;
-  static constexpr size_t bytes = size_t(v + kBK * kDVS) * sizeof(float);
-};
-
-// rows [r0, r0 + rows) x columns [d0, d0 + kDkChunk) of a row-major [n, dk]
-// matrix into s[rows][kRowStride], zeros outside it
-__device__ __forceinline__ void load_chunk(float* s, const float* x, int rows, int r0, int n,
-                                           int d0, int dk, int tid, int threads) {
-  const int w = min(kDkChunk, dk - d0);
-  for (int i = tid; i < rows * kDkChunk; i += threads) {
-    const int r = i / kDkChunk, d = i - r * kDkChunk;
-    s[r * kRowStride + d] = r0 + r < n && d < w ? x[size_t(r0 + r) * dk + d0 + d] : 0.f;
-  }
-}
-
-// S sums over dk in chunks of 64 columns (the q tile stays in shared memory
-// when dk <= 64, else each chunk of q is loaded again beside k's).
-__global__ void __launch_bounds__(kThreadsF32)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int N, int M, int dk, int dv, int n_slices,
-                     float c) {
-  extern __shared__ float smem_f[];
-  float* qs = smem_f + F32Smem::q;
-  float* kts = smem_f + F32Smem::k;
-  float* ps = smem_f + F32Smem::p;
-  float* vts = smem_f + F32Smem::v;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int slice = blockIdx.x % n_slices;
-  const int q0 = (blockIdx.x / n_slices) * kBQ;
-  const int col0 = slice * kDVS;
-  const size_t b = blockIdx.y;
-  const float* qb = q + b * N * dk;
-  const float* kb = k + b * M * dk;
-  const float* vb = v + b * M * dv;
-  const bool one_chunk = dk <= kDkChunk;
-
-  if (one_chunk) load_chunk(qs, qb, kBQ, q0, N, 0, dk, tid, kThreadsF32);
-
-  float acc[4][8];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < M; kv0 += kBK) {
-    // S: rows 4ty+i, keys tx+16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d0 = 0; d0 < dk; d0 += kDkChunk) {
-      __syncthreads();  // the previous chunk (and tile's k, v and p) is consumed
-      if (!one_chunk) load_chunk(qs, qb, kBQ, q0, N, d0, dk, tid, kThreadsF32);
-      load_chunk(kts, kb, kBK, kv0, M, d0, dk, tid, kThreadsF32);
-      if (d0 == 0) {
-        for (int i = tid; i < kBK * kDVS; i += kThreadsF32) {
-          const int r = i / kDVS, cc = i - r * kDVS;
-          vts[i] = kv0 + r < M && col0 + cc < dv ? vb[size_t(kv0 + r) * dv + col0 + cc] : 0.f;
-        }
-      }
-      __syncthreads();
-      const int w = min(kDkChunk, dk - d0);
-      for (int d = 0; d < w; ++d) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * kRowStride + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = kts[(tx + 16 * j) * kRowStride + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (kv0 + tx + 16 * j >= M)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
-
-    // online softmax; a row's 64 scores lie on 16 lanes of one warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m_run[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // the accurate exp2f, and no rescale while the max holds: with
-      // ex2.approx's rounding compounding once a tile, lse at M = 16384 was
-      // 3.2e-4 off float64 on an H100 (4.5e-6 now; the plain fp32
-      // version's 3.2e-6)
-      const float sc = mx * c;
-      const float alpha = mx == m_run[i] ? 1.f : exp2f(m_run[i] * c - sc);
-      m_run[i] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(fmaf(s[i][j], c, -sc));
-        ps[(4 * ty + i) * kRowStride + tx + 16 * j] = p;
-        sum += p;
-      }
-      l_run[i] = l_run[i] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // O += P.V: rows 4ty+i, columns col0 + tx + 16j; the tile's 64 keys sum
-    // apart first, so that no sum runs over more than 64 terms in sequence
-    float part[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * kRowStride + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vv[j] = vts[kk * kDVS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) part[i][j] = fmaf(pv[i], vv[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += part[i][j];
-  }
-
-  float* ob = o + b * N * dv;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    const int r = q0 + 4 * ty + i;
-    if (r < N) {
-      const float inv = 1.f / l;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = col0 + tx + 16 * j;
-        if (col < dv) ob[size_t(r) * dv + col] = acc[i][j] * inv;
-      }
-      if (slice == 0 && tx == 0) lse[b * N + r] = (m_run[i] * c + log2f(l)) * kLn2;
-    }
-  }
+// fp32 (three pieces): dv slices of 64 columns (the registers of acc, tacc,
+// S and P's pieces)
+template <int DKP>
+cudaError_t launch_fwd_bf16x3(int dvs, dim3 grid, size_t smem, cudaStream_t stream,
+                              const void* q, const void* k, const void* v, void* o, float* lse,
+                              int B, int N, int M, int dk, int dv, int n_slices, int stages,
+                              float c) {
+  if (dvs != 64) return cudaErrorInvalidValue;
+  return launch_fwd_wgmma<DKP, 64, 3>(grid, smem, stream, q, k, v, o, lse, B, N, M, dk, dv, n_slices, stages, c);
 }
 
 // ===========================================================================
@@ -583,10 +609,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // registers: flash_bwd_split_kernel (below) splits a key tile's work over
 // dV blocks and one dK/dQ block. bwd_plan picks the design by shape.
 //
-// fp32 runs on the CUDA cores in full fp32 (flash_bwd_f32_kernel, any
-// width): a 256-thread block owns 32 keys and 64 output columns, sweeps
-// 32-row q tiles, and passes P and dS through shared memory; dq takes
-// scalar atomics.
+// fp32 runs the split design (below) at every width on the pieces of B2's
+// note: q, k, v and dO split by flash_split3_kernel in the same call, every
+// product as six piece products, P^T and dS^T split in registers where they
+// are made, the accurate exp2f, D and lse*log2e from flash_bwd_prep_kernel
+// in fp32, each q tile's dV and dK summed in fresh accumulators added in
+// fp32. Tripled tiles do not leave room for all of dv beside dK in one
+// warpgroup's registers and shared memory, so dv slices are at most 128
+// columns and the plan picks the ring's stages, the chunk ring's and the dq
+// buffers by shape. The one-block design above, on three pieces, ran level
+// 2 faster on the H100 but spilled at dv 128 in every arrangement tried:
+// three times the k-steps' shared-memory descriptors (PERF.md).
 // ===========================================================================
 
 constexpr int kBwdBK = 64;        // keys per block
@@ -596,9 +629,11 @@ constexpr int kBwdMaxDv = 512;
 constexpr int kStatBytes = 2 * kBwdBQ * 4;  // lse*log2e and D of one q tile
 
 // D = rowsum(do*o) and lse*log2e of every q row into stat [B, q_tiles, 2,
-// 64], zero past N. grid (q_tiles, B); block 256: a warp per row, 8 at once.
+// 64], zero past N, from bf16 or fp32 o and do. grid (q_tiles, B); block
+// 256: a warp per row, 8 at once.
+template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ stat, int N, int dv) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t b = blockIdx.y;
@@ -609,14 +644,20 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* 
     if (row < N) {
       const uint4* ob = reinterpret_cast<const uint4*>(o + (b * N + row) * dv);
       const uint4* db = reinterpret_cast<const uint4*>(dout + (b * N + row) * dv);
-      for (int i = lane; i < dv / 8; i += 32) {
+      for (int i = lane; i < dv * int(sizeof(T)) / 16; i += 32) {
         const uint4 x = ob[i], y = db[i];
-        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+        if constexpr (sizeof(T) == 2) {
+          const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 xf = __bfloat1622float2(xs[j]), yf = __bfloat1622float2(ys[j]);
-          d = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, d));
+          for (int j = 0; j < 4; ++j) {
+            const float2 xf = __bfloat1622float2(xs[j]), yf = __bfloat1622float2(ys[j]);
+            d = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, d));
+          }
+        } else {
+          const float* xs = reinterpret_cast<const float*>(&x);
+          const float* ys = reinterpret_cast<const float*>(&y);
+          d = fmaf(xs[0], ys[0], fmaf(xs[1], ys[1], fmaf(xs[2], ys[2], fmaf(xs[3], ys[3], d))));
         }
       }
     }
@@ -793,8 +834,8 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       }
     }
     uint32_t pa[4][4], da[4][4];
-    acc_to_a(s, pa);
-    if (lead) acc_to_a(dp, da);
+    acc_to_a<1>(s, pa);
+    if (lead) acc_to_a<1>(dp, da);
 
     // dV += P^T.dO and, with one warpgroup, dK += dS^T.Q from registers (dO
     // and Q MN-major, 16 q rows a k-step)
@@ -950,69 +991,80 @@ cudaError_t launch_bwd_wgmma_dvs(int dvs, int wgs, dim3 grid, size_t smem, cudaS
 }
 
 // ---------------------------------------------------------------------------
-// B3, bf16, split: q/k rows of 128 columns, or dv above 512
+// B3, split: bf16 q/k rows of 128 columns or dv above 512; fp32 at every width
 // ---------------------------------------------------------------------------
 //
 // flash_bwd_wgmma_kernel keeps dK, dV (all of dv, over one or two
 // warpgroups) and the score tiles in registers at once, which holds up to
-// dkp 64 and dv 512. Past either, the work of a key tile is split over
-// blocks of two classes (grid (key_tiles * (n_slices + 1), B), one
-// warpgroup each), so that no block holds more than one of dK and dV:
-//   - n_slices dV blocks, one per dv slice of DVS <= 256 columns: each
-//     recomputes S^T = K.Q^T and P^T for every q tile and adds P^T.dO of its
-//     slice into dV (the forward's structure with keys and q rows swapped);
+// dkp 64 and dv 512 in bf16. Past either, and in fp32 (P = 3 pieces), the
+// work of a key tile is split over blocks of two classes (grid (key_tiles *
+// (n_slices + 1), B), one warpgroup each), so that no block holds more than
+// one of dK and dV:
+//   - n_slices dV blocks, one per dv slice of DVS <= 256 columns (<= 128 in
+//     fp32): each recomputes S^T = K.Q^T and P^T for every q tile and adds
+//     P^T.dO of its slice into dV (the forward's structure with keys and q
+//     rows swapped);
 //   - one dK/dQ block: S^T and P^T likewise, dP^T = V.dO^T as a loop over
 //     dv in chunks of 64 columns (V and dO chunks streamed through a TMA ring
-//     of kChunkStages, so no width of dv needs more shared memory or
+//     of `cstages`, so no width of dv needs more shared memory or
 //     registers), then dS^T, dK += dS^T.Q, and dQ = dS.K by halves of <= 64
-//     columns into the bulk reduce-add of flash_bwd_wgmma_kernel.
+//     columns into the bulk reduce-add of flash_bwd_wgmma_kernel (through
+//     `dqb` fp32 tile buffers: two overlap a tile's reduce with the next
+//     tile, one where two do not fit).
 // S^T and P^T are computed n_slices + 1 times per key tile: the price of
 // any width. The q/k operand layouts at dkp 128 are those of V and dO
 // (QkRows: two 64-column boxes, K-major k-steps across the pair, MN-major
-// with the 8 KB box step as the leading byte offset).
-
-constexpr int kChunkStages = 2;
-constexpr int kChunkBytes = 2 * kBwdBK * 64 * 2;  // one V chunk, one dO chunk
+// with the 8 KB box step as the leading byte offset). Every tile holds P
+// pieces one after the other.
 
 struct BwdSplitLayout {
-  int q_off, x_off, ds_off, dq_off, stat_off, bar_off, q_stage, do_stage, dq_buf;
+  int q_off, x_off, ds_off, dq_off, stat_off, bar_off, q_stage, do_stage, dq_buf, chunk;
   size_t bytes;
 };
 
 // Shared memory of the split backward, in bytes from the 1024-aligned base:
 // K, `stages` Q tiles, then the class's own part (a dV block's `stages` dO
-// slices; a dK/dQ block's chunk ring, dS^T and two fp32 dq tiles), `stages`
-// lse/D tiles, and the mbarriers: [0] K, [1 + s] q stage s, [1 + stages + r]
-// chunk stage r. The plan mirrors this.
-__host__ __device__ inline BwdSplitLayout bwd_split_layout(int dkp, int dvs, int dk, int stages) {
+// slices; a dK/dQ block's ring of `cstages` V and dO chunks, dS^T and `dqb`
+// fp32 dq tiles), `stages` lse/D tiles, and the mbarriers: [0] K, [1 + s] q
+// stage s, [1 + stages + r] chunk stage r. Each bf16 tile as `pieces`
+// pieces. The plan mirrors this.
+__host__ __device__ inline BwdSplitLayout bwd_split_layout(int dkp, int dvs, int dk, int stages,
+                                                           int cstages, int dqb, int pieces) {
   BwdSplitLayout L;
-  L.q_stage = kBwdBQ * dkp * 2;
-  L.do_stage = kBwdBQ * dvs * 2;
+  L.q_stage = pieces * kBwdBQ * dkp * 2;
+  L.do_stage = pieces * kBwdBQ * dvs * 2;
   L.dq_buf = kBwdBQ * dk * 4;
-  L.q_off = kBwdBK * dkp * 2;
+  L.chunk = pieces * 2 * kBwdBK * 64 * 2;  // a V chunk's pieces, then a dO chunk's
+  L.q_off = pieces * kBwdBK * dkp * 2;
   L.x_off = L.q_off + stages * L.q_stage;
-  L.ds_off = L.x_off + kChunkStages * kChunkBytes;
-  L.dq_off = L.ds_off + kBwdBK * kBwdBQ * 2;
-  const int dv_end = L.x_off + stages * L.do_stage, dq_end = L.dq_off + 2 * L.dq_buf;
+  L.ds_off = L.x_off + cstages * L.chunk;
+  L.dq_off = L.ds_off + pieces * kBwdBK * kBwdBQ * 2;
+  const int dv_end = L.x_off + stages * L.do_stage, dq_end = L.dq_off + dqb * L.dq_buf;
   L.stat_off = dv_end > dq_end ? dv_end : dq_end;
   L.bar_off = L.stat_off + stages * kStatBytes;
-  L.bytes = size_t(L.bar_off) + 8 * (1 + stages + kChunkStages) + 1024;
+  L.bytes = size_t(L.bar_off) + 8 * (1 + stages + cstages) + 1024;
   return L;
 }
 
-template <int DKP, int DVS>
+// P = 1: q, k, v, dO bf16, dK and dV written bf16; P = 3: the maps read the
+// pieces [3B, rows, cols] of fp32 q, k, v, dO (piece p of batch row b is
+// row p * B + b), dK and dV are written fp32.
+template <int DKP, int DVS, int P>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                        const float* __restrict__ stat, float* __restrict__ dq,
-                       __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int N,
-                       int M, int dk, int dv, int n_slices, int stages, float c, float scale) {
+                       void* __restrict__ dk_out, void* __restrict__ dv_out, int N, int M, int dk,
+                       int dv, int n_slices, int stages, int cstages, int dqb, float c,
+                       float scale) {
   using namespace sm90;
   using R = QkRows<DKP>;
+  using Pc = Pieces<P>;
   constexpr int SW = R::SW;
   constexpr int DKH = DKP / R::BOXES;  // dQ's columns a product: one box
-  constexpr uint32_t qBytes = kBwdBQ * DKP * 2, doBytes = kBwdBQ * DVS * 2;
-  const BwdSplitLayout L = bwd_split_layout(DKP, DVS, dk, stages);
+  constexpr uint32_t qBytes = kBwdBQ * DKP * 2, doBytes = kBwdBQ * DVS * 2;  // one piece
+  constexpr int kOutBytes = P == 1 ? 2 : 4;
+  const BwdSplitLayout L = bwd_split_layout(DKP, DVS, dk, stages, cstages, dqb, P);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bar_off);
@@ -1023,7 +1075,7 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = (blockIdx.x / (n_slices + 1)) * kBwdBK;
-  const int b = blockIdx.y;
+  const int b = blockIdx.y, nb = gridDim.y;
   const int col0 = role * DVS;
   const int n_qt = (N + kBwdBQ - 1) / kBwdBQ;
   const int n_ch = (dv + 63) / 64;
@@ -1032,39 +1084,50 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
 
   auto issue = [&](int tile, int st) {  // Q, lse/D and (dV blocks) the dO slice of q tile `tile`
     uint64_t* bar = bars + 1 + st;
-    mbar_arrive_expect_tx(bar, qBytes + kStatBytes + (dv_block ? doBytes : 0));
+    mbar_arrive_expect_tx(bar, P * qBytes + kStatBytes + (dv_block ? P * doBytes : 0));
 #pragma unroll
-    for (int h = 0; h < R::BOXES; ++h)
-      tma_load_3d(sm + L.q_off + st * L.q_stage + h * R::BOX_BYTES, &tq, bar, h * SW / 2,
-                  tile * kBwdBQ, b);
-    if (dv_block) {
+    for (int p = 0; p < P; ++p) {
 #pragma unroll
-      for (int j = 0; j < DVS / 64; ++j)
-        tma_load_3d(sm + L.x_off + st * L.do_stage + j * 8192, &tdo, bar, col0 + 64 * j,
-                    tile * kBwdBQ, b);
+      for (int h = 0; h < R::BOXES; ++h)
+        tma_load_3d(sm + L.q_off + st * L.q_stage + p * qBytes + h * R::BOX_BYTES, &tq, bar,
+                    h * SW / 2, tile * kBwdBQ, p * nb + b);
+      if (dv_block) {
+#pragma unroll
+        for (int j = 0; j < DVS / 64; ++j)
+          tma_load_3d(sm + L.x_off + st * L.do_stage + p * doBytes + j * 8192, &tdo, bar,
+                      col0 + 64 * j, tile * kBwdBQ, p * nb + b);
+      }
     }
     bulk_load(sm + L.stat_off + st * kStatBytes, statb + size_t(tile) * (2 * kBwdBQ), kStatBytes,
               bar);
   };
-  auto issue_chunk = [&](int seq, int r) {  // V and dO columns 64 * (seq % n_ch) of q tile seq / n_ch
+  // V and dO columns 64 * (seq % n_ch) of q tile seq / n_ch, P pieces each
+  auto issue_chunk = [&](int seq, int r) {
     uint64_t* bar = chunk_bars + r;
-    uint8_t* dst = sm + L.x_off + r * kChunkBytes;
-    mbar_arrive_expect_tx(bar, kChunkBytes);
-    tma_load_3d(dst, &tv, bar, 64 * (seq % n_ch), k0, b);
-    tma_load_3d(dst + 8192, &tdo, bar, 64 * (seq % n_ch), (seq / n_ch) * kBwdBQ, b);
+    uint8_t* dst = sm + L.x_off + r * L.chunk;
+    mbar_arrive_expect_tx(bar, L.chunk);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      tma_load_3d(dst + p * 8192, &tv, bar, 64 * (seq % n_ch), k0, p * nb + b);
+      tma_load_3d(dst + (P + p) * 8192, &tdo, bar, 64 * (seq % n_ch), (seq / n_ch) * kBwdBQ,
+                  p * nb + b);
+    }
   };
   if (tid == 0) {
-    for (int s = 0; s < 1 + stages + kChunkStages; ++s) mbar_init(bars + s, 1);
+    for (int s = 0; s < 1 + stages + cstages; ++s) mbar_init(bars + s, 1);
     fence_mbar_init();
-    mbar_arrive_expect_tx(bars, kBwdBK * DKP * 2);
-    for (int h = 0; h < R::BOXES; ++h)
-      tma_load_3d(sm + h * R::BOX_BYTES, &tk, bars, h * SW / 2, k0, b);
+    mbar_arrive_expect_tx(bars, P * kBwdBK * DKP * 2);
+    for (int p = 0; p < P; ++p)
+      for (int h = 0; h < R::BOXES; ++h)
+        tma_load_3d(sm + p * kBwdBK * DKP * 2 + h * R::BOX_BYTES, &tk, bars, h * SW / 2, k0,
+                    p * nb + b);
     for (int s = 0; s < stages && s < n_qt; ++s) issue(s, s);
     if (!dv_block)
-      for (int r = 0; r < kChunkStages && r < n_seq; ++r) issue_chunk(r, r);
+      for (int r = 0; r < cstages && r < n_seq; ++r) issue_chunk(r, r);
   }
   __syncthreads();
 
+  constexpr uint32_t kTileBytes = kBwdBK * DKP * 2;  // one piece of K
   const uint64_t k_desc = make_desc(sm, 16, 8 * SW, SW);
   const int krow = warp * 16 + g;  // this thread's keys: krow, krow + 8
   const bool key_lo_ok = k0 + krow < M, key_hi_ok = k0 + krow + 8 < M;
@@ -1074,9 +1137,12 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   auto scores = [&](float (&s)[32], const uint8_t* q_s) {
     const uint64_t q_desc = make_desc(q_s, 16, 8 * SW, SW);
 #pragma unroll
-    for (int ks = 0; ks < DKP / 16; ++ks)
-      wgmma_ss<64, 0, 0>(s, desc_advance(k_desc, R::kstep(ks)), desc_advance(q_desc, R::kstep(ks)),
-                         ks > 0);
+    for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+      for (int ks = 0; ks < DKP / 16; ++ks)
+        wgmma_ss<64, 0, 0>(s, desc_advance(k_desc, Pc::a(i) * kTileBytes + R::kstep(ks)),
+                           desc_advance(q_desc, Pc::b(i) * qBytes + R::kstep(ks)),
+                           i > 0 || ks > 0);
   };
   // P^T = exp2(S^T*c - lse*log2e) in place; keys past M get none
   auto probs = [&](float (&s)[32], const float* l2) {
@@ -1084,16 +1150,20 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     for (int j = 0; j < 8; ++j) {
       const int col = j * 8 + 2 * t;
       const float l0 = l2[col], l1 = l2[col + 1];
-      s[4 * j] = key_lo_ok ? fast_exp2(fmaf(s[4 * j], c, -l0)) : 0.f;
-      s[4 * j + 1] = key_lo_ok ? fast_exp2(fmaf(s[4 * j + 1], c, -l1)) : 0.f;
-      s[4 * j + 2] = key_hi_ok ? fast_exp2(fmaf(s[4 * j + 2], c, -l0)) : 0.f;
-      s[4 * j + 3] = key_hi_ok ? fast_exp2(fmaf(s[4 * j + 3], c, -l1)) : 0.f;
+      s[4 * j] = key_lo_ok ? softmax_exp2<P>(fmaf(s[4 * j], c, -l0)) : 0.f;
+      s[4 * j + 1] = key_lo_ok ? softmax_exp2<P>(fmaf(s[4 * j + 1], c, -l1)) : 0.f;
+      s[4 * j + 2] = key_hi_ok ? softmax_exp2<P>(fmaf(s[4 * j + 2], c, -l0)) : 0.f;
+      s[4 * j + 3] = key_hi_ok ? softmax_exp2<P>(fmaf(s[4 * j + 3], c, -l1)) : 0.f;
     }
   };
 
+  // In fp32 each q tile's dV and dK terms sum in a fresh accumulator that
+  // is then added into the running one in fp32 (rounded to nearest): the
+  // tensor core's adds truncate, and over hundreds of q tiles in one
+  // accumulator their bias would outgrow fp32's tolerance (B2's note).
   mbar_wait(bars, 0);
   if (dv_block) {
-    float dv_acc[DVS / 2];
+    float dv_acc[DVS / 2], dv_t[P == 3 ? DVS / 2 : 1];
 #pragma unroll
     for (int i = 0; i < DVS / 2; ++i) dv_acc[i] = 0.f;
     for (int it = 0; it < n_qt; ++it) {
@@ -1107,33 +1177,43 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       wgmma_wait<0>();
       fence_regs(s);
       probs(s, l2);
-      uint32_t pa[4][4];
-      acc_to_a(s, pa);
+      uint32_t pa[4 * P][4];
+      acc_to_a<P>(s, pa);
       // dV += P^T.dO of this slice (dO MN-major, 16 q rows a k-step)
       const uint64_t do_desc = make_desc(sm + L.x_off + st * L.do_stage, 8192, 1024, 128);
       fence_regs(dv_acc);
+      if constexpr (P == 3) fresh_regs(dv_t);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DVS, 1>(dv_acc, pa[kk], desc_advance(do_desc, 2048 * kk), 1);
+      for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dd = desc_advance(do_desc, Pc::b(i) * doBytes + 2048 * kk);
+          if constexpr (P == 1) wgmma_rs<DVS, 1>(dv_acc, pa[kk], dd, 1);
+          else wgmma_rs<DVS, 1>(dv_t, pa[Pc::a(i) * 4 + kk], dd, i > 0 || kk > 0);
+        }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
+      if constexpr (P == 3) fence_regs(dv_t);
       fence_regs(pa);
+      if constexpr (P == 3) {
+#pragma unroll
+        for (int i = 0; i < DVS / 2; ++i) dv_acc[i] += dv_t[i];
+      }
       __syncthreads();  // stage `st` is consumed
       if (tid == 0 && it + stages < n_qt) issue(it + stages, st);
     }
-    __nv_bfloat16* dvb = dv_out + size_t(b) * M * dv;
+    uint8_t* dvb = static_cast<uint8_t*>(dv_out) + size_t(b) * M * dv * kOutBytes;
 #pragma unroll
     for (int j = 0; j < DVS / 8; ++j) {
       const int col = col0 + j * 8 + 2 * t;
       if (col < dv) {
         if (key_lo < M)
-          *reinterpret_cast<uint32_t*>(dvb + size_t(key_lo) * dv + col) =
-              pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+          store2<P>(dvb + (size_t(key_lo) * dv + col) * kOutBytes, dv_acc[4 * j], dv_acc[4 * j + 1]);
         if (key_hi < M)
-          *reinterpret_cast<uint32_t*>(dvb + size_t(key_hi) * dv + col) =
-              pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+          store2<P>(dvb + (size_t(key_hi) * dv + col) * kOutBytes, dv_acc[4 * j + 2],
+                    dv_acc[4 * j + 3]);
       }
     }
     return;
@@ -1142,7 +1222,7 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   // the dK/dQ block
   uint8_t* ds_s = sm + L.ds_off;
   const uint64_t ds_desc = make_desc(ds_s, 16, 1024, 128);
-  float dk_acc[DKP / 2];
+  float dk_acc[DKP / 2], dk_t[P == 3 ? DKH / 2 : 1];
 #pragma unroll
   for (int i = 0; i < DKP / 2; ++i) dk_acc[i] = 0.f;
   int seq = 0;
@@ -1159,22 +1239,26 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     wgmma_commit();
     // dP^T = V.dO^T over dv, a 64-column chunk of each at a time (both K-major)
     for (int ch = 0; ch < n_ch; ++ch, ++seq) {
-      const int r = seq % kChunkStages;
-      mbar_wait(chunk_bars + r, (seq / kChunkStages) & 1);
-      const uint8_t* v_c = sm + L.x_off + r * kChunkBytes;
+      // the ring is 1 or 2 deep: its slot and phase without a division
+      const int r = cstages == 1 ? 0 : seq & 1;
+      mbar_wait(chunk_bars + r, (cstages == 1 ? seq : seq >> 1) & 1);
+      const uint8_t* v_c = sm + L.x_off + r * L.chunk;
       const uint64_t v_desc = make_desc(v_c, 16, 1024, 128);
-      const uint64_t do_desc = make_desc(v_c + 8192, 16, 1024, 128);
+      const uint64_t do_desc = make_desc(v_c + P * 8192, 16, 1024, 128);
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss<64, 0, 0>(dp, desc_advance(v_desc, 32 * kk), desc_advance(do_desc, 32 * kk),
-                           ch > 0 || kk > 0);
+      for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<64, 0, 0>(dp, desc_advance(v_desc, Pc::a(i) * 8192 + 32 * kk),
+                             desc_advance(do_desc, Pc::b(i) * 8192 + 32 * kk),
+                             ch > 0 || i > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dp);
       __syncthreads();  // chunk stage r is consumed
-      if (tid == 0 && seq + kChunkStages < n_seq) issue_chunk(seq + kChunkStages, r);
+      if (tid == 0 && seq + cstages < n_seq) issue_chunk(seq + cstages, r);
     }
     fence_regs(s);
     probs(s, l2);
@@ -1188,35 +1272,66 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d0);
       dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d1);
     }
-    uint32_t da[4][4];
-    acc_to_a(dp, da);
-    // dK += dS^T.Q from registers (Q MN-major, 16 q rows a k-step; at dkp
-    // 128 its two boxes are 8 KB apart along N)
-    const uint64_t q_mn = make_desc(q_s, DKP <= 64 ? 16 : R::BOX_BYTES, 8 * SW, SW);
-    fence_regs(dk_acc);
-    wgmma_fence();
+    uint32_t da[4 * P][4];
+    acc_to_a<P>(dp, da);
+    if constexpr (P == 1) {
+      // dK += dS^T.Q from registers (Q MN-major, 16 q rows a k-step; at dkp
+      // 128 its two boxes are 8 KB apart along N)
+      const uint64_t q_mn = make_desc(q_s, DKP <= 64 ? 16 : R::BOX_BYTES, 8 * SW, SW);
+      fence_regs(dk_acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<DKP, 1>(dk_acc, da[kk], desc_advance(q_mn, 16 * SW * kk), 1);
-    wgmma_commit();
-    // dS^T (keys x 64 q, bf16) to shared memory in the 128-byte swizzle
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DKP, 1>(dk_acc, da[kk], desc_advance(q_mn, 16 * SW * kk), 1);
+      wgmma_commit();
+    }
+    // dS^T (keys x 64 q, bf16 pieces, 8 KB apart) to shared memory in the
+    // 128-byte swizzle: the 16-byte chunk j of row r sits at chunk j ^ (r % 8)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int p = 0; p < P; ++p) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 2 * kk + h;
-        const int r0 = krow, r1 = krow + 8;
-        *reinterpret_cast<uint32_t*>(ds_s + r0 * 128 + ((j ^ (r0 & 7)) << 4) + 4 * t) = da[kk][2 * h];
-        *reinterpret_cast<uint32_t*>(ds_s + r1 * 128 + ((j ^ (r1 & 7)) << 4) + 4 * t) =
-            da[kk][2 * h + 1];
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * kk + h;
+          const int r0 = krow, r1 = krow + 8;
+          *reinterpret_cast<uint32_t*>(ds_s + p * 8192 + r0 * 128 + ((j ^ (r0 & 7)) << 4) + 4 * t) =
+              da[p * 4 + kk][2 * h];
+          *reinterpret_cast<uint32_t*>(ds_s + p * 8192 + r1 * 128 + ((j ^ (r1 & 7)) << 4) + 4 * t) =
+              da[p * 4 + kk][2 * h + 1];
+        }
       }
     }
     fence_proxy_async();
     __syncthreads();  // dS^T of every warp is in shared memory
+    if constexpr (P == 3) {
+      // dK += dS^T.Q from shared memory (dS^T K-major, Q MN-major), a box of
+      // Q's columns at a time into a fresh accumulator added in fp32: dS's
+      // register pieces are dead by now, which keeps dkp 128 within 255
+      // registers
+#pragma unroll
+      for (int h = 0; h < R::BOXES; ++h) {
+        const uint64_t q_box = make_desc(q_s + h * R::BOX_BYTES, 16, 8 * SW, SW);
+        fresh_regs(dk_t);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<DKH, 0, 1>(dk_t, desc_advance(ds_desc, Pc::a(i) * 8192 + 32 * kk),
+                                desc_advance(q_box, Pc::b(i) * qBytes + 16 * SW * kk),
+                                i > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if constexpr (P == 3) fence_regs(dk_t);
+#pragma unroll
+        for (int i = 0; i < DKH / 2; ++i) dk_acc[h * DKH / 2 + i] += dk_t[i];
+      }
+    }
 
     // dQ = dS.K over the block's 64 keys, one box of K's columns at a time
     // (dS^T and K MN-major), scaled into this tile's fp32 dq buffer
-    float* dq_s = reinterpret_cast<float*>(sm + L.dq_off + (it & 1) * L.dq_buf);
+    float* dq_s = reinterpret_cast<float*>(sm + L.dq_off + (dqb == 2 ? it & 1 : 0) * L.dq_buf);
     const int qr = warp * 16 + g;
 #pragma unroll
     for (int h = 0; h < R::BOXES; ++h) {
@@ -1224,9 +1339,12 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       const uint64_t k_mn = make_desc(sm + h * R::BOX_BYTES, 16, 8 * SW, SW);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss<DKH, 1, 1>(dqa, desc_advance(ds_desc, 2048 * kk), desc_advance(k_mn, 16 * SW * kk),
-                            kk > 0);
+      for (int i = 0; i < Pc::kProducts; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<DKH, 1, 1>(dqa, desc_advance(ds_desc, Pc::a(i) * 8192 + 2048 * kk),
+                              desc_advance(k_mn, Pc::b(i) * kTileBytes + 16 * SW * kk),
+                              i > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dqa);
@@ -1242,7 +1360,7 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       }
     }
     fence_regs(dk_acc);
-    fence_regs(da);
+    if constexpr (P == 1) fence_regs(da);  // fp32: dK reads dS^T from shared memory
     fence_proxy_async();
     __syncthreads();  // the dq tile is written; stage `st` and dS^T are consumed
     if (tid == 0) {
@@ -1250,232 +1368,75 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       float* dq_tile = dq + (size_t(b) * N + size_t(it) * kBwdBQ) * dk;
       bulk_reduce_add_f32(dq_tile, dq_s, uint32_t(rows * dk * 4));
       bulk_commit();
-      bulk_wait_read<1>();  // the other dq buffer is free for the next tile
+      // the buffer the next tile writes is free
+      if (dqb == 2) bulk_wait_read<1>();
+      else bulk_wait_read<0>();
       if (it + stages < n_qt) issue(it + stages, st);
     }
   }
   if (tid == 0) bulk_wait_all();
 
-  __nv_bfloat16* dkb = dk_out + size_t(b) * M * dk;
+  uint8_t* dkb = static_cast<uint8_t*>(dk_out) + size_t(b) * M * dk * kOutBytes;
 #pragma unroll
   for (int j = 0; j < DKP / 8; ++j) {
     const int col = j * 8 + 2 * t;
     if (col < dk) {
       if (key_lo < M)
-        *reinterpret_cast<uint32_t*>(dkb + size_t(key_lo) * dk + col) =
-            pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
+        store2<P>(dkb + (size_t(key_lo) * dk + col) * kOutBytes, dk_acc[4 * j] * scale,
+                  dk_acc[4 * j + 1] * scale);
       if (key_hi < M)
-        *reinterpret_cast<uint32_t*>(dkb + size_t(key_hi) * dk + col) =
-            pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
+        store2<P>(dkb + (size_t(key_hi) * dk + col) * kOutBytes, dk_acc[4 * j + 2] * scale,
+                  dk_acc[4 * j + 3] * scale);
     }
   }
 }
 
-template <int DKP, int DVS>
+template <int DKP, int DVS, int P>
 cudaError_t launch_bwd_split(dim3 grid, size_t smem, cudaStream_t stream, const void* q,
                              const void* k, const void* v, const void* dout, const float* stat,
                              float* dq, void* dk_out, void* dv_out, int B, int N, int M, int dk,
-                             int dv, int n_slices, int stages, float c, float scale) {
+                             int dv, int n_slices, int stages, int cstages, int dqb, float c,
+                             float scale) {
   constexpr int SW = QkRows<DKP>::SW;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = sm90::make_map_bf16(&tq, q, B, N, dk, kBwdBQ, SW / 2, SW);
-  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, B, M, dk, kBwdBK, SW / 2, SW);
-  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, B, M, dv, kBwdBK, 64, 128);
-  if (err == cudaSuccess) err = sm90::make_map_bf16(&tdo, dout, B, N, dv, kBwdBQ, 64, 128);
+  cudaError_t err = sm90::make_map_bf16(&tq, q, P * B, N, dk, kBwdBQ, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tk, k, P * B, M, dk, kBwdBK, SW / 2, SW);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tv, v, P * B, M, dv, kBwdBK, 64, 128);
+  if (err == cudaSuccess) err = sm90::make_map_bf16(&tdo, dout, P * B, N, dv, kBwdBQ, 64, 128);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_split_kernel<DKP, DVS>,
+  err = cudaFuncSetAttribute(flash_bwd_split_kernel<DKP, DVS, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_bwd_split_kernel<DKP, DVS><<<grid, kBwdThreads, smem, stream>>>(
-      tq, tk, tv, tdo, stat, dq, static_cast<__nv_bfloat16*>(dk_out),
-      static_cast<__nv_bfloat16*>(dv_out), N, M, dk, dv, n_slices, stages, c, scale);
+  flash_bwd_split_kernel<DKP, DVS, P><<<grid, kBwdThreads, smem, stream>>>(
+      tq, tk, tv, tdo, stat, dq, dk_out, dv_out, N, M, dk, dv, n_slices, stages, cstages, dqb, c,
+      scale);
   return cudaGetLastError();
 }
 
-// the (dkp, dv slice) pairs the plan gives the split design: dkp 128 at any
-// slice; dkp <= 64 only above dv 512, where three or more slices of <= 256
-// are each wider than 170 columns
-cudaError_t launch_bwd_split_any(int dkp, int dvs, dim3 grid, size_t smem, cudaStream_t stream,
-                                 const void* q, const void* k, const void* v, const void* dout,
-                                 const float* stat, float* dq, void* dk_out, void* dv_out, int B,
-                                 int N, int M, int dk, int dv, int n_slices, int stages, float c,
-                                 float scale) {
-#define ADEPTH_SPLIT(P, S) \
-  case P * 1000 + S: return launch_bwd_split<P, S>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, n_slices, stages, c, scale);
-  switch (dkp * 1000 + dvs) {
+// the (dkp, dv slice) pairs the plan gives the split design in bf16: dkp
+// 128 at any slice; dkp <= 64 only above dv 512, where three or more slices
+// of <= 256 are each wider than 170 columns. In fp32 (ADEPTH_SPLIT3) every
+// dkp with slices of 64 or 128.
+cudaError_t launch_bwd_split_any(int pieces, int dkp, int dvs, dim3 grid, size_t smem,
+                                 cudaStream_t stream, const void* q, const void* k, const void* v,
+                                 const void* dout, const float* stat, float* dq, void* dk_out,
+                                 void* dv_out, int B, int N, int M, int dk, int dv, int n_slices,
+                                 int stages, int cstages, int dqb, float c, float scale) {
+#define ADEPTH_SPLIT_CASE(P, D, S) \
+  case (P * 1000 + D) * 1000 + S: return launch_bwd_split<D, S, P>(grid, smem, stream, q, k, v, dout, stat, dq, dk_out, dv_out, B, N, M, dk, dv, n_slices, stages, cstages, dqb, c, scale);
+#define ADEPTH_SPLIT(D, S) ADEPTH_SPLIT_CASE(1, D, S)
+#define ADEPTH_SPLIT3(D, S) ADEPTH_SPLIT_CASE(3, D, S)
+  switch ((pieces * 1000 + dkp) * 1000 + dvs) {
     ADEPTH_SPLIT(16, 192) ADEPTH_SPLIT(16, 256) ADEPTH_SPLIT(32, 192) ADEPTH_SPLIT(32, 256)
     ADEPTH_SPLIT(64, 192) ADEPTH_SPLIT(64, 256) ADEPTH_SPLIT(128, 64) ADEPTH_SPLIT(128, 128)
     ADEPTH_SPLIT(128, 192) ADEPTH_SPLIT(128, 256)
+    ADEPTH_SPLIT3(16, 64) ADEPTH_SPLIT3(16, 128) ADEPTH_SPLIT3(32, 64) ADEPTH_SPLIT3(32, 128)
+    ADEPTH_SPLIT3(64, 64) ADEPTH_SPLIT3(64, 128) ADEPTH_SPLIT3(128, 64) ADEPTH_SPLIT3(128, 128)
     default: return cudaErrorInvalidValue;
   }
+#undef ADEPTH_SPLIT3
 #undef ADEPTH_SPLIT
-}
-
-// ---------------------------------------------------------------------------
-// B3, fp32: the CUDA cores, any width
-// ---------------------------------------------------------------------------
-//
-// A 256-thread block owns 32 keys and one output slice of 64 columns: a
-// slice of dV (slices 0 .. n_dv - 1) or of dK (the rest); slice 0 also adds
-// dQ by scalar atomics. For every 32-row q tile it computes S (over dk) and
-// dP (over dv) in chunks of 64 columns through shared memory, then P and dS,
-// then its slice. The scores are recomputed for every slice: the simplest
-// route at every width; it serves the parity checks only.
-constexpr int kBwdF32BK = 32;   // keys per block
-constexpr int kBwdF32BQ = 32;   // q rows per sweep step
-constexpr int kPStride = kBwdF32BQ + 1;
-
-struct BwdF32Smem {
-  static constexpr int k = 0;                                  // [32][kRowStride], a dk chunk
-  static constexpr int q = k + kBwdF32BK * kRowStride;         // [32][kRowStride]
-  static constexpr int v = q + kBwdF32BQ * kRowStride;         // [32][kRowStride], a dv chunk
-  static constexpr int d = v + kBwdF32BK * kRowStride;         // [32][kRowStride], dO's
-  static constexpr int p = d + kBwdF32BQ * kRowStride;         // [q][key]
-  static constexpr int ds = p + kBwdF32BQ * kPStride;          // [q][key]
-  static constexpr int l2 = ds + kBwdF32BQ * kPStride;
-  static constexpr int dd = l2 + kBwdF32BQ;
-  static constexpr size_t bytes = size_t(dd + kBwdF32BQ) * sizeof(float);
-};
-
-// grid (key_tiles * n_slices, B); block 256: ty = tid / 16 owns rows 2ty,
-// 2ty + 1 (q rows of S, P, dS and dq; keys of the slice), tx the keys tx,
-// tx + 16 of S and the columns tx + 16j of the slice
-__global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ dsum,
-                     float* __restrict__ dq, float* __restrict__ dk_out,
-                     float* __restrict__ dv_out, int N, int M, int dk, int dv, int n_slices,
-                     float c, float scale) {
-  extern __shared__ float smem_f[];
-  float* ks = smem_f + BwdF32Smem::k;
-  float* qs = smem_f + BwdF32Smem::q;
-  float* vs = smem_f + BwdF32Smem::v;
-  float* dos = smem_f + BwdF32Smem::d;
-  float* ps = smem_f + BwdF32Smem::p;
-  float* dss = smem_f + BwdF32Smem::ds;
-  float* l2s = smem_f + BwdF32Smem::l2;
-  float* dds = smem_f + BwdF32Smem::dd;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int slice = blockIdx.x % n_slices;
-  const int k0 = (blockIdx.x / n_slices) * kBwdF32BK;
-  const int n_dv = (dv + kDkChunk - 1) / kDkChunk;
-  const bool dv_slice = slice < n_dv;
-  const int c0 = (dv_slice ? slice : slice - n_dv) * kDkChunk;  // the slice's first column
-  const size_t b = blockIdx.y;
-  const float* qb = q + b * N * dk;
-  const float* kb = k + b * M * dk;
-  const float* vb = v + b * M * dv;
-  const float* dob = dout + b * N * dv;
-
-  float acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kBwdF32BQ) {
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    for (int d0 = 0; d0 < dk; d0 += kDkChunk) {  // S: q rows 2ty + i, keys tx + 16jj
-      __syncthreads();  // the last chunk (or tile) is consumed
-      load_chunk(ks, kb, kBwdF32BK, k0, M, d0, dk, tid, kThreadsF32);
-      load_chunk(qs, qb, kBwdF32BQ, q0, N, d0, dk, tid, kThreadsF32);
-      if (d0 == 0 && tid < kBwdF32BQ) {
-        l2s[tid] = q0 + tid < N ? lse[b * N + q0 + tid] * kLog2e : 0.f;
-        dds[tid] = q0 + tid < N ? dsum[b * N + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          for (int d = 0; d < kDkChunk; ++d)
-            s[i][jj] = fmaf(qs[(2 * ty + i) * kRowStride + d], ks[(tx + 16 * jj) * kRowStride + d],
-                            s[i][jj]);
-    }
-    for (int d0 = 0; d0 < dv; d0 += kDkChunk) {  // dP = dO.V^T likewise
-      __syncthreads();
-      load_chunk(vs, vb, kBwdF32BK, k0, M, d0, dv, tid, kThreadsF32);
-      load_chunk(dos, dob, kBwdF32BQ, q0, N, d0, dv, tid, kThreadsF32);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          for (int d = 0; d < kDkChunk; ++d)
-            dp[i][jj] = fmaf(dos[(2 * ty + i) * kRowStride + d], vs[(tx + 16 * jj) * kRowStride + d],
-                             dp[i][jj]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qr = 2 * ty + i;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int key = tx + 16 * jj;
-        const float p = k0 + key < M ? exp2f(fmaf(s[i][jj], c, -l2s[qr])) : 0.f;
-        ps[qr * kPStride + key] = p;
-        dss[qr * kPStride + key] = p * (dp[i][jj] - dds[qr]);
-      }
-    }
-    // the slice's operand: dO (for dV) or Q (for dK) at columns c0 .. c0 + 63
-    __syncthreads();
-    if (dv_slice)
-      load_chunk(dos, dob, kBwdF32BQ, q0, N, c0, dv, tid, kThreadsF32);
-    else
-      load_chunk(qs, qb, kBwdF32BQ, q0, N, c0, dk, tid, kThreadsF32);
-    __syncthreads();
-    const float* w = dv_slice ? ps : dss;
-    const float* x = dv_slice ? dos : qs;
-    float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // this q tile's sum
-    for (int qq = 0; qq < kBwdF32BQ; ++qq) {
-      const float w0 = w[qq * kPStride + 2 * ty], w1 = w[qq * kPStride + 2 * ty + 1];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float xv = x[qq * kRowStride + tx + 16 * j];
-        part[0][j] = fmaf(w0, xv, part[0][j]);
-        part[1][j] = fmaf(w1, xv, part[1][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-    if (slice == 0) {  // dq rows 2ty + i: dS.K over the block's keys, chunk by chunk of dk
-      for (int d0 = 0; d0 < dk; d0 += kDkChunk) {
-        __syncthreads();
-        load_chunk(ks, kb, kBwdF32BK, k0, M, d0, dk, tid, kThreadsF32);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int qr = 2 * ty + i;
-          if (q0 + qr >= N) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int d = d0 + tx + 16 * j;
-            if (d < dk) {
-              float a = 0.f;
-              for (int key = 0; key < kBwdF32BK; ++key)
-                a = fmaf(dss[qr * kPStride + key], ks[key * kRowStride + tx + 16 * j], a);
-              atomicAdd(dq + (b * N + q0 + qr) * dk + d, a * scale);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + 2 * ty + i;
-    if (key >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (dv_slice && col < dv) dv_out[(b * M + key) * dv + col] = acc[i][j];
-      if (!dv_slice && col < dk) dk_out[(b * M + key) * dk + col] = acc[i][j] * scale;
-    }
-  }
+#undef ADEPTH_SPLIT_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -1528,7 +1489,7 @@ flash_layout_probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   wgmma_wait<0>();
   fence_regs(s);
   uint32_t a[4][4];
-  acc_to_a(s, a);
+  acc_to_a<1>(s, a);
 
   float x[DKP / 2];
 #pragma unroll
@@ -1605,17 +1566,20 @@ cudaError_t launch_layout_probe(cudaStream_t stream, const void* q, const void* 
 
 extern "C" {
 
-// Kernel B2. The plan (ops/cuda/flash_attention.py) picks the variant (0:
-// fp32 CUDA cores, 1: bf16 wgmma), dkp, dvs, the block, stages, the shared
-// memory bytes and grid.x; they are checked here against the kernel's own layout
-// and a mismatch returns cudaErrorInvalidValue. Launches on `stream` of
-// `device`; returns cudaGetLastError() (0 on success). The caller checks
-// shapes: dk and dv multiples of 8 (the wrapper zero-pads them), dk <= 128,
-// 16-byte aligned contiguous tensors, B <= 65535.
+// Kernel B2. The plan (ops/cuda/flash_attention.py) picks the variant (1:
+// bf16 wgmma; 4: fp32 as three bf16 pieces on the same design), dkp, dvs,
+// the block, stages, the shared memory bytes and grid.x; they are checked
+// here against the kernel's own layout and a mismatch returns
+// cudaErrorInvalidValue. Variant 4 first splits fp32 q, k and v into
+// `pieces`, a bf16 scratch buffer of 3 * (B*N*dk + B*M*dk + B*M*dv)
+// elements, and writes o in fp32. Launches on `stream` of `device`; returns
+// cudaGetLastError() (0 on success). The caller checks shapes: dk and dv
+// multiples of 8 (the wrapper zero-pads them), dk <= 128, 16-byte aligned
+// contiguous tensors, B <= 65535.
 int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int B, int N, int M, int dk, int dv, float scale, int variant,
-                               int dkp, int dvs, int block, int stages, long long smem,
-                               int grid_x, int device, void* stream) {
+                               void* pieces, int B, int N, int M, int dk, int dv, float scale,
+                               int variant, int dkp, int dvs, int block, int stages,
+                               long long smem, int grid_x, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dk <= 0 || dk > kMaxHeadDk || dk % 8 || dv <= 0 || dv % 8)
@@ -1624,24 +1588,31 @@ int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const int q_tiles = (N + kBQ - 1) / kBQ;
-  if (variant == 0) {
-    const int n_slices = (dv + kDVS - 1) / kDVS;
-    if (block != kThreadsF32 || size_t(smem) != F32Smem::bytes || grid_x != q_tiles * n_slices)
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_f32_kernel<<<dim3(grid_x, B), kThreadsF32, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), l, N, M, dk, dv, n_slices, c);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int n_slices = (dv + 255) / 256;
-  if (variant != 1 || block != 128 || dkp < dk || dvs * n_slices < dv || dvs % 64 || dvs > 256 ||
-      stages < 1 ||
-      size_t(smem) != fwd_layout(dkp, dvs, stages).bytes || grid_x != q_tiles * n_slices)
+  const bool f32 = variant == 4;
+  const int n_slices = f32 ? (dv + dvs - 1) / dvs : (dv + 255) / 256;
+  if ((variant != 1 && !f32) || block != 128 || dkp < dk || dvs * n_slices < dv || dvs % 64 ||
+      dvs > (f32 ? 64 : 256) || stages < 1 || (f32 && pieces == nullptr) ||
+      size_t(smem) != fwd_layout(dkp, dvs, stages, f32 ? 3 : 1).bytes ||
+      grid_x != q_tiles * n_slices)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(grid_x, B);
+  if (f32) {
+    __nv_bfloat16* q3 = static_cast<__nv_bfloat16*>(pieces);
+    const void* xs[3] = {q, k, v};
+    const size_t elems[3] = {size_t(B) * N * dk, size_t(B) * M * dk, size_t(B) * M * dv};
+    err = split3(st, q3, 3, xs, elems);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const __nv_bfloat16* k3 = q3 + 3 * elems[0];
+    const __nv_bfloat16* v3 = k3 + 3 * elems[1];
+    switch (dkp) {
+      case 16: err = launch_fwd_bf16x3<16>(dvs, grid, smem, st, q3, k3, v3, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+      case 32: err = launch_fwd_bf16x3<32>(dvs, grid, smem, st, q3, k3, v3, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+      case 64: err = launch_fwd_bf16x3<64>(dvs, grid, smem, st, q3, k3, v3, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+      case 128: err = launch_fwd_bf16x3<128>(dvs, grid, smem, st, q3, k3, v3, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
+      default: err = cudaErrorInvalidValue;
+    }
+    return static_cast<int>(err);
+  }
   switch (dkp) {
     case 16: err = launch_fwd_wgmma_dvs<16>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
     case 32: err = launch_fwd_wgmma_dvs<32>(dvs, grid, smem, st, q, k, v, o, l, B, N, M, dk, dv, n_slices, stages, c); break;
@@ -1653,20 +1624,24 @@ int adepth_flash_attention_fwd(const void* q, const void* k, const void* v, void
 }
 
 // Kernel B3. dq is a zeroed fp32 [B, N, dk] buffer the kernel adds into;
-// dk and dv are written in the input dtype; lse is fp32 [B, N]. Variant 0
-// (fp32) reads D from dsum [B, N]; variants 2 (bf16 wgmma, one warpgroup a
-// block for dv <= 256, two above, dkp <= 64 and dv <= 512) and 3 (bf16
-// split: dV blocks per dv slice beside a dK/dQ block per key tile) first
-// run flash_bwd_prep_kernel from o, dout and lse into `stat` [B, q_tiles,
-// 2, 64] fp32. The plan's dkp, dvs (the dv columns of one warpgroup),
-// block, stages, smem and grid_x are checked as in the forward. The caller
+// dk and dv are written in the input dtype; lse is fp32 [B, N]. Every
+// variant first runs flash_bwd_prep_kernel from o, dout and lse into `stat`
+// [B, q_tiles, 2, 64] fp32. Variants: 2 (bf16 wgmma, one warpgroup a block
+// for dv <= 256, two above, dkp <= 64 and dv <= 512), 3 (bf16 split: dV
+// blocks per dv slice beside a dK/dQ block per key tile) and 5 (fp32: the
+// split design on three bf16 pieces, q, k, v and dout split first into
+// `pieces`, 3 * (B*N*dk + B*M*dk + B*M*dv + B*N*dv) bf16 elements). The
+// plan's dkp, dvs (the dv columns of one warpgroup), block, stages, smem
+// and grid_x, and for the split designs the chunk ring's stages `cstages`
+// and the dq tile buffers `dqb`, are checked as in the forward. The caller
 // checks shapes: dk and dv multiples of 8, dk <= 128, 16-byte aligned
 // contiguous tensors, B <= 65535.
 int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                               const void* o, const void* lse, const void* dsum, void* stat,
-                               void* dq, void* dk_out, void* dv_out, int B, int N, int M, int dk,
-                               int dv, float scale, int variant, int dkp, int dvs, int block,
-                               int stages, long long smem, int grid_x, int device, void* stream) {
+                               const void* o, const void* lse, void* stat, void* pieces, void* dq,
+                               void* dk_out, void* dv_out, int B, int N, int M, int dk, int dv,
+                               float scale, int variant, int dkp, int dvs, int block, int stages,
+                               long long smem, int grid_x, int cstages, int dqb, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dk <= 0 || dk > kMaxHeadDk || dk % 8 || dv <= 0 || dv % 8)
@@ -1677,23 +1652,10 @@ int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, cons
   float* dqf = static_cast<float*>(dq);
   const dim3 grid(grid_x, B);
   const int key_tiles = (M + kBwdBK - 1) / kBwdBK;
-  if (variant == 0) {
-    const int n_slices = (dv + kDkChunk - 1) / kDkChunk + (dk + kDkChunk - 1) / kDkChunk;
-    if (block != kThreadsF32 || size_t(smem) != BwdF32Smem::bytes ||
-        grid_x != (M + kBwdF32BK - 1) / kBwdF32BK * n_slices)
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_f32_kernel<<<grid, kThreadsF32, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), l, static_cast<const float*>(dsum), dqf,
-        static_cast<float*>(dk_out), static_cast<float*>(dv_out), N, M, dk, dv, n_slices, c,
-        scale);
-    return static_cast<int>(cudaGetLastError());
-  }
   const int q_tiles = (N + kBwdBQ - 1) / kBwdBQ;
   const int wgs = block / kBwdThreads;
+  const bool f32 = variant == 5;
+  const int n_slices = f32 ? (dv + dvs - 1) / dvs : (dv + 255) / 256;
   bool ok;
   if (variant == 2) {
     ok = (wgs == 1 || wgs == 2) && block % kBwdThreads == 0 && dkp >= dk && dkp <= 64 &&
@@ -1702,22 +1664,41 @@ int adepth_flash_attention_bwd(const void* q, const void* k, const void* v, cons
          size_t(smem) == bwd_wg_layout(dkp, dvs * wgs, dk, stages, wgs).bytes &&
          grid_x == key_tiles;
   } else {
-    const int n_slices = (dv + 255) / 256;
-    ok = variant == 3 && block == kBwdThreads && dkp >= dk && dvs * n_slices >= dv &&
-         dvs % 64 == 0 && dvs <= 256 && stages >= 1 &&
-         size_t(smem) == bwd_split_layout(dkp, dvs, dk, stages).bytes &&
+    ok = (variant == 3 || f32) && block == kBwdThreads && dkp >= dk && dvs * n_slices >= dv &&
+         dvs % 64 == 0 && dvs <= (f32 ? 128 : 256) && stages >= 1 &&
+         (cstages == 1 || cstages == 2) && (dqb == 1 || dqb == 2) && (!f32 || pieces != nullptr) &&
+         size_t(smem) == bwd_split_layout(dkp, dvs, dk, stages, cstages, dqb, f32 ? 3 : 1).bytes &&
          grid_x == key_tiles * (n_slices + 1);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   float* stf = static_cast<float*>(stat);
-  flash_bwd_prep_kernel<<<dim3(q_tiles, B), 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), l, stf, N, dv);
+  if (f32)
+    flash_bwd_prep_kernel<float><<<dim3(q_tiles, B), 256, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), l, stf, N, dv);
+  else
+    flash_bwd_prep_kernel<__nv_bfloat16><<<dim3(q_tiles, B), 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), l, stf, N,
+        dv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (f32) {
+    __nv_bfloat16* q3 = static_cast<__nv_bfloat16*>(pieces);
+    const void* xs[4] = {q, k, v, dout};
+    const size_t elems[4] = {size_t(B) * N * dk, size_t(B) * M * dk, size_t(B) * M * dv,
+                             size_t(B) * N * dv};
+    err = split3(st, q3, 4, xs, elems);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const __nv_bfloat16* k3 = q3 + 3 * elems[0];
+    const __nv_bfloat16* v3 = k3 + 3 * elems[1];
+    const __nv_bfloat16* do3 = v3 + 3 * elems[2];
+    return static_cast<int>(launch_bwd_split_any(3, dkp, dvs, grid, smem, st, q3, k3, v3, do3, stf,
+                                                 dqf, dk_out, dv_out, B, N, M, dk, dv, n_slices,
+                                                 stages, cstages, dqb, c, scale));
+  }
   if (variant == 3)
-    return static_cast<int>(launch_bwd_split_any(dkp, dvs, grid, smem, st, q, k, v, dout, stf, dqf,
-                                                 dk_out, dv_out, B, N, M, dk, dv,
-                                                 (dv + 255) / 256, stages, c, scale));
+    return static_cast<int>(launch_bwd_split_any(1, dkp, dvs, grid, smem, st, q, k, v, dout, stf,
+                                                 dqf, dk_out, dv_out, B, N, M, dk, dv, n_slices,
+                                                 stages, cstages, dqb, c, scale));
   switch (dkp) {
     case 16: err = launch_bwd_wgmma_dvs<16>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;
     case 32: err = launch_bwd_wgmma_dvs<32>(dvs, wgs, grid, smem, st, q, k, v, dout, stf, dqf, dk_out, dv_out, B, N, M, dk, dv, stages, c, scale); break;

@@ -32,14 +32,19 @@ launch what the plan says and the C entry points check it against the
 kernels' own layouts:
   B2 bf16: "wgmma" (wgmma + TMA, one warpgroup per 64 q rows and a dv slice
            of ≤ 256 columns; q/k rows padded to dkp 16, 32, 64 or 128);
-           B2 f32: "f32" (CUDA cores, dk in chunks of 64).
+           B2 f32: "wgmma_bf16x3" (the same design on three bf16 pieces of
+           each fp32 operand, six piece products a product; dv slices of
+           64, the stages by shared memory).
   B3 bf16: "wgmma" for dkp ≤ 64 and dv ≤ 512 (one warpgroup per 64 keys and
            all of dv ≤ 256, two warpgroups sharing dv above; dq by bulk
            reduce-add); "split" beyond (dkp 128 or dv > 512: per key tile,
            one block per dv slice of ≤ 256 adds dV, and one block adds dK
            and dQ, taking dPᵀ over dv in chunks of 64, so that no block
-           holds both dK and dV in registers); B3 f32: "f32" (CUDA cores, a
-           block per 32 keys and 64 output columns, any width).
+           holds both dK and dV in registers); B3 f32: "split_bf16x3" (the
+           split design on the pieces at every width, dv slices of ≤ 128).
+
+In f32 the C call first splits q, k, v (and do) into a bf16 scratch buffer
+of three pieces each (`_pieces`), which the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -74,7 +79,10 @@ class Plan:
     number in the C entry point), q/k width padded to `dkp`, the dv tile
     width `dvs` of one warpgroup (wgmma: ≤ 256, a multiple of 64; B2's
     `n_slices` blocks, B3's `block // 128` warpgroups cover dv), the ring's
-    `stages`, the dynamic shared memory in bytes, the grid and the block."""
+    `stages`, the dynamic shared memory in bytes, the grid and the block;
+    B3's split designs also the stages of their V/dO chunk ring and their
+    fp32 dq tile buffers. `pieces` is 3 where fp32 operands go in as three
+    bf16 pieces, else 1."""
 
     variant: str
     code: int
@@ -85,6 +93,9 @@ class Plan:
     smem_bytes: int
     grid: Tuple[int, int, int]
     block: int
+    chunk_stages: int = 0
+    dq_bufs: int = 0
+    pieces: int = 1
 
     @property
     def blocks_per_sm(self) -> int:
@@ -108,10 +119,10 @@ def _wgmma_dkp(dk: int) -> int:
     return 16 if dk <= 16 else 32 if dk <= 32 else 64 if dk <= 64 else 128
 
 
-def _fwd_wgmma_bytes(dkp: int, dvs: int, stages: int) -> int:
-    # Q tile, `stages` K and V tiles, 1 + stages mbarriers, 1 KB of alignment
-    # slack (csrc/flash_attention.cu: fwd_layout)
-    bar = TILE * dkp * 2 + stages * TILE * (dkp + dvs) * 2
+def _fwd_wgmma_bytes(dkp: int, dvs: int, stages: int, pieces: int = 1) -> int:
+    # Q tile, `stages` K and V tiles (each as `pieces` pieces), 1 + stages
+    # mbarriers, 1 KB of alignment slack (csrc/flash_attention.cu: fwd_layout)
+    bar = pieces * (TILE * dkp * 2 + stages * TILE * (dkp + dvs) * 2)
     return bar + 8 * (1 + stages) + 1024
 
 
@@ -124,15 +135,18 @@ def _bwd_wgmma_bytes(dkp: int, dvt: int, dk: int, stages: int, wgs: int) -> int:
     return bar + 8 * (1 + stages) + 1024
 
 
-def _bwd_split_bytes(dkp: int, dvs: int, dk: int, stages: int) -> int:
+def _bwd_split_bytes(dkp: int, dvs: int, dk: int, stages: int, chunk_stages: int = 2,
+                     dq_bufs: int = 2, pieces: int = 1) -> int:
     # K, `stages` Q tiles, then the larger of a dV block's `stages` dO slices
-    # and a dK/dQ block's two-stage V/dO chunk ring, dSᵀ and two fp32 dq
-    # tiles; `stages` lse/D tiles, 1 + stages + 2 mbarriers, alignment slack
+    # and a dK/dQ block's ring of `chunk_stages` V/dO chunks, dSᵀ and
+    # `dq_bufs` fp32 dq tiles; every bf16 tile as `pieces` pieces; `stages`
+    # lse/D tiles, 1 + stages + chunk_stages mbarriers, alignment slack
     # (bwd_split_layout)
-    x_off = TILE * dkp * 2 * (1 + stages)
-    dq_end = x_off + 2 * 2 * TILE * 64 * 2 + TILE * TILE * 2 + 2 * TILE * dk * 4
-    stat_off = max(x_off + stages * TILE * dvs * 2, dq_end)
-    return stat_off + stages * 2 * TILE * 4 + 8 * (1 + stages + 2) + 1024
+    x_off = pieces * TILE * dkp * 2 * (1 + stages)
+    dq_end = (x_off + pieces * (chunk_stages * 2 * TILE * 64 * 2 + TILE * TILE * 2)
+              + dq_bufs * TILE * dk * 4)
+    stat_off = max(x_off + stages * pieces * TILE * dvs * 2, dq_end)
+    return stat_off + stages * 2 * TILE * 4 + 8 * (1 + stages + chunk_stages) + 1024
 
 
 def _most_stages(bytes_of, options) -> int:
@@ -143,18 +157,46 @@ def _most_stages(bytes_of, options) -> int:
     return options[-1]
 
 
+def _first_fit(options, bytes_of):
+    """The first of `options` whose shared memory leaves two blocks an SM,
+    else the first that fits one block."""
+    for blocks in (2, 1):
+        for option in options:
+            smem = bytes_of(option)
+            if (smem <= SMEM_PER_BLOCK
+                    and blocks * (smem + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM):
+                return option, smem
+    raise ValueError("no tiling fits the card's shared memory")
+
+
+def _slices(dv: int, most: int) -> Tuple[int, int]:
+    """(n_slices, slice width): dv in the fewest slices of ≤ `most`
+    columns, each padded to a multiple of 64."""
+    n_slices = _cdiv(dv, most)
+    return n_slices, TILE * _cdiv(_cdiv(dv, n_slices), TILE)
+
+
+# fp32 as three bf16 pieces triples every tile in shared memory: B2's
+# stages and B3's split design's (stages, chunk stages, dq buffers), in
+# order of preference; B2's dv slices of 64 columns (its registers hold O,
+# a tile's P·V, S and P's pieces), B3's of ≤ 128 (a dV block's registers)
+FWD_BF16X3_STAGES = (3, 2, 1)
+BWD_BF16X3_TILINGS = ((2, 2, 2), (2, 1, 2), (1, 1, 2), (1, 1, 1))
+FWD_BF16X3_DV_SLICE, BWD_BF16X3_DV_SLICE = 64, 128
+
+
 def fwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Plan:
     """B2's design and tiles for q [b, n, dk], k [b, m, dk], v [b, m, dv]
     (at the widths the wrapper pads them to)."""
     dk, dv = _aligned(dk), _aligned(dv)
     q_tiles = _cdiv(n, TILE)
-    if dtype == torch.float32:
-        n_slices = _cdiv(dv, 128)
-        smem = (3 * TILE * 65 + TILE * 128) * 4  # F32Smem
-        return Plan("f32", 0, dk, 128, n_slices, 1, smem, (q_tiles * n_slices, b, 1), 256)
     dkp = _wgmma_dkp(dk)
-    n_slices = _cdiv(dv, 256)
-    dvs = TILE * _cdiv(_cdiv(dv, n_slices), TILE)
+    if dtype == torch.float32:
+        n_slices, dvs = _slices(dv, FWD_BF16X3_DV_SLICE)
+        stages, smem = _first_fit(FWD_BF16X3_STAGES, lambda st: _fwd_wgmma_bytes(dkp, dvs, st, 3))
+        return Plan("wgmma_bf16x3", 4, dkp, dvs, n_slices, stages, smem,
+                    (q_tiles * n_slices, b, 1), 128, pieces=3)
+    n_slices, dvs = _slices(dv, 256)
     stages = _most_stages(lambda s: _fwd_wgmma_bytes(dkp, dvs, s), (3, 2))
     return Plan("wgmma", 1, dkp, dvs, n_slices, stages, _fwd_wgmma_bytes(dkp, dvs, stages),
                 (q_tiles * n_slices, b, 1), 128)
@@ -163,20 +205,20 @@ def fwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Pl
 def bwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Plan:
     """B3's design and tiles for the same shapes."""
     dk, dv = _aligned(dk), _aligned(dv)
-    if dtype == torch.float32:
-        # k, q, v and dO chunks of [32][65], P and dS [32][33], lse and D
-        # (BwdF32Smem); a block per 32 keys and 64 columns of dv, then of dk
-        smem = 4 * (4 * 32 * 65 + 2 * 32 * 33 + 2 * 32)
-        n_slices = _cdiv(dv, 64) + _cdiv(dk, 64)
-        return Plan("f32", 0, dk, 64, n_slices, 1, smem, (_cdiv(m, 32) * n_slices, b, 1), 256)
     dkp = _wgmma_dkp(dk)
+    if dtype == torch.float32:
+        # the split design at every width, on three pieces
+        n_slices, dvs = _slices(dv, BWD_BF16X3_DV_SLICE)
+        (stages, chunk_stages, dq_bufs), smem = _first_fit(
+            BWD_BF16X3_TILINGS, lambda o: _bwd_split_bytes(dkp, dvs, dk, *o, pieces=3))
+        return Plan("split_bf16x3", 5, dkp, dvs, n_slices, stages, smem,
+                    (_cdiv(m, TILE) * (n_slices + 1), b, 1), 128, chunk_stages, dq_bufs, 3)
     if dkp > 64 or dv > 512:
         # the split design: dV blocks per dv slice of ≤ 256 beside a dK/dQ
         # block per key tile (their registers hold dV or dK, never both)
-        n_slices = _cdiv(dv, 256)
-        dvs = TILE * _cdiv(_cdiv(dv, n_slices), TILE)
+        n_slices, dvs = _slices(dv, 256)
         return Plan("split", 3, dkp, dvs, n_slices, 2, _bwd_split_bytes(dkp, dvs, dk, 2),
-                    (_cdiv(m, TILE) * (n_slices + 1), b, 1), 128)
+                    (_cdiv(m, TILE) * (n_slices + 1), b, 1), 128, 2, 2)
     wgs = 1 if dv <= 256 else 2  # one warpgroup's registers hold 256 fp32 columns of dv
     dvs = TILE * _cdiv(_cdiv(dv, wgs), TILE)
     stages = _most_stages(lambda s: _bwd_wgmma_bytes(dkp, dvs * wgs, dk, s, wgs), (2, 1))
@@ -297,6 +339,19 @@ def _plan_args(plan: Plan):
     return plan.code, plan.dkp, plan.dvs, plan.block, plan.stages, plan.smem_bytes, plan.grid[0]
 
 
+def _pieces(plan: Plan, *operands: torch.Tensor):
+    """The bf16 scratch buffer a call on three pieces splits its fp32
+    operands into (three elements for each of theirs), or None in bf16."""
+    if plan.pieces == 1:
+        return None
+    return torch.empty(3 * sum(t.numel() for t in operands), dtype=torch.bfloat16,
+                       device=operands[0].device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _device_args(dev: torch.device):
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(dev).cuda_stream
@@ -327,9 +382,11 @@ class FlashCrossAttention:
         lib = self._library()
         o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
+        pieces = _pieces(plan, q, k, v)
         err = lib.adepth_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, n, m, dk, dv, float(scale), *_plan_args(plan), *_device_args(q.device))
+            _ptr(pieces), b, n, m, dk, dv, float(scale), *_plan_args(plan),
+            *_device_args(q.device))
         if err != 0:
             raise RuntimeError("flash_cross_attention launch failed: "
                                + lib.adepth_cuda_error_string(err).decode())
@@ -343,12 +400,11 @@ class FlashCrossAttentionBwd:
     (dq, dk, dv); `launches` counts kernel launches (one a call) and
     `variant_launches` the same by the plan's variant.
 
-    D = rowsum(do⊙o) in fp32: in bf16 a small kernel of B3
+    D = rowsum(do⊙o) in fp32: a small kernel of B3
     (`flash_bwd_prep_kernel`, launched by the same C call) writes it with
-    lse·log2e into a padded [B, q_tiles, 2, 64] buffer; in f32 it is
-    computed here with plain tensor ops, as the JAX package computes it
-    outside its kernel. dq accumulates in a zeroed fp32 buffer that is cast
-    to q's dtype afterwards."""
+    lse·log2e into a padded [B, q_tiles, 2, 64] buffer, from bf16 or fp32 o
+    and do. dq accumulates in a zeroed fp32 buffer that is cast to q's
+    dtype afterwards."""
 
     name = "flash_cross_attention_bwd"
 
@@ -380,21 +436,16 @@ class FlashCrossAttentionBwd:
         _check_kernel_inputs((q, k, v, do, o, lse), dk)
         plan = bwd_plan(b, n, m, dk, dv, q.dtype)
         lib = self._library()
-        if plan.variant != "f32":
-            dsum = None
-            stat = torch.empty((b, _cdiv(n, TILE), 2, TILE), dtype=torch.float32, device=q.device)
-        else:
-            dsum = (do.float() * o.float()).sum(-1)
-            stat = None
+        stat = torch.empty((b, _cdiv(n, TILE), 2, TILE), dtype=torch.float32, device=q.device)
+        pieces = _pieces(plan, q, k, v, do)
         dq = torch.zeros((b, n, dk), dtype=torch.float32, device=q.device)
         dk_out = torch.empty_like(k)
         dv_out = torch.empty_like(v)
         err = lib.adepth_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), None if dsum is None else dsum.data_ptr(),
-            None if stat is None else stat.data_ptr(), dq.data_ptr(), dk_out.data_ptr(),
+            lse.data_ptr(), stat.data_ptr(), _ptr(pieces), dq.data_ptr(), dk_out.data_ptr(),
             dv_out.data_ptr(), b, n, m, dk, dv, float(scale), *_plan_args(plan),
-            *_device_args(q.device))
+            plan.chunk_stages, plan.dq_bufs, *_device_args(q.device))
         if err != 0:
             raise RuntimeError("flash_cross_attention backward launch failed: "
                                + lib.adepth_cuda_error_string(err).decode())
@@ -415,10 +466,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     `csrc/flash_attention.cu` on it."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     plan = [i, i, i, i, i, ll, i]  # _plan_args
-    lib.adepth_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, *plan, i, p]
+    lib.adepth_flash_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, *plan, i, p]
     lib.adepth_flash_attention_fwd.restype = i
     lib.adepth_flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                               f, *plan, i, p]
+                                               f, *plan, i, i, i, p]
     lib.adepth_flash_attention_bwd.restype = i
     lib.adepth_flash_layout_probe.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.adepth_flash_layout_probe.restype = i

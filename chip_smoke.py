@@ -13,8 +13,9 @@ non-zero:
              those of KNOWN_SPILLS may spill), and the count of
              HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel in
              `cuobjdump -sass` of the built libraries (B1 must have HMMA,
-             B2 and B3 HGMMA); with it, B1's earlier source where one was
-             put at B1_BEFORE (not in the repository);
+             B2 and B3 HGMMA, every float32 three-piece instantiation
+             too); with it, B1's and B2/B3's earlier sources where they
+             were put at B1_BEFORE and B2B3_BEFORE (not in the repository);
   layout_probe  the q/k operand layouts of B2 and B3 alone, at each dkp
              (16, 32, 64, 128 and 128 part filled): S = Q·Kᵀ and the two
              MN-major products of B3 against torch.matmul in float64;
@@ -27,8 +28,11 @@ non-zero:
              view, clean chirps against float64; each row naming its plan),
              B2 (flash cross-attention forward) and B3 (its backward), each
              at the four binaural level shapes of a batch of 16, level 2 of
-             a batch of 1, float32, and ragged shapes that reach every
-             branch of the plan (`fwd_plan` / `bwd_plan`: dk 8 and 40
+             a batch of 1, float32 (level 3 at a batch of 1, levels 2-5
+             at the training batch of 16; bound: six bf16 passes on the
+             tensor cores, the CUDA cores' fp32 time beside it), and
+             ragged shapes that reach every branch of the plan
+             (`fwd_plan` / `bwd_plan`: dk 8 and 40
              padded, dv 136 and 320, N and M not multiples of 64, N = 1),
              the level shapes of base 16 and 128 and dk 12 and dv 768 in
              bf16 and f32 (the widths the wrapper zero-pads, dkp 128, B3's
@@ -72,6 +76,17 @@ non-zero:
              from one state_dict, and in float64 on the CPU: the losses,
              and the card's gradients as close to the float64 ones as the
              CPU's float32 gradients are;
+  train_f32  the training path in float32 (`--compute_dtype float32`):
+             `cli/train.py`'s main in-process, the binaural net at base 64,
+             levels 2-5, 256², batch 16, γ non-zero, 2 steps (finite, every
+             parameter moved, B1 1 / B2 4 / B3 4 a step, B2 and B3 on their
+             three-piece variants, F32_VARIANTS_PER_STEP), then 5 timed
+             steps on one batch (the loss must fall), peak memory and a
+             profile of one;
+  b2b3_before_after  B2's and B3's float32 rows (levels 2-5 at 2B = 32,
+             level 3 at 2B = 2) and the train_f32 step against the parent
+             design's CUDA-core kernels in turns on the same card, where
+             that source was built (else a line saying so);
   profile    one bf16 train step at batch 16: host wall, device time, busy
              share, top items, B2's and B3's shares;
   train_unet the main training path: `cli/train.py`'s main in-process,
@@ -245,6 +260,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -285,6 +301,12 @@ B2_SHAPES = [
     ("level 5", 32, 256, 256, 64, 512, "bfloat16"),
     ("level 2, batch 1", 2, 16384, 16384, 16, 128, "bfloat16"),
     ("level 3, float32", 2, 4096, 4096, 32, 256, "float32"),
+    # the levels in float32 at the training batch of 16 (`--compute_dtype
+    # float32`, the reference's own numerics; train_f32's launches)
+    ("level 2, float32, batch 16", 32, 16384, 16384, 16, 128, "float32"),
+    ("level 3, float32, batch 16", 32, 4096, 4096, 32, 256, "float32"),
+    ("level 4, float32, batch 16", 32, 1024, 1024, 64, 512, "float32"),
+    ("level 5, float32, batch 16", 32, 256, 256, 64, 512, "float32"),
     ("ragged", 4, 1000, 777, 32, 256, "bfloat16"),
     # the plan's other branches: dk padded to 16 and 64, dv tiles of 64 and
     # 192, two forward dv slices and two B3 warpgroups sharing dv, one q row
@@ -320,6 +342,7 @@ B2_SHAPES = [
     ("level 4, sp 4 q rows", 32, 256, 1024, 64, 512, "bfloat16"),
 ]
 B2_MAIN = "level 2"
+B2_F32_MAIN = "level 2, float32, batch 16"  # the float32 main row, in the kernels line too
 # B3 vs its plain version, relative to the plain version's max |·| of each
 # of dq, dk, dv: in bf16, p and ds are rounded to bf16 before their products
 # (2^-9 relative each) and the outputs to bf16 (2^-9), in sums of up to
@@ -376,7 +399,7 @@ def phase_env(torch):
 def kernel_name(text: str) -> str:
     """`flash_bwd_wgmma_kernel<16,128>` from a line holding its mangled name
     (the line itself where there is none)."""
-    m = re.search(r"((?:flash_fwd|flash_bwd|fused_mel|frontend_normalize)\w*?_kernel)"
+    m = re.search(r"((?:flash_fwd|flash_bwd|flash_split3|fused_mel|frontend_normalize)\w*?_kernel)"
                   r"(I(?:Li\d+E)+E)?", text)
     if not m:
         return text.strip()
@@ -416,15 +439,27 @@ def ptxas_report(logs) -> dict:
     return report
 
 
-def _build_before(build):
-    """nvcc of B1's earlier source, where one was put at B1_BEFORE (it is not
-    in the repository: `git show <commit>:audiodepth_tpu_torch/csrc/fused_frontend.cu`),
-    started in the background: (process, library path), or None."""
-    if not os.path.exists(B1_BEFORE):
+def _build_before(build, source):
+    """nvcc of an earlier kernel source, where one was put at `source` (B1_BEFORE
+    or B2B3_BEFORE; not in the repository: `git show <commit>:audiodepth_tpu_torch/csrc/<file>`,
+    the headers it includes beside it, else the checkout's), started in the
+    background: (process, library path), or None."""
+    if not os.path.exists(source):
         return None
-    lib = os.path.join(os.path.dirname(B1_BEFORE), "libfused_frontend_before.so")
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, B1_BEFORE]
+    name = os.path.splitext(os.path.basename(source))[0]
+    lib = os.path.join(os.path.dirname(source), f"lib{name}_before.so")
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib, source]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def _built_before(before, source):
+    """The library path of a `_build_before` job once it has finished."""
+    if before is None:
+        return None
+    proc, lib = before
+    log, _ = proc.communicate()
+    assert proc.returncode == 0, f"nvcc of {source} failed:\n{log}"
+    return lib
 
 
 # instantiations that spill, all from before the C1 repair (B3's two-warpgroup
@@ -447,22 +482,24 @@ def phase_build(build):
     # one library per source; B2 and B3 share csrc/flash_attention.cu
     names = ["fused_frontend", "flash_attention"]
     t0 = time.perf_counter()
-    before = _build_before(build)
+    befores = {src: _build_before(build, src) for src in (B1_BEFORE, B2B3_BEFORE)}
     logs = build.build(names)
-    before_lib = None
-    if before is not None:
-        proc, before_lib = before
-        log, _ = proc.communicate()
-        assert proc.returncode == 0, f"nvcc of {B1_BEFORE} failed:\n{log}"
+    before_libs = {src: _built_before(job, src) for src, job in befores.items()}
     seconds = time.perf_counter() - t0
     report = ptxas_report(logs)
     sass = sass_mma(build, names)
     spilled = spills(report)
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": report,
-          "sass_mma": sass, "b1_before": before_lib, "spills": spilled})
+          "sass_mma": sass, "b1_before": before_libs[B1_BEFORE],
+          "b2b3_before": before_libs[B2B3_BEFORE], "spills": spilled})
     new = set(spilled) - KNOWN_SPILLS
     assert not new, f"instantiations that spill: {sorted(new)}"
-    return report, sass, before_lib
+    # the float32 designs run on the tensor cores: every three-piece
+    # instantiation of B2 and B3 has wgmma in its SASS
+    bf16x3 = {k: v["HGMMA"] for k, v in sass.items() if k.endswith(",3>")}
+    assert all(bf16x3.values()) and {k.split("<")[0] for k in bf16x3} == {
+        "flash_fwd_wgmma_kernel", "flash_bwd_split_kernel"}, bf16x3
+    return report, sass, before_libs
 
 
 def _b1_input(np, kind: str, bc: int, length: int, configs):
@@ -642,7 +679,35 @@ def phase_b1_before_after(torch, np, ff, before_lib):
 def plan_dict(plan) -> dict:
     return {"variant": plan.variant, "dkp": plan.dkp, "dvs": plan.dvs,
             "n_slices": plan.n_slices, "stages": plan.stages, "smem_bytes": plan.smem_bytes,
-            "grid": list(plan.grid), "block": plan.block, "blocks_per_sm": plan.blocks_per_sm}
+            "grid": list(plan.grid), "block": plan.block, "blocks_per_sm": plan.blocks_per_sm,
+            "chunk_stages": plan.chunk_stages, "dq_bufs": plan.dq_bufs, "pieces": plan.pieces}
+
+
+def attention_bound(flops, ex2, nbytes, dtype, peak, ex2_rate) -> dict:
+    """The least time of one B2 / B3 call on the card, by term (ms): the
+    products at the dense bf16 tensor rate, in float32 as the kernels run
+    them, six bf16 passes ("operations"); the exp2 unit ("ex2"); every
+    input read once and every output written once ("bytes"). In float32
+    the same products once at the CUDA cores' fp32 rate stand beside them
+    ("fp32_cuda_cores": the parent design's yardstick, not a bound of
+    this one). Returns the row's bound fields."""
+    flops_peak, bw_peak, tensor_peak = peak
+    passes = 6 if dtype == "float32" else 1
+    terms = {"operations": passes * flops / (tensor_peak * 1e12), "ex2": ex2 / ex2_rate,
+             "bytes": nbytes / (bw_peak * 1e12)}
+    term = max(terms, key=terms.get)
+    out = {"bound_ms": terms[term] * 1e3, "bound_term": term,
+           "bound_by": "bytes" if term == "bytes" else "operations",
+           "bound_terms_ms": {k: t * 1e3 for k, t in terms.items()}}
+    if dtype == "float32":
+        out["bound_terms_ms"]["fp32_cuda_cores"] = flops / (flops_peak * 1e12) * 1e3
+    return out
+
+
+def is_heavy(b, n, m, dtype) -> bool:
+    """Rows whose calls take long (level 2 at 2B = 32; float32 at the
+    training batch): few timed runs."""
+    return n * m * b > 2 ** 31 or (dtype == "float32" and b >= 32)
 
 
 def _sdpa_ms(torch, q, k, v, scale):
@@ -722,7 +787,6 @@ def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
     1e-5·max|v| (the f32 path is full fp32 with the accurate exp2f, sums
     of at most 64 terms in sequence); lse within 1e-4·max(1, |lse|) (fp32
     statistics in another summation order)."""
-    flops_peak, bw_peak, tensor_peak = peak
     rows = []
     for label, b, n, m, dk, dv, dtype in B2_SHAPES:
         dt = getattr(torch, dtype)
@@ -741,7 +805,7 @@ def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
         lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max())
         assert err <= B2_TOL[dtype] * vmax, f"B2 {label}: o differs by {err} (max|v| {vmax})"
         assert lse_err <= B2_LSE_TOL, f"B2 {label}: lse differs by {lse_err} relative"
-        heavy = n * m * b > 2 ** 31
+        heavy = is_heavy(b, n, m, dtype)
         ms = time_ms(torch, lambda: fa.flash_cross_attention(q, k, v, scale),
                      runs=10 if heavy else 50)
         plain_ms = time_ms(torch, lambda: fa.flash_cross_attention_fwd_plain(q, k, v, scale),
@@ -751,21 +815,16 @@ def phase_kernel_b2(torch, np, fa, peak, ex2_rate):
         flops = 2.0 * b * n * m * (dk + dv)
         ex2 = float(b) * n * m
         nbytes = es * b * (n * dk + m * dk + m * dv + n * dv) + 4.0 * b * n
-        terms = {"operations": flops / ((tensor_peak if dtype == "bfloat16" else flops_peak)
-                                        * 1e12),
-                 "ex2": ex2 / ex2_rate, "bytes": nbytes / (bw_peak * 1e12)}
-        bound_by = max(terms, key=terms.get)
         row = {"phase": "kernel", "name": fa.flash_cross_attention.name, "shape": label,
                "B": b, "N": n, "M": m, "dk": dk, "dv": dv, "dtype": dtype,
                "plan": plan_dict(fa.fwd_plan(b, n, m, dk, dv, dt)),
                "max_abs_err": err, "max_abs_v": vmax, "tol_abs": B2_TOL[dtype] * vmax,
                "lse_rel_err": lse_err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": terms[bound_by] * 1e3,
-               "bound_by": "bytes" if bound_by == "bytes" else "operations",
-               "bound_terms_ms": {k_: t * 1e3 for k_, t in terms.items()},
+               **attention_bound(flops, ex2, nbytes, dtype, peak, ex2_rate),
                "library_ms": library_ms, "library": library,
                "tflops": flops / (ms * 1e9)}
         emit(row)
+        assert dtype != "float32" or row["ms"] >= row["bound_ms"], f"B2 {label}: over its bound"
         rows.append(row)
         del q, k, v, o, lse, want_o, want_lse
     return rows
@@ -796,7 +855,6 @@ def phase_kernel_b3(torch, fa, peak, ex2_rate):
     """B3 against its plain version on the card at B2's shapes, from B2's
     forward on inputs drawn as B2's phase draws them (q, k with standard
     deviation 3) and do ~ N(0, 1). Tolerances: B3_TOL."""
-    flops_peak, bw_peak, tensor_peak = peak
     rows = []
     for label, b, n, m, dk, dv, dtype in B2_SHAPES:
         dt = getattr(torch, dtype)
@@ -820,7 +878,7 @@ def phase_kernel_b3(torch, fa, peak, ex2_rate):
             assert errs[name] <= B3_TOL[dtype] * maxes[name], \
                 f"B3 {label}: {name} differs by {errs[name]} (max {maxes[name]})"
         del got, want
-        heavy = n * m * b > 2 ** 31
+        heavy = is_heavy(b, n, m, dtype)
         ms = time_ms(torch, lambda: fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale),
                      runs=10 if heavy else 50)
         plain_ms = time_ms(torch, lambda: fa.flash_cross_attention_bwd_plain(
@@ -831,21 +889,16 @@ def phase_kernel_b3(torch, fa, peak, ex2_rate):
         ex2 = float(b) * n * m
         # in: q, k, v, o, do, lse; out: dq, dk, dv
         nbytes = es * b * (2 * n * dk + 2 * m * dk + 2 * m * dv + 2 * n * dv) + 4.0 * b * n
-        terms = {"operations": flops / ((tensor_peak if dtype == "bfloat16" else flops_peak)
-                                        * 1e12),
-                 "ex2": ex2 / ex2_rate, "bytes": nbytes / (bw_peak * 1e12)}
-        bound_by = max(terms, key=terms.get)
         row = {"phase": "kernel", "name": fa.flash_cross_attention_bwd.name, "shape": label,
                "B": b, "N": n, "M": m, "dk": dk, "dv": dv, "dtype": dtype,
                "plan": plan_dict(fa.bwd_plan(b, n, m, dk, dv, dt)),
                "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-               "max_abs_plain": maxes, "tol_rel": B3_TOL[dtype],
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": terms[bound_by] * 1e3,
-               "bound_by": "bytes" if bound_by == "bytes" else "operations",
-               "bound_terms_ms": {k_: t * 1e3 for k_, t in terms.items()},
+               "max_abs_plain": maxes, "tol_rel": B3_TOL[dtype], "ms": ms, "plain_ms": plain_ms,
+               **attention_bound(flops, ex2, nbytes, dtype, peak, ex2_rate),
                "library_ms": library_ms, "library": library,
                "tflops": flops / (ms * 1e9)}
         emit(row)
+        assert dtype != "float32" or row["ms"] >= row["bound_ms"], f"B3 {label}: over its bound"
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -1208,8 +1261,8 @@ def phase_train(torch, np, train_cli, kernels):
 
 
 def profile_train_step(torch, eng, state, batch, model="binaural_attention",
-                       tags=("flash_fwd", "flash_bwd")):
-    """Host wall and device time of one bf16 train step (GPU events of a
+                       tags=("flash_fwd", "flash_bwd"), what="one bf16 train step"):
+    """Host wall and device time of one train step (GPU events of a
     torch.profiler trace summed by `parse_trace`), the top items, the
     shares of the kernels named by `tags` (B2: flash_fwd, B3: flash_bwd,
     B1: fused_mel) and each hand-written kernel's launches in the trace
@@ -1217,7 +1270,7 @@ def profile_train_step(torch, eng, state, batch, model="binaural_attention",
     trace, wall, counters = traced(torch, lambda: eng.train_step(state, batch))
     kernels = sorted(((d, k) for k, d in trace.per_kernel.items()), reverse=True)
     device_us = trace.total_us
-    row = {"phase": "profile", "model": model, "what": "one bf16 train step",
+    row = {"phase": "profile", "model": model, "what": what,
            "batch": TRAIN_BATCH, "wall_ms": wall * 1e3,
            "device_ms": device_us / 1e3 if device_us else "not measured",
            "device_busy_share": device_us / 1e6 / wall if device_us else "not measured",
@@ -1230,6 +1283,230 @@ def profile_train_step(torch, eng, state, batch, model="binaural_attention",
         row[f"{tag}_ms"] = mine / 1e3
         row[f"{tag}_share"] = mine / device_us if device_us else "not measured"
     return row
+
+
+# the float32 training path (`--compute_dtype float32`, the reference's own
+# numerics): the binaural net at base 64, levels 2-5, 256², batch 16, its
+# attention through B2's and B3's three-piece variants
+TRAIN_F32_ARGV = ["--dataset", "synthetic", "--model", "binaural_attention",
+                  "--base_channels", "64", "--attention_levels", "2,3,4,5",
+                  "--compute_dtype", "float32", "--batch_size", str(TRAIN_BATCH),
+                  "--num_samples", str(2 * TRAIN_BATCH), "--epochs", "1",
+                  "--validation", "false", "--seed", "0"]
+TRAIN_F32_TIMED_STEPS = 5
+# B2's and B3's launches a float32 step by plan variant
+F32_VARIANTS_PER_STEP = {"flash_cross_attention_fwd": {"wgmma_bf16x3": 4},
+                         "flash_cross_attention_bwd": {"split_bf16x3": 4}}
+
+
+def phase_train_f32(torch, np, train_cli, kernels):
+    """cli/train.py's main in-process in float32 (two steps, every γ set
+    non-zero after init): losses and grad_norms finite, every parameter
+    moved, B1 1 / B2 4 / B3 4 launches a step, B2's and B3's on their
+    float32 variants (F32_VARIANTS_PER_STEP); then TRAIN_F32_TIMED_STEPS
+    steps on one repeated batch (the loss must fall), timed, with the peak
+    memory, and a profile of one. Returns (launches, by variant) and (engine, state, batch) for
+    the before/after phase."""
+    from audiodepth_tpu_torch.data.batvision import make_dataset
+
+    gammas = {}
+    eng, state, steps, launches, by_variant, seen = _train_run(
+        torch, train_cli, kernels, TRAIN_F32_ARGV,
+        on_task=lambda task: gammas.update(g=set_gammas(torch, np, task.model)))
+    task = seen["task"]
+    cfg = task.cfg
+    assert cfg.mode.compute_dtype == "float32" and cfg.model.base_channels == 64
+    assert cfg.dataset.images_size == 256 and tuple(cfg.model.attention_levels) == (2, 3, 4, 5)
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    assert len(steps) == 2 and all(np.isfinite(losses)) and all(np.isfinite(norms))
+    unmoved = [n for n, p in task.model.named_parameters()
+               if torch.equal(p.detach(), seen["before"][n])]
+    assert not unmoved, f"parameters that did not move: {unmoved[:8]}"
+    expected = {name: PER_TRAIN_STEP[name] * len(steps) for name in PER_TRAIN_STEP}
+    assert launches == expected, f"train_f32: launches {launches}, expected {expected}"
+    for name, per_step in F32_VARIANTS_PER_STEP.items():
+        assert by_variant[name] == {v: k * len(steps) for v, k in per_step.items()}, \
+            (name, by_variant[name])
+
+    ds = make_dataset(cfg, "train", num_samples=TRAIN_BATCH)
+    batch = eng.encode(next(ds.batches(TRAIN_BATCH, shuffle=False)))
+    torch.cuda.reset_peak_memory_stats()
+    rep_losses, times = [], []
+    for _ in range(TRAIN_F32_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = eng.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        rep_losses.append(float(metrics["loss"]))
+    assert all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0], rep_losses
+    step_ms = statistics.median(times[1:]) * 1e3
+    emit({"phase": "train_f32", "flags": TRAIN_F32_ARGV, "gammas_set_to": gammas["g"],
+          "params": sum(p.numel() for p in task.model.parameters()), "steps": len(steps),
+          "losses": losses, "grad_norms": norms, "launches": launches,
+          "launches_by_variant": by_variant, "expected_launches": expected,
+          "main_wall_s": seen["wall"], "repeated_batch_losses": rep_losses,
+          "step_ms_median": step_ms, "step_ms_all": [t * 1e3 for t in times],
+          "pairs_per_sec": TRAIN_BATCH / (step_ms / 1e3),
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    emit(profile_train_step(torch, eng, state, batch, tags=("flash_fwd", "flash_bwd",
+                                                           "flash_split3"),
+                            what="one float32 train step"))
+    return (launches, by_variant), (eng, state, batch)
+
+
+# the parent design's float32 path (two CUDA-core kernels), where its source
+# was put here (not in the repository: `git show c7d4649:audiodepth_tpu_torch/
+# csrc/flash_attention.cu`, with its sm90.cuh and sm90_wgmma.cuh beside it),
+# timed in turns against the three-piece variants (phase_b2b3_before_after)
+B2B3_BEFORE = os.path.join("build", "b2b3_before", "flash_attention.cu")
+BEFORE_AFTER_ROWS = ("level 2, float32, batch 16", "level 3, float32, batch 16",
+                     "level 4, float32, batch 16", "level 5, float32, batch 16",
+                     "level 3, float32")
+BEFORE_AFTER_STEPS = 2  # train_f32 steps a turn
+
+
+class ParentF32:
+    """The parent design's f32 B2 and B3 (flash_fwd_f32_kernel,
+    flash_bwd_f32_kernel) through a library built from B2B3_BEFORE, with
+    the parent's C signatures and its f32 plans; `fwd` and `bwd` take the
+    wrappers' `_launch` arguments (widths already multiples of 8)."""
+
+    def __init__(self, torch, path):
+        import ctypes
+
+        self.torch = torch
+        self.lib = lib = ctypes.CDLL(path)
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        plan = [i, i, i, i, i, ll, i]
+        lib.adepth_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, *plan, i, p]
+        lib.adepth_flash_attention_fwd.restype = i
+        lib.adepth_flash_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, f, *plan, i, p]
+        lib.adepth_flash_attention_bwd.restype = i
+
+    def _stream(self):
+        return self.torch.cuda.current_stream().cuda_stream
+
+    def fwd(self, q, k, v, scale):
+        torch = self.torch
+        b, n, dk = q.shape
+        m, dv = v.shape[1:]
+        o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
+        n_slices = -(-dv // 128)
+        smem = (3 * 64 * 65 + 64 * 128) * 4  # its F32Smem
+        err = self.lib.adepth_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, m, dk,
+            dv, float(scale), 0, dk, 128, 256, 1, smem, -(-n // 64) * n_slices, 0, self._stream())
+        assert err == 0, err
+        return o, lse
+
+    def bwd(self, q, k, v, o, lse, do, scale):
+        torch = self.torch
+        b, n, dk = q.shape
+        m, dv = v.shape[1:]
+        dsum = (do * o).sum(-1)
+        dq = torch.zeros((b, n, dk), dtype=torch.float32, device=q.device)
+        dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
+        n_slices = -(-dv // 64) + -(-dk // 64)
+        smem = 4 * (4 * 32 * 65 + 2 * 32 * 33 + 2 * 32)  # its BwdF32Smem
+        err = self.lib.adepth_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), None, dq.data_ptr(), dk_out.data_ptr(),
+            dv_out.data_ptr(), b, n, m, dk, dv, float(scale), 0, dk, 64, 256, 1, smem,
+            -(-m // 32) * n_slices, 0, self._stream())
+        assert err == 0, err
+        return dq, dk_out, dv_out
+
+
+@contextlib.contextmanager
+def parent_f32_path(fa, parent):
+    """The wrappers launch the parent design's f32 kernels inside (uncounted)."""
+    fa.flash_cross_attention._launch = parent.fwd
+    fa.flash_cross_attention_bwd._launch = parent.bwd
+    try:
+        yield
+    finally:
+        del fa.flash_cross_attention._launch, fa.flash_cross_attention_bwd._launch
+
+
+def phase_b2b3_before_after(torch, fa, before_lib, b2_rows, b3_rows, train_f32):
+    """B2's and B3's float32 path against the parent design (built from
+    B2B3_BEFORE) on the same card in one call: each row of
+    BEFORE_AFTER_ROWS (inputs as the kernel phases draw them) timed in
+    turns (before, after, after, before), the two designs' answers within
+    twice the tolerance of each other, beside each row's bound and SDPA
+    time from the kernel phases; then BEFORE_AFTER_STEPS train_f32 steps a
+    turn. Skipped, and said so, where no earlier source was put there."""
+    if before_lib is None:
+        emit({"phase": "b2b3_before_after", "skipped": f"no earlier source at {B2B3_BEFORE}"})
+        return None
+    parent = ParentF32(torch, before_lib)
+    shapes = {r[0]: r for r in B2_SHAPES}
+    out = []
+    for label in BEFORE_AFTER_ROWS:
+        _, b, n, m, dk, dv, dtype = shapes[label]
+        g = torch.Generator(device="cuda").manual_seed(n + m + dk + dv + b)
+        q = 3 * torch.randn(b, n, dk, device="cuda", generator=g)
+        k = 3 * torch.randn(b, m, dk, device="cuda", generator=g)
+        v = torch.randn(b, m, dv, device="cuda", generator=g)
+        do = torch.randn(b, n, dv, device="cuda", generator=g)
+        scale = 1.0 / dv ** 0.5
+        o, lse = fa.flash_cross_attention(q, k, v, scale)
+        o_before, lse_before = parent.fwd(q, k, v, scale)
+        grads = fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale)
+        grads_before = parent.bwd(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        agree = {"o": float((o - o_before).abs().max() / v.abs().max())}
+        for name, a, w in zip(("dq", "dk", "dv"), grads, grads_before):
+            agree[name] = float((a - w).abs().max() / w.abs().max())
+        assert agree["o"] <= 2 * B2_TOL[dtype], (label, agree)
+        assert all(agree[x] <= 2 * B3_TOL[dtype] for x in ("dq", "dk", "dv")), (label, agree)
+        runs = dict(runs=3, warmup=1) if is_heavy(b, n, m, dtype) else dict(runs=10, warmup=2)
+        calls = {"B2": (lambda: parent.fwd(q, k, v, scale),
+                        lambda: fa.flash_cross_attention(q, k, v, scale)),
+                 "B3": (lambda: parent.bwd(q, k, v, o, lse, do, scale),
+                        lambda: fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale))}
+        for kernel, (before, after) in calls.items():
+            turns = {"before": [], "after": []}
+            for which in ("before", "after", "after", "before"):
+                turns[which].append(time_ms(torch, before if which == "before" else after, **runs))
+            mine = next(r for r in (b2_rows if kernel == "B2" else b3_rows) if r["shape"] == label)
+            row = {"phase": "b2b3_before_after", "kernel": kernel, "shape": label,
+                   "before_ms": statistics.mean(turns["before"]),
+                   "after_ms": statistics.mean(turns["after"]), "turns_ms": turns,
+                   "bound_ms": mine["bound_ms"], "bound_term": mine["bound_term"],
+                   "bound_fp32_cuda_cores_ms": mine["bound_terms_ms"]["fp32_cuda_cores"],
+                   "library_ms": mine["library_ms"], "rel_diff_before_vs_after": agree}
+            row["speedup"] = row["before_ms"] / row["after_ms"]
+            row["vs_library"] = (row["after_ms"] / row["library_ms"] if row["library_ms"]
+                                 else None)
+            emit(row)
+            out.append(row)
+        del q, k, v, do, o, lse, o_before, lse_before, grads, grads_before
+        torch.cuda.empty_cache()
+
+    eng, state, batch = train_f32
+    turns = {"before": [], "after": []}
+    for which in ("before", "after", "after", "before"):
+        with parent_f32_path(fa, parent) if which == "before" else contextlib.nullcontext():
+            times = []
+            for _ in range(BEFORE_AFTER_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = eng.train_step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                assert math.isfinite(float(metrics["loss"]))
+        turns[which].append(statistics.median(times) * 1e3)
+    row = {"phase": "b2b3_before_after", "kernel": "train_f32 step",
+           "before_ms": statistics.mean(turns["before"]),
+           "after_ms": statistics.mean(turns["after"]), "turns_ms": turns}
+    row["speedup"] = row["before_ms"] / row["after_ms"]
+    emit(row)
+    out.append(row)
+    return out
 
 
 def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
@@ -3384,9 +3661,9 @@ def main() -> int:
     configure_precision()
     smi, ex2_rate = phase_env(torch)
     peak_name, peak = peak_for(torch.cuda.get_device_name(0))
-    ptxas, sass, b1_before = phase_build(_build)
+    ptxas, sass, before_libs = phase_build(_build)
     b1_rows = phase_kernel(torch, np, ff, peak, configs)
-    b1_turns = phase_b1_before_after(torch, np, ff, b1_before)
+    b1_turns = phase_b1_before_after(torch, np, ff, before_libs[B1_BEFORE])
     phase_layout_probe(torch, fa)
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
@@ -3397,6 +3674,12 @@ def main() -> int:
         phase_f32_vs_cpu(torch, np, configs, models, path)
     launches["train binaural_attention"] = phase_train(torch, np, train_cli, KERNELS)
     phase_f32_train_vs_cpu(torch, np, configs, models, "binaural_attention")
+    launches["train binaural_attention float32"], train_f32 = phase_train_f32(
+        torch, np, train_cli, KERNELS)
+    b2b3_turns = phase_b2b3_before_after(torch, fa, before_libs[B2B3_BEFORE], b2_rows, b3_rows,
+                                         train_f32)
+    del train_f32
+    torch.cuda.empty_cache()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         eng, state, launches["train unet_baseline"] = phase_train_unet(
@@ -3477,8 +3760,16 @@ def main() -> int:
                    before_after=b1_turns,
                    extra=("bound_fp32_ms", "plan", "us_by_bc", "before_after"))
     level2 = "level 2: 2B=32, N=M=16384, dk=16, dv=128, bf16"
-    b2_main = dict(next(r for r in b2_rows if r["shape"] == B2_MAIN), main_shape=level2)
-    b3_main = dict(next(r for r in b3_rows if r["shape"] == B2_MAIN), main_shape=level2)
+    f32_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_term", "bound_terms_ms",
+                "library_ms", "library", "plan")
+    mains = {}
+    for name, rows in (("B2", b2_rows), ("B3", b3_rows)):
+        f32 = next(r for r in rows if r["shape"] == B2_F32_MAIN)
+        mains[name] = dict(next(r for r in rows if r["shape"] == B2_MAIN), main_shape=level2,
+                           float32={"shape": B2_F32_MAIN, **{k: f32[k] for k in f32_keys}},
+                           before_after=[r for r in b2b3_turns or () if r["kernel"] == name],
+                           extra=("float32", "before_after"))
+    b2_main, b3_main = mains["B2"], mains["B3"]
     main_rows = {ff.fused_mel_frontend.name: (b1_rows, b1_main),
                  fa.flash_cross_attention.name: (b2_rows, b2_main),
                  fa.flash_cross_attention_bwd.name: (b3_rows, b3_main)}

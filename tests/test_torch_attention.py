@@ -163,6 +163,21 @@ def check_plan_limits(plan):
     assert plan.block in (128, 256) and plan.stages >= 1
 
 
+def check_fwd_bf16x3_plan(plan, dk, dv):
+    """B2's float32 plan: the wgmma design on three bf16 pieces, q/k rows
+    padded as in bf16, dv in slices of 64, and the most stages of
+    FWD_BF16X3_STAGES that leave two blocks an SM (else the most that fit
+    one)."""
+    dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8
+    assert plan.variant == "wgmma_bf16x3" and plan.code == 4 and plan.pieces == 3
+    assert plan.block == 128 and plan.dkp == min(w for w in (16, 32, 64, 128) if w >= dkw)
+    assert plan.dvs == 64 and plan.n_slices == -(-dvw // 64)
+    assert plan.smem_bytes == fa._fwd_wgmma_bytes(plan.dkp, 64, plan.stages, 3)
+    fits = {blocks: [st for st in fa.FWD_BF16X3_STAGES if blocks * (fa._fwd_wgmma_bytes(
+        plan.dkp, 64, st, 3) + 1024) <= fa.SMEM_PER_SM] for blocks in (2, 1)}
+    assert plan.stages == (fits[2] or fits[1])[0]
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_fwd_plan(shape, dtype):
@@ -172,7 +187,7 @@ def test_fwd_plan(shape, dtype):
     q_tiles = -(-n // fa.TILE)
     assert plan.grid == (q_tiles * plan.n_slices, b, 1)
     if dtype == "float32":
-        assert plan.variant == "f32" and plan.n_slices == -(-dv // 128)
+        check_fwd_bf16x3_plan(plan, dk, dv)
         return
     assert plan.variant == "wgmma" and plan.block == 128
     # q/k rows padded to one swizzle span; dv slices of ≤ 256 padded to 64,
@@ -244,12 +259,15 @@ def test_fwd_plan_every_width(base, level, dtype):
     check_plan_limits(plan)
     dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8  # the wrapper's zero-padded widths
     if dtype == "float32":
-        assert plan.variant == "f32" and plan.n_slices == -(-dvw // 128)
+        check_fwd_bf16x3_plan(plan, dk, dv)
+        dkps = {p for (p,) in instantiated(r"launch_fwd_bf16x3<(\d+)>")}
+        dvss = {s for (s,) in instantiated(r"launch_fwd_wgmma<DKP, (\d+), 3>")}
+        assert plan.dkp in dkps and plan.dvs in dvss
         return
     assert plan.variant == "wgmma" and plan.dkp == min(w for w in (16, 32, 64, 128) if w >= dkw)
     assert dvw <= plan.dvs * plan.n_slices < dvw + 64 * plan.n_slices
     dkps = {p for (p,) in instantiated(r"launch_fwd_wgmma_dvs<(\d+)>")}
-    dvss = {s for (s,) in instantiated(r"launch_fwd_wgmma<DKP, (\d+)>")}
+    dvss = {s for (s,) in instantiated(r"launch_fwd_wgmma<DKP, (\d+), 1>")}
     assert plan.dkp in dkps and plan.dvs in dvss
 
 
@@ -268,6 +286,26 @@ def test_base64_plans_unchanged(shape):
     dkp, dvs, stages, smem, gx, block = want_bwd[n]
     assert fa.bwd_plan(*shape, torch.bfloat16) == fa.Plan(
         "wgmma", 2, dkp, dvs, 1, stages, smem, (gx, 32, 1), block)
+
+
+@pytest.mark.parametrize("shape", [level_shape(64, lv) for lv in (2, 3, 4, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_base64_f32_plans(shape):
+    """The main path's float32 plans (`--compute_dtype float32`): B2 on
+    three pieces in dv slices of 64, B3's split design on three pieces in
+    slices of 128, each with the stages its shared memory allows."""
+    want_fwd = {16384: (16, 64, 2, 3, 99360, 512), 4096: (32, 64, 4, 2, 87064, 256),
+                1024: (64, 64, 8, 1, 74768, 128), 256: (64, 64, 8, 1, 74768, 32)}
+    want_bwd = {16384: (16, 128, 1, 1, 95768, 512, 1, 2), 4096: (32, 128, 2, 1, 108056, 192, 1, 1),
+                1024: (64, 128, 4, 2, 231464, 80, 2, 2), 256: (64, 128, 4, 2, 231464, 20, 2, 2)}
+    b, n, m, dk, dv = shape
+    dkp, dvs, n_slices, stages, smem, gx = want_fwd[n]
+    assert fa.fwd_plan(*shape, torch.float32) == fa.Plan(
+        "wgmma_bf16x3", 4, dkp, dvs, n_slices, stages, smem, (gx, 32, 1), 128, pieces=3)
+    dkp, dvs, n_slices, stages, smem, gx, chunk_stages, dq_bufs = want_bwd[n]
+    assert fa.bwd_plan(*shape, torch.float32) == fa.Plan(
+        "split_bf16x3", 5, dkp, dvs, n_slices, stages, smem, (gx, 32, 1), 128, chunk_stages,
+        dq_bufs, 3)
 
 
 @pytest.mark.parametrize("dk,dv", [(4, 32), (12, 96), (12, 36), (100, 20), (2, 16)])

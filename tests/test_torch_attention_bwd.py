@@ -199,20 +199,40 @@ def test_gamma_trap(gamma):
     assert float(block.gamma.grad.abs()) > 0.0  # γ itself always learns
 
 
+def check_bwd_bf16x3_plan(plan, b, m, dk, dv):
+    """B3's float32 plan: the split design on three bf16 pieces at every
+    width, dv slices of ≤ 128 padded to 64, a dV block per slice beside a
+    dK/dQ block per key tile, the first (stages, chunk stages, dq buffers)
+    of BWD_BF16X3_TILINGS that leaves two blocks an SM (else the first that
+    fits one), and an instantiated (dkp, slice)."""
+    dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8
+    assert plan.variant == "split_bf16x3" and plan.code == 5 and plan.pieces == 3
+    assert plan.block == 128 and plan.dkp == min(w for w in (16, 32, 64, 128) if w >= dkw)
+    assert plan.n_slices == -(-dvw // 128) and plan.dvs % 64 == 0 and plan.dvs <= 128
+    assert dvw <= plan.dvs * plan.n_slices < dvw + 64 * plan.n_slices
+    assert plan.grid == (-(-m // fa.TILE) * (plan.n_slices + 1), b, 1)
+    tiling = (plan.stages, plan.chunk_stages, plan.dq_bufs)
+    smem = {o: fa._bwd_split_bytes(plan.dkp, plan.dvs, dkw, *o, pieces=3)
+            for o in fa.BWD_BF16X3_TILINGS}
+    assert plan.smem_bytes == smem[tiling]
+    fits = {blocks: [o for o in fa.BWD_BF16X3_TILINGS if smem[o] <= fa.SMEM_PER_BLOCK
+                     and blocks * (smem[o] + 1024) <= fa.SMEM_PER_SM] for blocks in (2, 1)}
+    assert tiling == (fits[2] or fits[1])[0]
+    assert (plan.dkp, plan.dvs) in instantiated(r"ADEPTH_SPLIT3\((\d+), (\d+)\)")
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_bwd_plan(shape, dtype):
     """B3's plan at every model level, the chip-smoke shapes and the edges:
     wgmma for bf16 (one warpgroup per 64 keys and all of dv ≤ 256, two
-    warpgroups splitting dv above), f32 for f32 (a block per 32 keys and
-    64 output columns); shared memory, grid and padding."""
+    warpgroups splitting dv above), in f32 the split design on three bf16
+    pieces (`check_bwd_bf16x3_plan`); shared memory, grid and padding."""
     b, n, m, dk, dv = shape
     plan = fa.bwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
     check_plan_limits(plan)
     if dtype == "float32":
-        # a block per 32 keys and 64 output columns of dv, then of dk
-        n_slices = -(-dv // 64) + -(-dk // 64)
-        assert plan.variant == "f32" and plan.grid == (-(-m // 32) * n_slices, b, 1)
+        check_bwd_bf16x3_plan(plan, b, m, dk, dv)
         return
     wgs = 1 if dv <= 256 else 2
     assert plan.variant == "wgmma" and plan.block == 128 * wgs and plan.n_slices == 1
@@ -232,15 +252,15 @@ def test_bwd_plan(shape, dtype):
 def test_bwd_plan_every_width(base, level, dtype):
     """B3's plan at the binaural levels of base 8-128: wgmma up to dkp 64 and
     dv 512, the split design beyond (dV blocks per dv slice of ≤ 256 beside
-    a dK/dQ block per key tile), f32 at any width; every (dkp, dv slice) of a
-    split plan is one that the launch switch instantiates."""
+    a dK/dQ block per key tile), in f32 the split design on three pieces at
+    any width; every (dkp, dv slice) of a split plan is one that the launch
+    switch instantiates."""
     b, n, m, dk, dv = level_shape(base, level)
     plan = fa.bwd_plan(b, n, m, dk, dv, getattr(torch, dtype))
     check_plan_limits(plan)
     dkw, dvw = -(-dk // 8) * 8, -(-dv // 8) * 8
     if dtype == "float32":
-        n_slices = -(-dvw // 64) + -(-dkw // 64)
-        assert plan.variant == "f32" and plan.grid == (-(-m // 32) * n_slices, b, 1)
+        check_bwd_bf16x3_plan(plan, b, m, dk, dv)
         return
     dkp = min(w for w in (16, 32, 64, 128) if w >= dkw)
     assert plan.dkp == dkp
