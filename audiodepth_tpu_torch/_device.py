@@ -21,6 +21,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def synchronize(device: DeviceLike) -> None:
+    """Wait for the work queued on `device` (nothing to wait for on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def configure_precision() -> None:
     """Turn TF32 off for both cuBLAS matmuls and cuDNN convolutions.
 

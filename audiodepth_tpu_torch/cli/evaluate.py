@@ -71,21 +71,44 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _restore(args, cfg, task):
-    """Load the weights the flags name into task.model and adopt the
-    checkpoint's aux (the coarse family's trained bins) before the first
-    forward; (experiment, epoch)."""
+def restore_weights(task, torch_checkpoint: Optional[str] = None,
+                    ckpt_dir: Optional[str] = None, experiment: Optional[str] = None,
+                    epoch=None):
+    """Load a checkpoint into task.model (strict) and adopt its aux (the
+    coarse family's trained bins) before the first forward: a reference or
+    port `.pth` (`torch_checkpoint`), else epoch `epoch` (default the
+    latest; 'best' through best.json) of the experiment directory
+    {ckpt_dir}/{experiment} that `cli.train` wrote. Returns the epoch
+    restored, or 'torch' for a `.pth`; a missing checkpoint exits naming the
+    epochs there."""
     from ..ckpt import CheckpointManager
-    from ..configs import experiment_name
     from ..tools.import_jax import load_torch_aux, load_torch_state_dict
+
+    if torch_checkpoint:
+        task.model.load_state_dict(load_torch_state_dict(torch_checkpoint), strict=True)
+        task.restore_aux(load_torch_aux(torch_checkpoint))
+        print(f"loaded torch checkpoint {torch_checkpoint}")
+        return "torch"
+    mgr = CheckpointManager(ckpt_dir, experiment, create=False)
+    try:
+        sd, aux, epoch = mgr.restore_eval(epoch=epoch)
+    except FileNotFoundError:
+        raise SystemExit(f"checkpoint not found under {mgr.directory}; "
+                         f"available epochs: {mgr.all_epochs()}")
+    task.model.load_state_dict(sd, strict=True)
+    task.restore_aux(aux)
+    return epoch
+
+
+def _restore(args, cfg, task):
+    """Resolve the checkpoint the flags name and load it
+    (`restore_weights`); (experiment, epoch)."""
+    from ..configs import experiment_name
 
     default_exp = (experiment_name(cfg) if args.experiment_name == "default"
                    else args.experiment_name)
     if args.torch_checkpoint:
-        task.model.load_state_dict(load_torch_state_dict(args.torch_checkpoint), strict=True)
-        task.restore_aux(load_torch_aux(args.torch_checkpoint))
-        print(f"loaded torch checkpoint {args.torch_checkpoint}")
-        return default_exp, "torch"
+        return default_exp, restore_weights(task, torch_checkpoint=args.torch_checkpoint)
     epoch_req = args.checkpoints
     ckpt_dir, exp = args.ckpt_dir, default_exp
     if args.checkpoint_path:
@@ -97,15 +120,20 @@ def _restore(args, cfg, task):
         print(f"extracted experiment name from path: {exp}")
     if args.use_best and epoch_req is None:
         epoch_req = "best"
-    mgr = CheckpointManager(ckpt_dir, exp, create=False)
-    try:
-        sd, aux, epoch = mgr.restore_eval(epoch=epoch_req)
-    except FileNotFoundError:
-        raise SystemExit(f"checkpoint not found under {mgr.directory}; "
-                         f"available epochs: {mgr.all_epochs()}")
-    task.model.load_state_dict(sd, strict=True)
-    task.restore_aux(aux)
-    return exp, epoch
+    return exp, restore_weights(task, ckpt_dir=ckpt_dir, experiment=exp, epoch=epoch_req)
+
+
+def image_kwargs(cfg) -> dict:
+    """The loader's option for a model that reads camera images (input_nc
+    3: rgb_depth and --eval_img): the synthetic corpus's shaded view or
+    BatVision V2's camera; none for the others (adabins validates its
+    student alone on audio, train_adabins_distillation.py:481-522)."""
+    if cfg.model.input_nc != 3:
+        return {}
+    if cfg.dataset.name == "batvisionv1":
+        raise SystemExit("image-input evaluation is not supported on batvisionv1 "
+                         "(no camera images)")
+    return {"with_image": True} if cfg.dataset.name == "synthetic" else {"use_image": True}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -130,15 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                       overrides=overrides)
     if args.override:
         cfg = apply_overrides(cfg, dict(_parse_override(s) for s in args.override))
-    # the image families read camera images; adabins validates its student
-    # alone on audio (train_adabins_distillation.py:481-522)
-    ds_kwargs = {}
-    if args.eval_img or cfg.model.name == "rgb_depth":
-        if cfg.dataset.name == "batvisionv1":
-            raise SystemExit("image-input evaluation is not supported on batvisionv1 "
-                             "(no camera images)")
-        ds_kwargs = ({"with_image": True} if cfg.dataset.name == "synthetic"
-                     else {"use_image": True})
+    ds_kwargs = image_kwargs(cfg)
     task = make_task(cfg, device=args.device)
     exp, epoch = _restore(args, cfg, task)
     ds = make_dataset(cfg, args.eval_on, **ds_kwargs)

@@ -301,13 +301,15 @@ def load_torch_aux(path: str) -> Dict[str, object]:
     """The payloads a reference checkpoint wrapper carries beside its
     state_dict: the coarse training script's `bin_centers` / `bin_edges`
     (train_coarse_depth.py:632-640) as numpy arrays, and its saved `epoch`
-    (the JAX package's `tools/import_torch.py::load_torch_aux`)."""
+    (the JAX package's `tools/import_torch.py::load_torch_aux`). A port
+    checkpoint (`ckpt/`) carries the bins in its `aux` dict."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     aux: Dict[str, object] = {}
     if isinstance(obj, dict):
+        bins = {**obj, **obj["aux"]} if isinstance(obj.get("aux"), dict) else obj
         for key in ("bin_centers", "bin_edges"):
-            if obj.get(key) is not None:
-                aux[key] = np.asarray(torch.as_tensor(obj[key]))
+            if bins.get(key) is not None:
+                aux[key] = np.asarray(torch.as_tensor(bins[key]))
         if isinstance(obj.get("epoch"), int):
             aux["epoch"] = int(obj["epoch"])
     return aux

@@ -43,7 +43,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, synchronize
 
 JAX_KEYS = ("dp8_unet256", "dp4xsp2_binaural", "weak_scaling_unet")
 RANKS = 8               # the JAX tool's devices
@@ -84,11 +84,6 @@ def _engine(model: str, group, global_batch: int, size: int, extra, device):
     return eng, state, shard_global_batch(batch, group)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def collectives_for(model: str, world, bs_per_rank: int, size: int,
                     layout: Optional[Sequence[int]] = None, extra: Optional[Dict] = None,
                     device="cpu") -> dict:
@@ -102,23 +97,23 @@ def collectives_for(model: str, world, bs_per_rank: int, size: int,
     group = world if layout is None else make_mesh_group(*layout)
     eng, state, batch = _engine(model, group, bs_per_rank * world.size, size, extra, device)
     eng.train_step(state, batch)
-    _sync(device)
+    synchronize(device)
     collectives.reset()
     _, metrics = eng.train_step(state, batch)
     float(metrics["loss"])
-    _sync(device)
+    synchronize(device)
     return collectives.read()
 
 
 def _time_steps(eng, state, batch, steps: int, device) -> float:
     _, m = eng.train_step(state, batch)  # warm
     float(m["loss"])
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     for _ in range(steps):
         state, m = eng.train_step(state, batch)
     float(m["loss"])
-    _sync(device)
+    synchronize(device)
     return (time.perf_counter() - t0) / steps
 
 

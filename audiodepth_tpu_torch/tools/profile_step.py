@@ -257,6 +257,7 @@ def capture(args) -> Tuple[str, Dict[str, int]]:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from .._device import synchronize
     from ..cli.train import _parse_override
     from ..configs import load_config
     from ..data.synthetic import SyntheticEchoDataset
@@ -279,14 +280,10 @@ def capture(args) -> Tuple[str, Dict[str, int]]:
     bts = _batches(args, cfg, eng, task, ds)
     on_card = task.device.type == "cuda"
 
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(task.device)
-
     for b in bts[:WARMUP_STEPS]:  # the kernels' build and cuDNN's search, untraced
         state, m = eng.train_step(state, b)
     float(m["loss"])
-    sync()
+    synchronize(task.device)
     before = {w.name: w.launches for w, _, _ in KERNELS}
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with profile(activities=activities) as prof:
@@ -296,7 +293,7 @@ def capture(args) -> Tuple[str, Dict[str, int]]:
             with record_function(f"{STEP_PREFIX}{i}"):
                 state, m = eng.train_step(state, b)
         float(m["loss"])
-        sync()
+        synchronize(task.device)
     counters = {w.name: w.launches - before[w.name] for w, _, _ in KERNELS}
     os.makedirs(args.trace_dir, exist_ok=True)
     path = os.path.join(args.trace_dir, f"{args.model}_bs{args.batch_size}.pt.trace.json")

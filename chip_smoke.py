@@ -247,6 +247,28 @@ non-zero:
              which the engine scopes to them; the same steps are timed
              once more without it, for its cost. The step times are
              time-sharing, not scaling;
+  examples_compare  `examples/compare_checkpoints.py` (float32) over the
+             checkpoints the run wrote: train_unet's experiment directory,
+             a reference-format .pth of its latest epoch, the train phase's
+             binaural directory and the coarse hybrid's from train_families;
+             the CSV's header is the reference's and each row equals
+             `cli/evaluate.py`'s means on the same split within
+             COMPARE_REL_TOL (the two unet rows as well);
+  examples_convergence  `examples/synthetic_convergence.py` at its defaults
+             (unet_256, bf16, batch 64, 512 / 64 samples, 30 epochs): every
+             loss finite, the last val RMSE below epoch 1's and at most
+             EXAMPLES_RMSE_MAX, B1 once a step and an eval batch;
+  examples_sweep  `examples/family_sweep.py` at its defaults (seven
+             families, batch 32, 10 epochs): every loss and metric finite,
+             every last RMSE at most EXAMPLES_RMSE_MAX and, but for
+             base_residual's plateau, below the first, B1 / B2 / B3 counted;
+             only the cVAE or rgb_depth (FLOOR_AT_0_FAMILIES: heads with a
+             floor at 0, dead or slow from some draws in JAX as in the
+             port, ROADMAP.md §C) may miss that from seed 0: the miss is
+             recorded and each of its SWEEP_RESEEDS runs must meet it;
+  examples_step_bench  `examples/family_step_bench.py` at its defaults (the
+             seven families at full width, bs 32, 3 + 20 steps): ms a step,
+             pairs/s and peak memory, the launches counted;
   kernels    one line listing every kernel with its numbers at its main
              shape, its launches on each path (by plan variant where the
              plan has several) and its SASS HGMMA and HMMA counts.
@@ -257,6 +279,7 @@ any result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -1185,9 +1208,10 @@ PER_EVAL_BATCH = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
 REPEATED_STEPS = 8
 
 
-def phase_train(torch, np, train_cli, kernels):
+def phase_train(torch, np, train_cli, kernels, ckpt_root):
     """cli/train.py's main in-process on the card (see the module note),
-    then REPEATED_STEPS steps on one batch, timed, and a profile of one."""
+    its checkpoint under `ckpt_root` (for examples_compare), then
+    REPEATED_STEPS steps on one batch, timed, and a profile of one."""
     from audiodepth_tpu_torch.data.batvision import make_dataset
 
     seen, steps = {}, []
@@ -1204,9 +1228,10 @@ def phase_train(torch, np, train_cli, kernels):
                 if n.startswith("attention_modules.") and ".gamma" not in n}
         steps.append(metrics)
 
+    argv = TRAIN_ARGV + ["--ckpt_dir", ckpt_root]
     reset_launches(kernels)
     t0 = time.perf_counter()
-    eng, state = train_cli.main(TRAIN_ARGV, on_task=on_task, on_step=on_step)
+    eng, state = train_cli.main(argv, on_task=on_task, on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, by_variant = read_launches(kernels)
@@ -1246,7 +1271,7 @@ def phase_train(torch, np, train_cli, kernels):
         rep_losses.append(float(metrics["loss"]))
     assert all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0], rep_losses
     step_ms = statistics.median(times[1:]) * 1e3
-    emit({"phase": "train", "flags": TRAIN_ARGV, "remat": True, "gammas_set_to": seen["gammas"],
+    emit({"phase": "train", "flags": argv, "remat": True, "gammas_set_to": seen["gammas"],
           "params": sum(p.numel() for p in task.model.parameters()),
           "steps": len(steps), "eval_batches": n_eval, "losses": losses, "grad_norms": norms,
           "first_step_attention_grad_min": min(seen["first_grads"].values()),
@@ -3122,6 +3147,248 @@ def phase_verify_contracts(torch):
     emit({"phase": "verify_contracts", "ok": ok, "shapes_nchw": shapes})
 
 
+# the example scripts (`audiodepth_tpu_torch/examples/`) on the card
+COMPARE_REL_TOL = 1e-6  # a compare_checkpoints row vs cli/evaluate's means, float32
+EXAMPLES_RMSE_MAX = 7.0  # m: the last val RMSE of the convergence run and of each family
+# the family whose last val RMSE may exceed its first: its λ_recon
+# curriculum plateaus in 10 epochs (the JAX package's sweep: 5.18 → 5.40)
+SWEEP_PLATEAU = ("base_residual",)
+# the two families whose head has a hard floor at 0 (the cVAE's ReLU, the
+# RGB teacher's clamp) and which, in the JAX package as in the port, end
+# dead or slow from some draws of their init (ROADMAP.md §C; the draws are
+# counted by tests/torch_head_init_witness.py on the CPU). Where one of them
+# misses the gate from the scripts' seed (mode.seed 0), the miss is recorded
+# and the family is trained again from each of SWEEP_RESEEDS, and every one
+# of those runs must meet the whole gate. Any other family that misses it
+# from seed 0 fails the phase
+FLOOR_AT_0_FAMILIES = ("unet_cvae", "rgb_depth")
+SWEEP_RESEEDS = (1, 2, 3, 4, 5)
+AUDIO_FREE = ("rgb_depth",)  # the sweep's families that run no front end
+
+
+def experiment_dir(train_cli, argv, root):
+    """Where `cli/train.py` run with `argv` saves under `root`."""
+    from audiodepth_tpu_torch.configs import experiment_name
+
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(argv))
+    return os.path.join(root, experiment_name(cfg))
+
+
+def _compare_entries(root, unet_dir, binaural_dir, coarse_dir):
+    """The checkpoints the run wrote, as (label, family, path, entry
+    overrides, cli/evaluate flags naming the same weights): the unet's
+    experiment directory and a reference-format .pth of its latest epoch,
+    the binaural net's and the coarse hybrid's directories."""
+    import torch
+
+    from audiodepth_tpu_torch.ckpt import CheckpointManager
+
+    mgr = CheckpointManager(*os.path.split(unet_dir), create=False)
+    payload = torch.load(mgr.path(mgr.latest_epoch()), map_location="cpu", weights_only=True)
+    pth = os.path.join(root, "unet_reference.pth")
+    torch.save({"epoch": payload["epoch"], "state_dict": payload["state_dict"]}, pth)
+    hybrid = ["model.model_type=hybrid"]
+    return [("unet_baseline dir", "unet_baseline", unet_dir, [], ["--checkpoint_path", unet_dir]),
+            ("unet_baseline pth", "unet_baseline", pth, [], ["--torch_checkpoint", pth]),
+            ("binaural_attention dir", "binaural_attention", binaural_dir, [],
+             ["--checkpoint_path", binaural_dir]),
+            ("coarse_depth hybrid dir", "coarse_depth", coarse_dir, hybrid,
+             ["--checkpoint_path", coarse_dir] + [f"--override={o}" for o in hybrid])]
+
+
+def phase_examples_compare(torch, np, evaluate_cli, kernels, root, entries):
+    """`examples/compare_checkpoints.py` over the run's checkpoints
+    (`_compare_entries`) on the synthetic val split of VAL_SAMPLES, in
+    float32: the CSV's header is the reference's, each row equals
+    `cli/evaluate.py`'s means of the same weights on the same split within
+    COMPARE_REL_TOL, and the two unet rows (the directory and the .pth)
+    agree as closely; B1 once an eval batch, B2 four times a binaural one."""
+    import csv
+
+    from audiodepth_tpu_torch.examples import compare_checkpoints
+
+    out = os.path.join(root, "comparison.csv")
+    argv = ["--dataset", "synthetic", "--num_samples", str(VAL_SAMPLES),
+            "--batch_size", str(TRAIN_BATCH), "--out", out]
+    for label, family, path, overrides, _ in entries:
+        argv += ["--entry", ":".join([label, family, path] + ([",".join(overrides)]
+                                                             if overrides else []))]
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    rows = compare_checkpoints.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_variant = read_launches(kernels)
+    n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
+    n_binaural = sum(family == "binaural_attention" for _, family, _, _, _ in entries)
+    expected = {"fused_mel_frontend": n_eval * len(entries),
+                "flash_cross_attention_fwd": 4 * n_eval * n_binaural,
+                "flash_cross_attention_bwd": 0}
+    assert launches == expected, f"compare: launches {launches}, expected {expected}"
+    with open(out) as f:
+        header = next(csv.reader(f))
+    assert header == list(compare_checkpoints.COLUMNS), header
+    keys = {"ABS_REL": "abs_rel", "RMSE": "rmse", "MAE": "mae", "Delta1": "delta1"}
+    checks = []
+    for row, (label, family, _, _, flags) in zip(rows, entries):
+        assert row["Model"] == label and all(np.isfinite(row[c]) for c in keys), row
+        means = evaluate_cli.main(["--dataset", "synthetic", "--eval_on", "val",
+                                   "--model", family, "--compute_dtype", "float32",
+                                   "--batch_size", str(TRAIN_BATCH),
+                                   "--stat_dir", os.path.join(root, "eval"), *flags])
+        rel = {c: abs(row[c] - means[k]) / max(abs(means[k]), 1e-12) for c, k in keys.items()}
+        assert all(d <= COMPARE_REL_TOL for d in rel.values()), (label, row, means)
+        checks.append({"label": label, "row": row, "evaluate_means": means, "rel_diff": rel})
+    same = {c: abs(rows[0][c] - rows[1][c]) / max(abs(rows[1][c]), 1e-12) for c in keys}
+    assert all(d <= COMPARE_REL_TOL for d in same.values()), (rows[0], rows[1])
+    emit({"phase": "examples_compare", "flags": argv, "seconds": seconds, "rows": checks,
+          "unet_dir_vs_pth_rel_diff": same, "tol_rel": COMPARE_REL_TOL,
+          "launches": launches, "expected_launches": expected})
+    return launches, by_variant
+
+
+def phase_examples_convergence(torch, np, kernels):
+    """`examples/synthetic_convergence.py` at its defaults: unet_256 (ngf
+    64), bf16, batch 64, 512 train / 64 val samples, 30 epochs (240
+    steps), validated at epoch 1 and every 5th. Every loss finite; the last
+    val RMSE below epoch 1's and at most EXAMPLES_RMSE_MAX; B1 once a step
+    and an eval batch, B2 and B3 never."""
+    from audiodepth_tpu_torch.examples import synthetic_convergence
+
+    losses = []
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    rows = synthetic_convergence.run(device="cuda",
+                                     on_step=lambda state, m: losses.append(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_variant = read_launches(kernels)
+    losses = torch.stack(losses).float().cpu().numpy()
+    epochs, steps = rows[-1]["epoch"], len(losses)
+    assert epochs == 30 and steps == 30 * 512 // 64, (epochs, steps)
+    assert np.isfinite(losses).all(), losses
+    first, last = rows[0]["rmse"], rows[-1]["rmse"]
+    assert last < first and last <= EXAMPLES_RMSE_MAX, (first, last)
+    expected = {"fused_mel_frontend": steps + len(rows), "flash_cross_attention_fwd": 0,
+                "flash_cross_attention_bwd": 0}
+    assert launches == expected, f"convergence: launches {launches}, expected {expected}"
+    emit({"phase": "examples_convergence", "rows": rows, "steps": steps,
+          "train_s": rows[-1]["train_s"], "s_per_epoch": rows[-1]["train_s"] / epochs,
+          "s_per_epoch_after_first": (rows[-1]["train_s"] - rows[0]["epoch_s"]) / (epochs - 1),
+          "ms_per_step": rows[-1]["train_s"] / steps * 1e3, "main_wall_s": wall,
+          "rmse_max": EXAMPLES_RMSE_MAX, "launches": launches, "expected_launches": expected,
+          "table": synthetic_convergence.format_table(rows)})
+    return launches, by_variant
+
+
+def _family_expected(name, steps, eval_batches):
+    """The launches of `steps` train steps and `eval_batches` eval batches
+    of a sweep or step-bench family."""
+    b1 = 0 if name in AUDIO_FREE else steps + eval_batches
+    attn = name == "binaural_attention"
+    return {"fused_mel_frontend": b1,
+            "flash_cross_attention_fwd": 4 * (steps + eval_batches) if attn else 0,
+            "flash_cross_attention_bwd": 4 * steps if attn else 0}
+
+
+def _sweep_run(torch, np, kernels, family_sweep, name, over, overrides=None):
+    """One family of the sweep with its launches counted: (row, losses,
+    launches, by variant)."""
+    losses = []
+    reset_launches(kernels)
+    row = family_sweep.run_family(name, over, device="cuda", overrides=overrides,
+                                  on_step=lambda state, m: losses.append(m["loss"]))
+    torch.cuda.synchronize()
+    launches, by_variant = read_launches(kernels)
+    expected = _family_expected(name, row["steps"], row["eval_batches"])
+    assert launches == expected, f"sweep {name}: launches {launches}, expected {expected}"
+    losses = torch.stack(losses).float().cpu().numpy()
+    assert row["steps"] == 10 * 256 // 32 == len(losses), (name, row["steps"])
+    assert np.isfinite(losses).all(), (name, losses)
+    first, last = row["first"], row["last"]
+    assert all(np.isfinite(v) for d in (first, last) for v in d.values()), (name, row)
+    return (dict(row, launches=launches, expected_launches=expected,
+                 loss_first=float(losses[0]), loss_last=float(losses[-1])),
+            launches, by_variant)
+
+
+def _meets_gate(name, row) -> bool:
+    """The last val RMSE at most EXAMPLES_RMSE_MAX and below the first (but
+    for SWEEP_PLATEAU)."""
+    first, last = row["first"]["rmse"], row["last"]["rmse"]
+    return last <= EXAMPLES_RMSE_MAX and (name in SWEEP_PLATEAU or last < first)
+
+
+def phase_examples_sweep(torch, np, kernels):
+    """`examples/family_sweep.py` at its defaults: the seven families (base
+    32 for the big ones, 64 AdaBins bins, the coarse hybrid with 32 bins),
+    bf16, batch 32, 256 train / 32 val samples, 10 epochs, validated after
+    epochs 1 and 10, weights from seed 0. Every loss and val metric finite;
+    each family meets the gate (`_meets_gate`), or, for one of
+    FLOOR_AT_0_FAMILIES that misses it from seed 0, each of its
+    SWEEP_RESEEDS runs does; B1 once a step and an eval batch in each audio
+    family, B2 four times a binaural step and eval batch, B3 four times a
+    binaural step."""
+    import gc
+
+    from audiodepth_tpu_torch.examples import family_sweep
+
+    rows, paths, misses = [], {}, []
+    t0 = time.perf_counter()
+    for name, over in family_sweep.FAMILIES:
+        row, launches, by_variant = _sweep_run(torch, np, kernels, family_sweep, name, over)
+        paths[f"examples family_sweep {name}"] = (launches, by_variant)
+        rows.append(row)
+        if not _meets_gate(name, row):
+            first, last = row["first"]["rmse"], row["last"]["rmse"]
+            assert name in FLOOR_AT_0_FAMILIES, (name, first, last)
+            misses.append({"family": name, "seed": 0, "first_rmse": first, "last_rmse": last})
+            for seed in SWEEP_RESEEDS:
+                gc.collect()
+                torch.cuda.empty_cache()
+                row, launches, by_variant = _sweep_run(
+                    torch, np, kernels, family_sweep, name, over, overrides={"mode.seed": seed})
+                paths[f"examples family_sweep {name} seed {seed}"] = (launches, by_variant)
+                rows.append(dict(row, family=f"{name} (seed {seed})"))
+                assert _meets_gate(name, row), (name, seed, row["first"]["rmse"],
+                                                row["last"]["rmse"])
+            misses[-1].update(reseeds=list(SWEEP_RESEEDS),
+                              reseed_last_rmse=[r["last"]["rmse"] for r in rows[-5:]])
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "examples_sweep", "families": rows, "rmse_max": EXAMPLES_RMSE_MAX,
+          "plateau_allowed": list(SWEEP_PLATEAU), "misses_at_seed_0": misses,
+          "wall_s": time.perf_counter() - t0, "table": family_sweep.format_table(rows)})
+    return paths
+
+
+def phase_examples_step_bench(torch, kernels, smi):
+    """`examples/family_step_bench.py` at its defaults: the seven families at
+    full width (the presets; the coarse hybrid with 32 bins), bf16, batch
+    32, one device-resident batch, 3 warm-up and 20 timed steps: ms a step,
+    pairs/s and the peak memory of each; the last loss finite; B1, B2 and
+    B3 launched as the steps need."""
+    import gc
+
+    from audiodepth_tpu_torch.examples import family_step_bench
+
+    rows, paths = [], {}
+    for name, over in family_step_bench.FAMILIES:
+        reset_launches(kernels)
+        row = family_step_bench.time_family(name, over, device="cuda")
+        launches, by_variant = read_launches(kernels)
+        expected = _family_expected(name, 3 + row["steps"], 0)
+        assert launches == expected, f"step bench {name}: launches {launches}, expected {expected}"
+        assert math.isfinite(row["loss"]) and row["batch"] == 32, row
+        rows.append(dict(row, launches=launches))
+        paths[f"examples family_step_bench {name}"] = (launches, by_variant)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "examples_step_bench", "families": rows, "nvidia_smi": smi,
+          "table": family_step_bench.format_table(rows)})
+    return paths
+
+
 # the prefix of each wrapper's kernels in the ptxas report
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
@@ -3672,7 +3939,12 @@ def main() -> int:
                 for path in SERVE_PATHS}
     for path in SERVE_PATHS:
         phase_f32_vs_cpu(torch, np, configs, models, path)
-    launches["train binaural_attention"] = phase_train(torch, np, train_cli, KERNELS)
+    # the checkpoints examples_compare reads, kept to the end of the run
+    compare_root = tempfile.mkdtemp(prefix="chip_smoke_compare_")
+    atexit.register(shutil.rmtree, compare_root, ignore_errors=True)
+    launches["train binaural_attention"] = phase_train(torch, np, train_cli, KERNELS,
+                                                       compare_root)
+    binaural_dir = experiment_dir(train_cli, TRAIN_ARGV, compare_root)
     phase_f32_train_vs_cpu(torch, np, configs, models, "binaural_attention")
     launches["train binaural_attention float32"], train_f32 = phase_train_f32(
         torch, np, train_cli, KERNELS)
@@ -3688,6 +3960,8 @@ def main() -> int:
             torch, np, serve, train_cli, KERNELS, eng, ckpt_root)
         phase_unet_steps(torch, np, eng, state)
         del eng, state
+        unet_dir = shutil.move(experiment_dir(train_cli, UNET_TRAIN_ARGV, ckpt_root),
+                               compare_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3703,6 +3977,8 @@ def main() -> int:
             for family in FAMILIES:
                 launches.update(phase_train_family(torch, np, train_cli, serve, KERNELS, family,
                                                    families_root, (export_work, coarse_jobs)))
+            coarse_dir = shutil.move(experiment_dir(train_cli, _family_argv("coarse_depth/hybrid"),
+                                                    families_root), compare_root)
         finally:
             shutil.rmtree(families_root, ignore_errors=True)
         phase_f32_train_vs_cpu(torch, np, configs, models, "adabins_distillation")
@@ -3748,6 +4024,23 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    seconds = {}
+    t0 = time.perf_counter()
+    entries = _compare_entries(compare_root, unet_dir, binaural_dir, coarse_dir)
+    launches["examples compare_checkpoints"] = phase_examples_compare(
+        torch, np, evaluate_cli, KERNELS, compare_root, entries)
+    seconds["examples_compare"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["examples synthetic_convergence"] = phase_examples_convergence(torch, np, KERNELS)
+    seconds["examples_convergence"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(phase_examples_sweep(torch, np, KERNELS))
+    seconds["examples_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(phase_examples_step_bench(torch, KERNELS, smi))
+    seconds["examples_step_bench"] = time.perf_counter() - t0
+    emit({"phase": "examples_seconds", **seconds})
 
     b1 = next(r for r in b1_rows if (r["input"], r["bc"], r["L"]) == B1_MAIN)
     b1_main = dict(b1, main_shape="B*C=32, L=7782, noise", ms=b1["us"] / 1e3,

@@ -5,7 +5,7 @@
     "audiodepth_tpu" would also match the port), the training slice's
     modules among them, the data-parallel ones (`parallel`) and the
     sequence-parallel ones (`parallel.sharded_stft`, `parallel.sequence`,
-    `tools.multichip_scaling`);
+    `tools.multichip_scaling`), and the example scripts (`examples`);
   * the corpus path's modules (the loaders, the native decoder, prefetch,
     the device cache, the metric sink, both CLIs, the sparse datasets and
     the sparse-depth preprocessor, which imports OpenCV in its functions)
@@ -80,6 +80,9 @@ _PARALLEL_SLICE = {"parallel", "parallel.mesh", "parallel.multihost", "train.eng
 # the sequence-parallel modules
 _SEQUENCE_SLICE = {"parallel.sharded_stft", "parallel.sequence", "tools.multichip_scaling",
                    "models.binaural_attention", "data.frontend"}
+# the example scripts
+_EXAMPLES_SLICE = {"examples", "examples.compare_checkpoints", "examples.synthetic_convergence",
+                   "examples.family_sweep", "examples.family_step_bench"}
 # the corpus path's modules
 _CORPUS_SLICE = {
     "data.batvision", "data.native_io", "data.prefetch", "data.device_cache", "obs",
@@ -94,7 +97,8 @@ def test_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked = {n.split(".", 1)[1] for n in out.stdout.split()}
     assert len(walked) >= 48  # every module was walked
-    slices = _TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE | _PARALLEL_SLICE | _SEQUENCE_SLICE
+    slices = (_TRAINING_SLICE | _CORPUS_SLICE | _TOOLS_SLICE | _PARALLEL_SLICE | _SEQUENCE_SLICE
+              | _EXAMPLES_SLICE)
     assert slices <= walked, slices - walked
 
 
