@@ -11,6 +11,10 @@
   * Micro-batching: concurrent requests are collected for up to
     --batch_wait_ms, padded to the smallest ladder size, and run as one
     device batch.
+  * Spans (`obs.spans`): `serve.batch` around each batch the collector
+    runs, `runner.h2d`, `runner.forward` and `runner.d2h` on the device
+    thread, and each request's wait from its enqueue to the collector
+    taking it, accumulated as `serve.queue_wait`.
   * Weights: a checkpoint that `cli.train` saved (`ckpt/`: --checkpoint_path
     DIR[/EPOCH], or --ckpt_dir ROOT with the experiment's name; --use_best,
     --checkpoints EPOCH, else the latest), a reference torch .pth
@@ -45,6 +49,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..obs.spans import add as add_span, span
+
 
 # ---------------------------------------------------------------------------
 # Inference runner: task (model on its device) → one forward per batch
@@ -75,10 +81,13 @@ class InferenceRunner:
         self._device_thread.shutdown(wait=True)
 
     def _forward(self, waves: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(waves, np.float32)).to(self.device)
-        pred = self.task.predict_meters({"waveform": x})
-        pred = torch.clamp(pred, 0.0, self.cfg.dataset.max_depth)
-        return pred.float().cpu().numpy()  # the copy to the host synchronizes
+        with span("runner.h2d", self.device):
+            x = torch.from_numpy(np.ascontiguousarray(waves, np.float32)).to(self.device)
+        with span("runner.forward", self.device):
+            pred = self.task.predict_meters({"waveform": x})
+            pred = torch.clamp(pred, 0.0, self.cfg.dataset.max_depth)
+        with span("runner.d2h", self.device):
+            return pred.float().cpu().numpy()  # the copy to the host synchronizes
 
     def _infer(self, waves: np.ndarray) -> np.ndarray:
         return self._device_thread.submit(self._forward, waves).result()
@@ -127,6 +136,12 @@ class _Request:
         self.t_enqueue = time.perf_counter()
 
 
+def _taken(req: _Request) -> None:
+    """The request's wait in the queue, from its enqueue to the collector
+    taking it (`serve.queue_wait`, an accumulator: the wait crosses threads)."""
+    add_span("serve.queue_wait", time.perf_counter() - req.t_enqueue)
+
+
 class MicroBatcher:
     """Collects concurrent requests into one padded device batch.
 
@@ -165,6 +180,7 @@ class MicroBatcher:
             first = self.q.get()
             if first is None:
                 continue
+            _taken(first)
             batch = [first]
             deadline = time.perf_counter() + self.wait_s
             while len(batch) < max_b:
@@ -177,8 +193,10 @@ class MicroBatcher:
                     break
                 if nxt is None:
                     break
+                _taken(nxt)
                 batch.append(nxt)
-            self._run_batch(batch)
+            with span("serve.batch"):
+                self._run_batch(batch)
 
     def _run_batch(self, batch: List[_Request]):
         n = len(batch)

@@ -23,6 +23,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..obs.spans import span
 from ..parallel.mesh import DataGroup
 from ..parallel.multihost import local_batch_slice
 from .batvision import Shard, _batch_order
@@ -42,26 +43,30 @@ class DeviceDatasetCache:
         `device`: each sample encoded to the compact dtypes as it is
         loaded, then stacked a key at a time (popping the per-sample
         arrays, so the host holds about one compact copy of the rows),
-        then uploaded once. With a `group`, only this rank's rows."""
+        then uploaded once (span `cache.encode`: the rows' encode and the
+        stacking). With a `group`, only this rank's rows."""
         self.device = torch.device(device)
         self.n = n = len(dataset)
         self.group = group
         size, rank = (1, 0) if group is None else (group.size, group.rank)
         self.rows_per_rank = k = -(-n // size)
-        samples = []
-        for i in range(rank * k, (rank + 1) * k):
-            s = dataset.sample(i if i < n else 0)
-            enc = encode_batch({key: v[None] for key, v in s.items()}, max_depth_units)
-            samples.append({key: v[0] for key, v in enc.items()})
-        self.arrays: Dict[str, torch.Tensor] = {}
-        for key in list(samples[0]):
-            stacked = np.stack([s.pop(key) for s in samples])
-            self.arrays[key] = torch.from_numpy(stacked).to(self.device)
+        with span("cache.encode"):
+            samples = []
+            for i in range(rank * k, (rank + 1) * k):
+                s = dataset.sample(i if i < n else 0)
+                enc = encode_batch({key: v[None] for key, v in s.items()}, max_depth_units)
+                samples.append({key: v[0] for key, v in enc.items()})
+            stacked = {key: np.stack([s.pop(key) for s in samples]) for key in list(samples[0])}
+        self.arrays: Dict[str, torch.Tensor] = {
+            key: torch.from_numpy(stacked.pop(key)).to(self.device) for key in list(stacked)}
 
     def batch(self, indices) -> Dict[str, torch.Tensor]:
         """The rows `indices` of the split (global indices). Sharded, a
         collective: every rank of the group calls it with the same indices."""
-        idx = np.asarray(indices, np.int64)
+        with span("cache.gather", self.device):
+            return self._gather(np.asarray(indices, np.int64))
+
+    def _gather(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         if self.group is None:
             sel = torch.as_tensor(idx, device=self.device)
             return {key: _bits(v).index_select(0, sel).view(v.dtype)

@@ -1,10 +1,13 @@
-"""Observability of the port: the metric sink, timers, the profiler hook
-and the matplotlib visualizations (matplotlib is imported only inside the
-functions that draw)."""
+"""Observability of the port: the metric sink, the profiler hook, the spans
+inside the steps (`spans`, on the profiler's clock) and the matplotlib
+visualizations (matplotlib is imported only inside the functions that
+draw)."""
 
-from .logging import MetricLogger, ProfilerHook, Timer
+from . import spans
+from .logging import MetricLogger, ProfilerHook
+from .spans import summary
 from .visualize import (save_batch_visualization, save_decomposition, save_depth_comparison,
                         save_distillation_panel)
 
-__all__ = ["MetricLogger", "ProfilerHook", "Timer", "save_batch_visualization",
-           "save_decomposition", "save_depth_comparison", "save_distillation_panel"]
+__all__ = ["MetricLogger", "ProfilerHook", "save_batch_visualization", "save_decomposition",
+           "save_depth_comparison", "save_distillation_panel", "spans", "summary"]

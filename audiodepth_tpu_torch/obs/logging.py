@@ -1,5 +1,5 @@
-"""Metric sink: stdout, JSONL and optionally wandb, throughput counters
-and the profiler hook (port of `obs/logging.py`).
+"""Metric sink: stdout, JSONL and optionally wandb, and the profiler hook
+(port of `obs/logging.py`).
 
 Each record is printed as one `[experiment] key=value ...` line and, with a
 log directory, appended to `{log_dir}/{experiment}.jsonl` as one JSON object
@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Any, Dict, Optional
 
 
@@ -97,29 +96,6 @@ def _to_py(v):
         return float(v)
     except (TypeError, ValueError):
         return v
-
-
-class Timer:
-    """Wall-clock timing and pairs/sec/chip throughput counters."""
-
-    def __init__(self):
-        self._t0 = None
-        self.elapsed = 0.0
-
-    def start(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def stop(self) -> float:
-        self.elapsed = time.perf_counter() - self._t0
-        return self.elapsed
-
-    @staticmethod
-    def throughput(samples: int, seconds: float, chips: int = 1) -> Dict[str, float]:
-        return {
-            "samples_per_sec": samples / max(seconds, 1e-9),
-            "pairs_per_sec_per_chip": samples / max(seconds, 1e-9) / max(chips, 1),
-        }
 
 
 PRIMER_KERNELS = 16

@@ -19,7 +19,13 @@ of the window (the time any of them ran, merged over streams).
 The report adds one line per hand-written kernel of the port: its launches
 in the trace beside its wrapper's launch counter over the same steps, and
 DROPPED where the two differ. A profiler that loses a kernel's records
-would otherwise report a breakdown without it and say nothing.
+would otherwise report a breakdown without it and say nothing. Where the
+trace holds the program's spans (`obs.spans`: the `engine.*`, `cache.*`,
+`runner.*` and `serve.*` annotations), it adds one line per span name: its
+calls, its host ms a call (the annotation's length) and its device ms a
+call (the GPU events whose launch, found through its correlation id, falls
+inside the annotation, on any thread: autograd launches the backward's
+kernels from its own thread while the span's thread waits).
 
 Usage:
     python -m audiodepth_tpu_torch.tools.profile_step --model unet_baseline \
@@ -32,6 +38,7 @@ events) and raises without a card.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import re
@@ -44,6 +51,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 STEP_PREFIX = "adepth_step_"
 WARMUP_STEPS = 3
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_NAME = re.compile(r"^(engine|cache|runner|serve)\.")   # the program's spans
 
 # (regex searched in the GPU event's name) -> category. Order matters: the
 # hand-written kernels first, cuDNN's convolutions before the GEMMs (their
@@ -110,6 +118,8 @@ class TraceProfile:
     outside_steps_us: float = 0.0
     busy_us: float = 0.0
     window_us: float = 0.0
+    # span name -> (calls, host µs, device µs), in the order they first start
+    phases: Dict[str, Tuple[int, float, float]] = field(default_factory=dict)
 
     @property
     def total_us(self) -> float:
@@ -149,7 +159,7 @@ def parse_trace(path: str, steps: int) -> TraceProfile:
     every GPU event."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    spans, launch_ts = [], {}
+    spans, launch, named = [], {}, defaultdict(list)
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -157,9 +167,14 @@ def parse_trace(path: str, steps: int) -> TraceProfile:
         if name.startswith(STEP_PREFIX) and cat == "user_annotation":
             spans.append((int(name[len(STEP_PREFIX):]),
                           (float(e["ts"]), float(e["ts"]) + float(e["dur"]))))
+        elif cat == "user_annotation" and SPAN_NAME.match(name):
+            named[name].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
-            launch_ts[e["args"]["correlation"]] = float(e["ts"])
+            launch[e["args"]["correlation"]] = float(e["ts"])
     spans = sorted((i, span) for i, span in spans)
+    for ivs in named.values():
+        ivs.sort()
+    device = defaultdict(float)
     out = TraceProfile(steps=steps, activity=[])
     for e in events:
         cat = str(e.get("cat", "")).lower()
@@ -168,8 +183,14 @@ def parse_trace(path: str, steps: int) -> TraceProfile:
         args = e.get("args", {})
         act = Activity(cat, str(e.get("name", "")), args.get("stream"), float(e["ts"]),
                        float(e["dur"]), args.get("bytes"))
+        launched = launch.get(args.get("correlation"))
         if spans:
-            act.step = _step_of(launch_ts.get(args.get("correlation"), act.ts), spans)
+            act.step = _step_of(act.ts if launched is None else launched, spans)
+        if launched is not None:   # every span that holds the launch
+            for name, ivs in named.items():
+                i = bisect.bisect_right(ivs, (launched, float("inf"))) - 1
+                if i >= 0 and launched <= ivs[i][1]:
+                    device[name] += act.dur
         out.activity.append(act)
     # with spans, the steps' events alone (a primer's or another thread's
     # work is `outside_steps_us`)
@@ -189,6 +210,8 @@ def parse_trace(path: str, steps: int) -> TraceProfile:
     starts = [a.ts for a in mine] + [s for _, (s, _) in spans]
     ends = [a.ts + a.dur for a in mine] + [e for _, (_, e) in spans]
     out.window_us = max(ends) - min(starts) if starts else 0.0
+    for name, ivs in sorted(named.items(), key=lambda kv: kv[1][0]):
+        out.phases[name] = (len(ivs), sum(e - s for s, e in ivs), device.get(name, 0.0))
     return out
 
 
@@ -205,7 +228,8 @@ def hand_written_rows(prof: TraceProfile, counters: Optional[Mapping[str, int]] 
 def report(prof: TraceProfile, steps: int, top: int = 12,
            counters: Optional[Mapping[str, int]] = None) -> str:
     """The JAX tool's table (category, ms/step, share; the top items) on
-    CUDA kernel names, with the steps and one line per hand-written kernel."""
+    CUDA kernel names, with the steps, one line per hand-written kernel and
+    one per span of the program (device n/a in a trace without GPU events)."""
     total = prof.total_us
     steps = max(steps, 1)
     lines = [f"GPU time {total / 1e3 / steps:.3f} ms/step over {steps} steps; busy union "
@@ -230,6 +254,12 @@ def report(prof: TraceProfile, steps: int, top: int = 12,
         lines.append(f"  {name:28s} trace {seen:5d}  counter "
                      + ("  n/a" if counted is None else f"{counted:5d}")
                      + ("  DROPPED" if dropped else ""))
+    if prof.phases:
+        lines.append("")
+        lines.append("the program's spans (obs.spans): calls, host and device ms a call")
+        for name, (n, host, dev) in prof.phases.items():
+            lines.append(f"  {name:20s} {n:5d}  host {host / 1e3 / n:8.3f}  device "
+                         + (f"{dev / 1e3 / n:8.3f}" if prof.activity else "     n/a"))
     return "\n".join(lines)
 
 

@@ -6,7 +6,12 @@ device, runs the task's loss, backpropagates (through kernels B1-B3 on the
 card for the binaural family), measures the global gradient norm, clips it
 with optax's semantics, updates the parameters with the per-step learning
 rate and counts the step. The epoch index enters the loss as a 0-based
-float, so curriculum schedules need nothing else.
+float, so curriculum schedules need nothing else. The step and its phases
+run in `obs.spans` spans: `engine.train_step` around `engine.decode`,
+`engine.forward` (zero_grad and the loss), `engine.backward` and
+`engine.optimizer` (the norm, the clip, the learning rate and AdamW); the
+gradient list and, with several data ranks, their all-reduce sit between
+the backward and the optimizer, in no span of their own.
 
 The host encodes each batch with the compact codec (`data/codec.py`) and the
 device decodes it; in float64 mode (the parity mode) the host ships float32
@@ -66,6 +71,7 @@ import torch
 from ..configs import Config
 from ..data.codec import decode_batch, depth_storage_units, encode_batch
 from ..data.prefetch import device_prefetch
+from ..obs.spans import span
 from ..parallel import (MeshGroup, all_reduce_grads_, broadcast_module, data_axis,
                         local_shard, use_group, world_of)
 from .optim import clip_by_global_norm_, global_norm, make_optimizer, make_schedule
@@ -161,28 +167,33 @@ class Engine:
         if "_valid" in batch:
             raise ValueError("padded batches (_valid mask) are eval-only; train loaders "
                              "must produce full batches (drop_last)")
-        with deterministic_kernels(self._deterministic):
-            batch = decode_batch(self.put_batch(batch), self._depth_units)
+        dev = self.device
+        with span("engine.train_step", dev), deterministic_kernels(self._deterministic):
+            with span("engine.decode", dev):
+                batch = decode_batch(self.put_batch(batch), self._depth_units)
             opt = state.optimizer
-            opt.zero_grad(set_to_none=True)
-            self.task.begin_step(state.step)
+            with span("engine.forward", dev):
+                opt.zero_grad(set_to_none=True)
+                self.task.begin_step(state.step)
+                with use_group(self.group):
+                    loss, aux = self.task.loss_fn(batch, float(epoch))
             # the backward too runs in the group: remat recomputes BatchNorm there
-            with use_group(self.group):
-                loss, aux = self.task.loss_fn(batch, float(epoch))
+            with span("engine.backward", dev), use_group(self.group):
                 loss.backward()
             # a frozen part's parameters have no gradient: its zeros add nothing
             # to the norm
             grads = [p.grad for p in state.model.parameters() if p.grad is not None]
             if self.data_group is not None and self.data_group.size > 1:
                 all_reduce_grads_(grads, self.data_group)
-            norm = global_norm(grads)
-            clip = self.cfg.mode.grad_clip_norm
-            if clip and clip > 0:
-                clip_by_global_norm_(grads, norm, clip)
-            lr = self.schedule(state.step)
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
+            with span("engine.optimizer", dev):
+                norm = global_norm(grads)
+                clip = self.cfg.mode.grad_clip_norm
+                if clip and clip > 0:
+                    clip_by_global_norm_(grads, norm, clip)
+                lr = self.schedule(state.step)
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["grad_norm"] = norm
@@ -391,15 +402,7 @@ class Engine:
             except ValueError:  # not the main thread
                 pass
         completed_epoch = start_epoch - 1
-        self.snapshot_seconds: List[float] = []
-
-        def snapshot():
-            t0 = time.perf_counter()
-            snap = self._snapshot(state)
-            self.snapshot_seconds.append(time.perf_counter() - t0)
-            return snap
-
-        completed = snapshot() if installed else None
+        completed = self._snapshot(state) if installed else None
         profile_epoch = min(start_epoch + 1, epochs) if profiler is not None else None
         try:
             for epoch in range(start_epoch, epochs + 1):
@@ -476,7 +479,7 @@ class Engine:
                     save(epoch)
                 completed_epoch = epoch
                 if installed:
-                    completed = snapshot()
+                    completed = self._snapshot(state)
                 self.history.append(record)
                 if log is not None:
                     log(record)

@@ -131,7 +131,7 @@ non-zero:
              run's steps timed and profiled (busy share; the counter again;
              each streamed batch copy the trace keeps from pinned memory on
              a stream no kernel uses; no batch copy when cached), the
-             preemption snapshot's seconds and the cache's bytes;
+             preemption snapshot's size and the cache's bytes;
   evaluate   `cli/evaluate.py` on the card against the streamed run's best
              checkpoint (--use_best --eval_on val --save_tensors): its means
              equal that epoch's val record within EVAL_REL_TOL, B1 once per
@@ -2478,7 +2478,6 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
               "main_wall_s": seen["wall"], "prefetch_counts": fit_copies,
               "epoch_step_ms": [r["epoch_time"] / r["steps"] * 1e3 for r in eng.history],
               "device_cache_nbytes": {s: c.nbytes() for s, c in zip(("train", "val"), caches)},
-              "preemption_snapshot_s": eng.snapshot_seconds,
               "snapshot_state_mb": state_bytes / 2**20,
               "holdout_rows": len(holdout_rows), "jsonl_records": len(logged)})
         out[name].update(launches=(launches, by_variant), eng=eng, exp=exp, ckpt_dir=ckpt_dir)

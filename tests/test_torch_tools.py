@@ -152,6 +152,48 @@ def test_parse_trace_and_report_on_a_fabricated_trace(tmp_path):
     assert "n/a" in ps.report(prof, 2)  # a read trace has no counters
 
 
+def test_span_lines_take_the_gpu_events_their_launches_started(tmp_path):
+    """A kernel counts in every program span that holds its launch, wherever
+    the kernel runs and whichever thread launched it (autograd's backward
+    runs on a thread of its own); a launch outside every span or without a
+    record counts in none; torch's own annotations get no line."""
+    def ev(cat, name, ts, dur, tid, **args):
+        return dict(_event(cat, name, ts, dur, **args), tid=tid)
+
+    events = [
+        ev("user_annotation", "engine.train_step", 0, 100, 1),
+        ev("user_annotation", "engine.forward", 10, 30, 1),
+        ev("user_annotation", "engine.backward", 40, 50, 1),
+        ev("user_annotation", "Optimizer.step#AdamW.step", 92, 5, 1),
+        ev("user_annotation", "engine.train_step", 100, 100, 1),
+        ev("user_annotation", "engine.forward", 110, 30, 1),
+        ev("user_annotation", "runner.forward", 15, 10, 2),
+        ev("cuda_runtime", "cudaLaunchKernel", 20, 1, 1, correlation=1),
+        ev("kernel", "k", 150, 7, 7, correlation=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 50, 1, 1, correlation=2),
+        ev("kernel", "k", 160, 11, 7, correlation=2),
+        ev("cuda_runtime", "cudaLaunchKernel", 95, 1, 1, correlation=3),
+        ev("kernel", "k", 171, 2, 7, correlation=3),
+        ev("cuda_runtime", "cudaLaunchKernel", 20, 1, 2, correlation=4),
+        ev("kernel", "k", 30, 3, 7, correlation=4),
+        ev("cuda_runtime", "cudaLaunchKernel", 60, 1, 3, correlation=7),
+        ev("kernel", "k", 180, 13, 7, correlation=7),
+        ev("cuda_runtime", "cudaLaunchKernel", 250, 1, 1, correlation=5),
+        ev("kernel", "k", 251, 5, 7, correlation=5),
+        ev("kernel", "k", 120, 4, 7, correlation=6),
+    ]
+    path = str(tmp_path / "t.json")
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    prof = ps.parse_trace(path, steps=2)
+    assert prof.phases == {"engine.train_step": (2, 200.0, 36.0), "engine.forward": (2, 60.0, 10.0),
+                           "runner.forward": (1, 10.0, 10.0), "engine.backward": (1, 50.0, 24.0)}
+    text = ps.report(prof, 2)
+    assert "  engine.train_step        2  host    0.100  device    0.018" in text
+    assert "  engine.backward          1  host    0.050  device    0.024" in text
+    assert "AdamW" not in text
+
+
 @pytest.mark.parametrize("model,overrides", [
     ("unet_baseline", ["model.generator=unet_128", "model.ngf=4", "dataset.images_size=128"]),
     ("coarse_depth", ["model.base_channels=4", "model.n_bins=8", "dataset.images_size=32"]),
@@ -167,6 +209,10 @@ def test_capture_on_cpu_end_to_end(model, overrides, tmp_path, capsys):
                         "flash_cross_attention_bwd": 0}
     out = capsys.readouterr().out
     assert "hand-written kernels" in out and "DROPPED" not in out
+    # one line a phase of the step, from the engine's spans (no device ms here)
+    for name in ("engine.train_step", "engine.decode", "engine.forward", "engine.backward",
+                 "engine.optimizer"):
+        assert re.search(rf"^  {re.escape(name)} +2  host +[0-9.]+  device +n/a$", out, re.M), name
     path = os.path.join(str(tmp_path), f"{model}_bs2.pt.trace.json")
     assert f"trace: {path}" in out and os.path.exists(path)
     again, _ = ps.main(["--parse_only", path, "--steps", "2"])
