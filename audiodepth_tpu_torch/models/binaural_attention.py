@@ -131,7 +131,7 @@ class BinauralAttentionNet(nn.Module):
             for lv in self.attention_levels})
         self.fusion_layers = nn.ModuleDict({
             f"fusion_{lv}": nn.Sequential(Conv2d(2 * ch[lv], ch[lv], 1, dtype=dtype),
-                                          BatchNorm(ch[lv], dtype), nn.ReLU())
+                                          BatchNorm(ch[lv], dtype, relu=True), nn.Identity())
             for lv in range(1, 6)})
         self.up1 = UpBilinear(ch[5] + ch[4], c * 4, dtype=dtype)
         self.up2 = UpBilinear(c * 4 + ch[3], c * 2, dtype=dtype)

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda.batch_norm import VEC, batch_norm_train
 from ..parallel.mesh import active_group, global_sum
 
 
@@ -147,13 +148,45 @@ class BatchNorm(nn.BatchNorm2d):
     loses fp32 precision on bf16 activations), both through the
     differentiable `parallel.global_sum`. The buffers fold the unbiased
     variance over the global count. torch's `SyncBatchNorm` would drop the
-    dtype rules and the fold-once of `remat`, so it is not used."""
+    dtype rules and the fold-once of `remat`, so it is not used.
 
-    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
+    `relu`: the ReLU that follows the norm is applied here (its slot in the
+    owner's Sequential holds an `nn.Identity`, so indices and state_dict
+    keys stay the reference's).
+
+    A train-mode bf16 channels-last input on a card, with a multiple of 8
+    channels, fp32 buffers and no data-parallel group, goes through the
+    hand-written kernels (`ops/cuda/batch_norm.py`): bf16 in and out, fp32
+    statistics, the fold and the ReLU inside, no fp32 copy of the
+    activation. Every other input takes the code below."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
+                 relu: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
+        self.relu = relu
+
+    def extra_repr(self) -> str:
+        return super().extra_repr() + (", relu=True" if self.relu else "")
+
+    def _kernel_path(self, x: torch.Tensor) -> bool:
+        return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
+                and x.shape[1] % VEC == 0
+                and self.compute_dtype == torch.bfloat16 and self.training
+                and x.is_contiguous(memory_format=torch.channels_last)
+                and all(t.dtype == torch.float32 for t in (
+                    self.weight, self.bias, self.running_mean, self.running_var))
+                and active_group() is None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._kernel_path(x):
+            return batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var, self.momentum, self.eps, self.relu,
+                                    fold=not _recomputing())
+        y = self._forward(x).to(self.compute_dtype)
+        return F.relu(y) if self.relu else y
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         sdt = torch.promote_types(x.dtype, torch.float32)
         xs, w, b = x.to(sdt), self.weight.to(sdt), self.bias.to(sdt)
         if not self.training:
@@ -174,7 +207,7 @@ class BatchNorm(nn.BatchNorm2d):
             y = F.batch_norm(xs, None, None, w, b, training=True, momentum=0.0, eps=self.eps)
             if not _recomputing():
                 self._fold(xs)
-        return y.to(self.compute_dtype)
+        return y
 
     def _global_batch_norm(self, xs: torch.Tensor, w: torch.Tensor,
                            b: torch.Tensor) -> torch.Tensor:
@@ -279,7 +312,8 @@ class Conv2d(nn.Conv2d):
 
 class DoubleConv(nn.Module):
     """(conv3x3 → BN → ReLU) × 2, no conv bias (base_residual_model.py:23-40),
-    its Sequential named `inner`."""
+    its Sequential named `inner`; each ReLU runs inside its BatchNorm (its
+    slot an `nn.Identity`)."""
 
     def __init__(self, in_ch: int, out_ch: int, mid_ch: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, inner: str = "double_conv"):
@@ -287,9 +321,9 @@ class DoubleConv(nn.Module):
         mid = mid_ch or out_ch
         self.inner = inner
         setattr(self, inner, nn.Sequential(
-            Conv2d(in_ch, mid, 3, bias=False, dtype=dtype), BatchNorm(mid, dtype), nn.ReLU(),
-            Conv2d(mid, out_ch, 3, bias=False, dtype=dtype), BatchNorm(out_ch, dtype),
-            nn.ReLU()))
+            Conv2d(in_ch, mid, 3, bias=False, dtype=dtype), BatchNorm(mid, dtype, relu=True),
+            nn.Identity(), Conv2d(mid, out_ch, 3, bias=False, dtype=dtype),
+            BatchNorm(out_ch, dtype, relu=True), nn.Identity()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, self.inner)(x)

@@ -61,7 +61,7 @@ _CATEGORIES = (
     (r"flash_fwd_\w*kernel", "B2 flash attention forward (hand-written)"),
     (r"flash_bwd_\w*kernel", "B3 flash attention backward (hand-written)"),
     (r"^Memcpy|^Memset", "copies and memsets"),
-    (r"batch_norm|bn_fw|bn_bw|welford", "BatchNorm"),
+    (r"batch_?norm|bn_fw|bn_bw|welford", "BatchNorm"),  # cuDNN's batchnorm_*, ours bn_*
     (r"fprop", "convolution forward (cuDNN fprop)"),
     (r"dgrad", "convolution data gradient (cuDNN dgrad)"),
     (r"wgrad", "convolution weight gradient (cuDNN wgrad)"),
@@ -77,11 +77,14 @@ _CATEGORIES = (
 
 # each hand-written kernel: its wrapper's name and the GPU launches its
 # `launches` counter counts (B1's two-pass form counts both of its kernels;
-# B3's bf16 call also launches `flash_bwd_prep_kernel`, which it does not)
+# B3's bf16 call also launches `flash_bwd_prep_kernel`, which it does not;
+# a BatchNorm call launches three kernels and counts one, its first)
 HAND_WRITTEN = (
     ("fused_mel_frontend", r"fused_mel_frontend_kernel|frontend_normalize_kernel"),
     ("flash_cross_attention_fwd", r"flash_fwd_(wgmma|f32)_kernel"),
     ("flash_cross_attention_bwd", r"flash_bwd_(wgmma|split|f32)_kernel"),
+    ("batch_norm_train_fwd", r"bn_fwd_stats_kernel"),
+    ("batch_norm_train_bwd", r"bn_bwd_reduce_kernel"),
 )
 
 

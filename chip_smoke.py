@@ -44,6 +44,17 @@ non-zero:
   autograd   `cross_attention` gradients through FlashCrossAttentionFn
              (B2 forward, B3 backward) against autograd of the blockwise
              plain path on the card, level 3 in bf16, level 2 in f32;
+  kernel_bn  the BatchNorm pair (`audiodepth::batch_norm_train_fwd` /
+             `_bwd`, csrc/batch_norm.cu) at every BatchNorm shape of the
+             benchmark's two train cells (BN_ROWS; the binaural ones with
+             the ReLU epilogue) against its plain version: y, dx, the
+             statistics, dγ, dβ and the folded buffers, two runs bit-equal;
+             forward and backward times against the bytes bound (4 and 6 B
+             an element), the plain version's and `F.batch_norm` between
+             its casts (library); the build phase reports its ptxas
+             registers and spills with the others'. Every bf16 train phase
+             below counts the pair's launches against BN_PER_TRAIN_STEP
+             (none in eval, serving, float32 or a data or model group);
   serve      the unet path: unet_256 / ngf 64 / 256² / bf16, random init
              from seed 0, batch ladder 1,4,16, the port's HTTP server
              in-process, 16 warm-up requests, then a 48-request loadtest
@@ -309,6 +320,24 @@ B1_ROWS = [("noise", 2, 7782), ("noise", 8, 7782), ("noise", 32, 7782), ("noise"
            # a channel of 3,126 frames: the two-pass form (more than 16 blocks a channel)
            ("noise", 2, 100_000)]
 B1_MAIN = ("noise", 32, 7782)
+# the BatchNorm pair's calls a bf16 train step makes on one card (forward,
+# backward), by family: every BatchNorm of a train-mode bf16 step takes the
+# kernels; eval, serving, float32 and data- or sequence-parallel steps keep
+# the module's own code and make none. The binaural net's remat recomputes
+# its encoders' 20 forwards; the frozen AdaBins teacher's 18 have no backward.
+BN_PER_TRAIN_STEP = {"binaural_attention": (53, 33), "unet_baseline": (13, 13),
+                     "base_residual": (26, 26), "unet_cvae": (13, 13),
+                     "adabins_distillation": (36, 18), "rgb_depth": (18, 18),
+                     "coarse_depth/unet": (18, 18), "coarse_depth/lite": (10, 10),
+                     "coarse_depth/hybrid": (28, 28), "coarse_depth/dual_reg": (28, 28)}
+NO_BN = {"batch_norm_train_fwd": 0, "batch_norm_train_bwd": 0}
+
+
+def bn_launches(family: str, steps: int) -> dict:
+    """The BatchNorm pair's launches over `steps` bf16 train steps of `family`."""
+    fwd, bwd = BN_PER_TRAIN_STEP[family]
+    return {"batch_norm_train_fwd": fwd * steps, "batch_norm_train_bwd": bwd * steps}
+
 B1_BEFORE = os.path.join("build", "b1_before", "fused_frontend.cu")
 F32_VS_CPU_TOL = 1e-3      # relative to max |cpu|
 SERVED_TOL = 2 ** -5       # served vs direct bf16 answer, relative to max |direct|
@@ -422,11 +451,11 @@ def phase_env(torch):
 def kernel_name(text: str) -> str:
     """`flash_bwd_wgmma_kernel<16,128>` from a line holding its mangled name
     (the line itself where there is none)."""
-    m = re.search(r"((?:flash_fwd|flash_bwd|flash_split3|fused_mel|frontend_normalize)\w*?_kernel)"
-                  r"(I(?:Li\d+E)+E)?", text)
+    m = re.search(r"((?:flash_fwd|flash_bwd|flash_split3|fused_mel|frontend_normalize|bn_fwd|bn_bwd)"
+                  r"\w*?_kernel)(I(?:L[ib]\d+E)+E)?", text)
     if not m:
         return text.strip()
-    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -502,8 +531,9 @@ def spills(report) -> dict:
 
 
 def phase_build(build):
-    # one library per source; B2 and B3 share csrc/flash_attention.cu
-    names = ["fused_frontend", "flash_attention"]
+    # one library per source; B2 and B3 share csrc/flash_attention.cu, the
+    # BatchNorm pair csrc/batch_norm.cu
+    names = ["fused_frontend", "flash_attention", "batch_norm"]
     t0 = time.perf_counter()
     befores = {src: _build_before(build, src) for src in (B1_BEFORE, B2B3_BEFORE)}
     logs = build.build(names)
@@ -928,6 +958,133 @@ def phase_kernel_b3(torch, fa, peak, ex2_rate):
     return rows
 
 
+# the BatchNorm pair's rows: every BatchNorm input of the benchmark's two
+# train cells ([N, C, H, W]; the UNet's without the ReLU epilogue, the
+# binaural net's with it); the main row is the largest, the same rows in both
+BN_ROWS = ([((256, 64, 128, 128), False), ((256, 128, 64, 64), False),
+            ((256, 256, 32, 32), False), ((256, 512, 16, 16), False),
+            ((256, 512, 8, 8), False), ((256, 512, 4, 4), False), ((256, 512, 2, 2), False)]
+           + [((64, 64, 256, 256), True), ((64, 128, 128, 128), True),
+              ((64, 256, 64, 64), True), ((64, 512, 32, 32), True), ((64, 512, 16, 16), True),
+              ((64, 256, 32, 32), True), ((64, 128, 64, 64), True), ((64, 64, 128, 128), True)])
+BN_MAIN = {((256, 64, 128, 128), False): "UNet", ((64, 64, 256, 256), True): "binaural"}
+BN_BYTES_FWD, BN_BYTES_BWD = 4, 6  # bf16 x read, y written; x, dy read, dx written
+
+
+def _bn_inputs(torch, shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+
+    def draw(*size):
+        return torch.randn(size, generator=g, device="cuda")
+
+    x = (draw(*shape) * 1.7 + 0.6).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = draw(*shape).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return x, dy, draw(c) * 0.5 + 1.0, draw(c) * 0.2, draw(c), draw(c).abs() + 0.5
+
+
+def phase_kernel_bn(torch, bn, peak):
+    """The BatchNorm pair (`audiodepth::batch_norm_train_fwd` / `_bwd`) at
+    BN_ROWS against its plain version (the module's cast → cuDNN BatchNorm →
+    cast [→ ReLU], and that chain's backward) on the card: y and dx within
+    one bf16 ulp of the plain's (2^-7 of the value, two roundings of fp32
+    values that differ in their last bits) plus 1e-4 of the largest value,
+    where the two ReLU masks agree (they part only where the pre-activation
+    rounds to 0); mean, invstd and the folded buffers within 1e-4 relative,
+    dγ and dβ within 1e-4 of the sum of their terms' magnitudes (fp32 sums
+    over up to 4.2 M rows in two orders); the kernels' two runs bit-equal. Times (median of back-to-back calls): forward, backward,
+    their sum against the bytes bound (4 B an element forward, 6 B
+    backward, at the card's published bandwidth), the plain version's, and
+    `F.batch_norm` between its casts through autograd as library_ms (the
+    kernels' own tests hold them to float64: tests/test_torch_batch_norm.py
+    -m card)."""
+    import torch.nn.functional as F
+
+    gbps = peak[1] * 1e12
+    rows_out = []
+    for shape, relu in BN_ROWS:
+        x, dy, w, b, rm, rv = _bn_inputs(torch, shape, seed=len(rows_out))
+        n, c, h, wd = shape
+        plan = bn.bn_plan(n * h * wd, c, torch.cuda.get_device_properties(0).multi_processor_count)
+        runs = []
+        for _ in range(2):
+            bufs = (rm.clone(), rv.clone())
+            y, mean, invstd = bn.batch_norm_train_fwd(x, w, b, *bufs, 0.1, 1e-5, relu, True)
+            dx, dw, db = bn.batch_norm_train_bwd(dy, x, w, b, mean, invstd, 1e-5, relu)
+            runs.append((y, mean, invstd, dx, dw, db, *bufs))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(*runs)), f"BN {shape}: runs differ"
+        got = runs[0]
+        del runs
+        bufs = (rm.clone(), rv.clone())
+        y_p, mean_p, invstd_p = bn.batch_norm_train_fwd_plain(x, w, b, *bufs, 0.1, 1e-5, relu, True)
+        dx_p, dw_p, db_p = bn.batch_norm_train_bwd_plain(dy, x, w, b, mean_p, invstd_p, 1e-5, relu)
+        want = (y_p, mean_p, invstd_p, dx_p, dw_p, db_p, *bufs)
+        # the sums' scales: Σ|g| and Σ|g·x̂| a channel (g: dy through the ReLU's mask)
+        g = dy.double() * (y_p > 0) if relu else dy.double()
+        xhat = (x.double() - mean_p.double().view(1, -1, 1, 1)) * invstd_p.double().view(1, -1, 1, 1)
+        scale = {"dbias": g.abs().sum((0, 2, 3)), "dweight": (g * xhat).abs().sum((0, 2, 3))}
+        del g, xhat
+        # the two ReLU masks part only where the pre-activation rounds to 0
+        # in one of the two fp32 expressions (the kernel's fma, cuDNN's own)
+        parted = (got[0] > 0) != (y_p > 0)
+        assert float(torch.where(parted, (got[0].double() - y_p.double()).abs(), 0.0).max()) \
+            <= 1e-4 * float(y_p.abs().max())
+        errs = {"parted_masks": int(parted.sum())}
+        for name, k, p in zip(("y", "mean", "invstd", "dx", "dweight", "dbias", "running_mean",
+                               "running_var"), got, want):
+            k, p = k.double(), p.double()
+            if name in ("y", "dx"):
+                excess = (k - p).abs() - 2 ** -7 * p.abs() - 1e-4 * p.abs().max()
+                # dx where the masks agree (elsewhere one passes dy, the other 0)
+                excess = float(torch.where(parted, -1.0, excess).max())
+            elif name in scale:
+                excess = float(((k - p).abs() - 1e-4 * scale[name]).max())
+            else:
+                excess = float(((k - p).abs() - 1e-4 * p.abs().clamp_min(1e-3)).max())
+            assert excess <= 0, f"BN {shape} relu={relu}: {name} beyond its tolerance by {excess}"
+            errs[name] = float(torch.where(parted, 0.0, (k - p).abs()).max()
+                               if name in ("y", "dx") else (k - p).abs().max())
+        del want, y_p, dx_p, parted
+        fwd_ms = time_ms(torch, lambda: bn.batch_norm_train_fwd(x, w, b, rm, rv, 0.1, 1e-5, relu,
+                                                                True), runs=20)
+        bwd_ms = time_ms(torch, lambda: bn.batch_norm_train_bwd(dy, x, w, b, got[1], got[2],
+                                                                1e-5, relu), runs=20)
+        plain_fwd_ms = time_ms(torch, lambda: bn.batch_norm_train_fwd_plain(
+            x, w, b, rm, rv, 0.1, 1e-5, relu, True), runs=10)
+        plain_bwd_ms = time_ms(torch, lambda: bn.batch_norm_train_bwd_plain(
+            dy, x, w, b, got[1], got[2], 1e-5, relu), runs=10)
+        xs = x.detach().requires_grad_()
+        wl, bl = w.detach().requires_grad_(), b.detach().requires_grad_()
+
+        def library(backward):
+            yl = F.batch_norm(xs.float(), rm, rv, wl, bl, True, 0.1, 1e-5).to(torch.bfloat16)
+            yl = F.relu(yl) if relu else yl
+            if backward:
+                yl.backward(dy)
+
+        library_fwd_ms = time_ms(torch, lambda: library(False), runs=10)
+        library_ms = time_ms(torch, lambda: library(True), runs=10)
+        elems = x.numel()
+        bound_ms = (BN_BYTES_FWD + BN_BYTES_BWD) * elems / gbps * 1e3
+        row = {"phase": "kernel", "name": "batch_norm_train", "shape": list(shape), "relu": relu,
+               "main": BN_MAIN.get((shape, relu)), "plan": dataclasses.asdict(plan),
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
+               "bound_fwd_ms": BN_BYTES_FWD * elems / gbps * 1e3,
+               "bound_bwd_ms": BN_BYTES_BWD * elems / gbps * 1e3, "bound_ms": bound_ms,
+               "bound_by": "bytes", "bound_share": bound_ms / (fwd_ms + bwd_ms),
+               "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+               "plain_ms": plain_fwd_ms + plain_bwd_ms, "library_fwd_ms": library_fwd_ms,
+               "library_bwd_ms": library_ms - library_fwd_ms, "library_ms": library_ms,
+               "library": "F.batch_norm between bf16<->fp32 casts [ReLU], through autograd",
+               "max_abs_err_vs_plain": errs, "max_abs_err": max(errs["y"], errs["dx"])}
+        emit(row)
+        rows_out.append(row)
+        del x, dy, got, xs
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def phase_autograd(torch, fa, blockwise):
     """`cross_attention` (FlashCrossAttentionFn: B2 forward, B3 backward)
     against autograd of the blockwise plain path on the card, values and
@@ -1068,13 +1225,13 @@ SERVE_PATHS = {
     "unet_baseline": {
         "argv": ["--generator", "unet_256", "--ngf", "64"],
         "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
-                      "flash_cross_attention_bwd": 0},
+                      "flash_cross_attention_bwd": 0, **NO_BN},
         "share_of": None},
     "binaural_attention": {
         "argv": ["--model", "binaural_attention", "--base_channels", "64",
                  "--attention_levels", "2,3,4,5"],
         "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
-                      "flash_cross_attention_bwd": 0},
+                      "flash_cross_attention_bwd": 0, **NO_BN},
         "share_of": "flash_fwd"},
 }
 
@@ -1202,9 +1359,9 @@ TRAIN_ARGV = ["--dataset", "synthetic", "--model", "binaural_attention",
               "--validation_iter", "1", "--seed", "0"]
 VAL_SAMPLES = 64  # the synthetic val split (data/batvision.py)
 PER_TRAIN_STEP = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
-                  "flash_cross_attention_bwd": 4}
+                  "flash_cross_attention_bwd": 4, **bn_launches("binaural_attention", 1)}
 PER_EVAL_BATCH = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
-                  "flash_cross_attention_bwd": 0}
+                  "flash_cross_attention_bwd": 0, **NO_BN}
 REPEATED_STEPS = 8
 
 
@@ -1348,7 +1505,8 @@ def phase_train_f32(torch, np, train_cli, kernels):
     unmoved = [n for n, p in task.model.named_parameters()
                if torch.equal(p.detach(), seen["before"][n])]
     assert not unmoved, f"parameters that did not move: {unmoved[:8]}"
-    expected = {name: PER_TRAIN_STEP[name] * len(steps) for name in PER_TRAIN_STEP}
+    # float32: BatchNorm keeps its own code
+    expected = dict({name: PER_TRAIN_STEP[name] * len(steps) for name in PER_TRAIN_STEP}, **NO_BN)
     assert launches == expected, f"train_f32: launches {launches}, expected {expected}"
     for name, per_step in F32_VARIANTS_PER_STEP.items():
         assert by_variant[name] == {v: k * len(steps) for v, k in per_step.items()}, \
@@ -1657,8 +1815,8 @@ UNET_TRAIN_ARGV = ["--dataset", "synthetic", "--model", "unet_baseline",
                    "--num_samples", "64", "--epochs", "1", "--validation", "true",
                    "--validation_iter", "1", "--seed", "0", "--saving_checkpoints", "1"]
 UNET_PER_TRAIN_STEP = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
-                       "flash_cross_attention_bwd": 0}
-UNET_PER_EVAL_BATCH = UNET_PER_TRAIN_STEP
+                       "flash_cross_attention_bwd": 0, **bn_launches("unet_baseline", 1)}
+UNET_PER_EVAL_BATCH = dict(UNET_PER_TRAIN_STEP, **NO_BN)
 # the larger batch of one timed unet step: the config's batch
 # (conf/mode/train.yaml: 256), the largest of 256, 128 and 64 that fits
 UNET_BIG_BATCH = 256
@@ -1833,7 +1991,7 @@ def phase_ckpt_round_trip(torch, np, serve, train_cli, kernels, eng, ckpt_root):
     source, res, errs, launches, by_variant, expected = serve_checkpoint(
         torch, np, serve, kernels, eng, exp_dir,
         ["--generator", eng.cfg.model.generator, "--ngf", str(eng.cfg.model.ngf)],
-        UNET_PER_TRAIN_STEP)
+        UNET_PER_EVAL_BATCH)
 
     # --resume: the latest epoch's state and step, then one more step
     saved_step = eng.history[-1]["steps"]
@@ -1884,9 +2042,9 @@ def phase_train_widths(torch, np, train_cli, kernels, base):
 # ---------------------------------------------------------------------------
 
 B1_ONCE = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
-           "flash_cross_attention_bwd": 0}
+           "flash_cross_attention_bwd": 0, **NO_BN}
 NO_KERNEL = {"fused_mel_frontend": 0, "flash_cross_attention_fwd": 0,
-             "flash_cross_attention_bwd": 0}
+             "flash_cross_attention_bwd": 0, **NO_BN}
 # family → (its flags beyond the preset, parameters, launches per train step,
 # eval batch and detector forward, the serve flags of its shapes or None)
 FAMILIES = {
@@ -1989,6 +2147,7 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root, 
     n_eval = -(-VAL_SAMPLES // TRAIN_BATCH)
     # per epoch: its steps, its eval batches and the detectors' forward
     expected = {k: per[k] * (n_steps + FAMILY_EPOCHS * (n_eval + 1)) for k in per}
+    expected.update(bn_launches(family, n_steps))  # train steps only
     assert launches == expected, f"train {family}: launches {launches}, expected {expected}"
     for rec in eng.history:
         assert rec["val"] and all(np.isfinite(v) for v in rec["val"].values()), rec
@@ -2381,7 +2540,8 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
     eval_batches = -(-n_val // TRAIN_BATCH) + -(-len(holdout_rows) // TRAIN_BATCH)
     per_epoch = steps_per_epoch + eval_batches + 1  # + the detectors' forward
     expected = {"fused_mel_frontend": per_epoch * CORPUS_EPOCHS,
-                "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0}
+                "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0,
+                **bn_launches("unet_baseline", steps_per_epoch * CORPUS_EPOCHS)}
     out = {}
     for name, extra in (("streamed", []), ("cached", ["--device_cache"])):
         log_dir, ckpt_dir = os.path.join(work, f"logs_{name}"), os.path.join(work, f"ck_{name}")
@@ -2509,7 +2669,7 @@ def phase_evaluate(torch, np, evaluate_cli, kernels, root, work, run):
     n_val = sum(c[2] for c in CORPUS_LOCATIONS)
     batches = -(-n_val // TRAIN_BATCH)
     expected = {"fused_mel_frontend": batches, "flash_cross_attention_fwd": 0,
-                "flash_cross_attention_bwd": 0}
+                "flash_cross_attention_bwd": 0, **NO_BN}
     assert launches == expected, f"evaluate: launches {launches}, expected {expected}"
     val = eng.history[best - 1]["val"]
     diffs = {k: abs(means[k] - val[k]) / max(abs(val[k]), 1e-12) for k in means}
@@ -2588,7 +2748,8 @@ def phase_train_corpus_images(torch, np, train_cli, kernels, root, work, family,
     assert set(rec["holdout"]) == {CORPUS_HOLDOUT} and np.isfinite(rec["val"]["rmse"]), rec
     reads_audio = family == "adabins_distillation"
     forwards = len(steps) + -(-n_val // TRAIN_BATCH) + -(-n_hold // TRAIN_BATCH) + 1
-    expected = dict(NO_KERNEL, fused_mel_frontend=forwards if reads_audio else 0)
+    expected = dict(NO_KERNEL, fused_mel_frontend=forwards if reads_audio else 0,
+                    **bn_launches(family, len(steps)))
     assert launches == expected, f"train corpus {family}: launches {launches}, expected {expected}"
     emit({"phase": "train_corpus_images", "model": family, "flags": argv, "steps": len(steps),
           "losses": losses, "launches": launches, "expected_launches": expected,
@@ -2667,7 +2828,8 @@ def phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli, kernels, ro
     n_val = sum(c[2] for c in CORPUS_LOCATIONS if c[0] != CORPUS_HOLDOUT)
     steps_per_epoch, eval_batches = n_train // TRAIN_BATCH, -(-n_val // TRAIN_BATCH)
     expected = {"fused_mel_frontend": steps_per_epoch + eval_batches + 1,
-                "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0}
+                "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0,
+                **bn_launches("coarse_depth/hybrid", steps_per_epoch)}
     paths, runs = {}, {}
     for name, extra in (("streamed", []), ("cached", ["--device_cache"])):
         ckpt_dir = os.path.join(work, f"ck_sparse_{name}")
@@ -2729,7 +2891,7 @@ def phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli, kernels, ro
     launches, by_variant = read_launches(kernels)
     n_dense = sum(c[2] for c in CORPUS_LOCATIONS)
     e_expected = {"fused_mel_frontend": -(-n_dense // TRAIN_BATCH),
-                  "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0}
+                  "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0, **NO_BN}
     assert launches == e_expected, f"evaluate sparse: launches {launches}, expected {e_expected}"
     diffs = {k: abs(means[k] - want[k]) / max(abs(want[k]), 1e-12) for k in means}
     assert all(d <= SPARSE_EVAL_REL_TOL for d in diffs.values()), (means, want)
@@ -3201,7 +3363,12 @@ def phase_examples_compare(torch, np, evaluate_cli, kernels, root, entries):
     float32: the CSV's header is the reference's, each row equals
     `cli/evaluate.py`'s means of the same weights on the same split within
     COMPARE_REL_TOL, and the two unet rows (the directory and the .pth)
-    agree as closely; B1 once an eval batch, B2 four times a binaural one."""
+    agree as closely; B1 once an eval batch, B2 four times a binaural one.
+    Both tools run on cuDNN's deterministic algorithms: without them the
+    card's float32 eval is not bit-reproducible (a .pth row's ABS_REL,
+    RMSE and MAE were seen 4-9e-8 from evaluate's), and Delta1 counts pixels
+    against a threshold, so one pixel within rounding of it (1 of 4.2 M)
+    moves it by 2.7e-6, above COMPARE_REL_TOL."""
     import csv
 
     from audiodepth_tpu_torch.examples import compare_checkpoints
@@ -3213,6 +3380,8 @@ def phase_examples_compare(torch, np, evaluate_cli, kernels, root, entries):
         argv += ["--entry", ":".join([label, family, path] + ([",".join(overrides)]
                                                              if overrides else []))]
     reset_launches(kernels)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
     rows = compare_checkpoints.main(argv)
     torch.cuda.synchronize()
@@ -3222,7 +3391,7 @@ def phase_examples_compare(torch, np, evaluate_cli, kernels, root, entries):
     n_binaural = sum(family == "binaural_attention" for _, family, _, _, _ in entries)
     expected = {"fused_mel_frontend": n_eval * len(entries),
                 "flash_cross_attention_fwd": 4 * n_eval * n_binaural,
-                "flash_cross_attention_bwd": 0}
+                "flash_cross_attention_bwd": 0, **NO_BN}
     assert launches == expected, f"compare: launches {launches}, expected {expected}"
     with open(out) as f:
         header = next(csv.reader(f))
@@ -3238,6 +3407,7 @@ def phase_examples_compare(torch, np, evaluate_cli, kernels, root, entries):
         rel = {c: abs(row[c] - means[k]) / max(abs(means[k]), 1e-12) for c, k in keys.items()}
         assert all(d <= COMPARE_REL_TOL for d in rel.values()), (label, row, means)
         checks.append({"label": label, "row": row, "evaluate_means": means, "rel_diff": rel})
+    torch.backends.cudnn.deterministic = deterministic
     same = {c: abs(rows[0][c] - rows[1][c]) / max(abs(rows[1][c]), 1e-12) for c in keys}
     assert all(d <= COMPARE_REL_TOL for d in same.values()), (rows[0], rows[1])
     emit({"phase": "examples_compare", "flags": argv, "seconds": seconds, "rows": checks,
@@ -3269,7 +3439,7 @@ def phase_examples_convergence(torch, np, kernels):
     first, last = rows[0]["rmse"], rows[-1]["rmse"]
     assert last < first and last <= EXAMPLES_RMSE_MAX, (first, last)
     expected = {"fused_mel_frontend": steps + len(rows), "flash_cross_attention_fwd": 0,
-                "flash_cross_attention_bwd": 0}
+                "flash_cross_attention_bwd": 0, **bn_launches("unet_baseline", steps)}
     assert launches == expected, f"convergence: launches {launches}, expected {expected}"
     emit({"phase": "examples_convergence", "rows": rows, "steps": steps,
           "train_s": rows[-1]["train_s"], "s_per_epoch": rows[-1]["train_s"] / epochs,
@@ -3287,7 +3457,9 @@ def _family_expected(name, steps, eval_batches):
     attn = name == "binaural_attention"
     return {"fused_mel_frontend": b1,
             "flash_cross_attention_fwd": 4 * (steps + eval_batches) if attn else 0,
-            "flash_cross_attention_bwd": 4 * steps if attn else 0}
+            "flash_cross_attention_bwd": 4 * steps if attn else 0,
+            # the examples' coarse_depth is the hybrid
+            **bn_launches("coarse_depth/hybrid" if name == "coarse_depth" else name, steps)}
 
 
 def _sweep_run(torch, np, kernels, family_sweep, name, over, overrides=None):
@@ -3391,7 +3563,8 @@ def phase_examples_step_bench(torch, kernels, smi):
 # the prefix of each wrapper's kernels in the ptxas report
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
-                "flash_cross_attention_bwd": "flash_bwd"}
+                "flash_cross_attention_bwd": "flash_bwd",
+                "batch_norm_train_fwd": "bn_fwd", "batch_norm_train_bwd": "bn_bwd"}
 
 
 # data parallelism on the one card (`parallel/`): a world of one NCCL rank
@@ -3405,7 +3578,9 @@ DP_MODELS = ("unet_baseline", "binaural_attention")
 # float64 reference at full width (one row a rank for the binaural net)
 DP_F32_BATCH = {"unet_baseline": 4, "binaural_attention": 2}
 DP_F32_SLACK = 1e-6       # added to F32_GRAD_FACTOR × the plain engine's error
-DP_PER_STEP = {"unet_baseline": UNET_PER_TRAIN_STEP, "binaural_attention": PER_TRAIN_STEP}
+# a data group keeps BatchNorm's own code (the global batch's statistics)
+DP_PER_STEP = {"unet_baseline": dict(UNET_PER_TRAIN_STEP, **NO_BN),
+               "binaural_attention": dict(PER_TRAIN_STEP, **NO_BN)}
 DP_WORLD_TIMEOUT_S = 420
 DP_DEVICE = "cuda:0"      # every rank's card
 DP_ONE_RANK_BACKEND = "nccl"
@@ -3662,7 +3837,7 @@ def phase_train_dp(torch, np, train_cli, kernels, smi):
     nccl_s = time.perf_counter() - t0
     row = one["unet_baseline"]
     assert all(np.isfinite(row["losses"])) and len(row["losses"]) == DP_NCCL_STEPS, row
-    want = {k: v * DP_NCCL_STEPS for k, v in UNET_PER_TRAIN_STEP.items()}
+    want = {k: v * DP_NCCL_STEPS for k, v in DP_PER_STEP["unet_baseline"].items()}
     assert row["launches"] == want, (row["launches"], want)
     assert not row["unmoved"], row["unmoved"][:8]
     launches["train_dp nccl world of 1 unet_baseline"] = (row["launches"], row["by_variant"])
@@ -3839,7 +4014,8 @@ def phase_train_sp(torch, np, kernels, smi):
     ranks = _dp_world(2, "gloo", _sp_rank, SP_WORLD_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     rows = [r["binaural_attention"] for r in ranks]
-    per_step = {k: v * SP_STEPS for k, v in PER_TRAIN_STEP.items()}
+    # the mesh's data group keeps BatchNorm's own code
+    per_step = {k: v * SP_STEPS for k, v in dict(PER_TRAIN_STEP, **NO_BN).items()}
     want_shapes = sorted((b2, n // 2, n) for b2, n, _ in _sp_levels())
     # every query-row shape of the phase is held to its plain version
     held = {(n, m, dk, dv) for _, _, n, m, dk, dv, dtype in B2_SHAPES if dtype == "bfloat16"}
@@ -3921,6 +4097,7 @@ def main() -> int:
     from audiodepth_tpu_torch.cli import train as train_cli
     from audiodepth_tpu_torch.ops.attention import blockwise_cross_attention
     from audiodepth_tpu_torch.ops.cuda import KERNELS, _build
+    from audiodepth_tpu_torch.ops.cuda import batch_norm as bn
     from audiodepth_tpu_torch.ops.cuda import flash_attention as fa
     from audiodepth_tpu_torch.ops.cuda import fused_frontend as ff
 
@@ -3934,6 +4111,7 @@ def main() -> int:
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
     phase_autograd(torch, fa, blockwise_cross_attention)
+    bn_rows = phase_kernel_bn(torch, bn, peak)
     launches = {f"serve {path}": phase_serve(torch, np, serve, KERNELS, path)
                 for path in SERVE_PATHS}
     for path in SERVE_PATHS:
@@ -4065,9 +4243,22 @@ def main() -> int:
     main_rows = {ff.fused_mel_frontend.name: (b1_rows, b1_main),
                  fa.flash_cross_attention.name: (b2_rows, b2_main),
                  fa.flash_cross_attention_bwd.name: (b3_rows, b3_main)}
+    for w, way in ((bn.batch_norm_train_fwd, "fwd"), (bn.batch_norm_train_bwd, "bwd")):
+        rows = [dict(r, name=w.name, ms=r[f"{way}_ms"], plain_ms=r[f"plain_{way}_ms"],
+                     library_ms=r[f"library_{way}_ms"], bound_ms=r[f"bound_{way}_ms"])
+                for r in bn_rows]
+        main = next(r for r in rows if r["main"] == "UNet")
+        main_rows[w.name] = (rows, dict(
+            main, main_shape="[256, 64, 128, 128] bf16 channels-last (the UNet's largest; the "
+            "binaural net's [64, 64, 256, 256] has as many rows)",
+            ms_by_shape={f"{r['shape']} relu={r['relu']}": r["ms"] for r in rows},
+            pair_bound_share={r["main"]: r["bound_share"] for r in rows if r["main"]},
+            extra=("ms_by_shape", "pair_bound_share")))
     kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas, sass)
                for w, src, rep in KERNELS]
     for entry in kernels:  # the tensor-core designs must be in the binary
+        if entry["name"] in (bn.batch_norm_train_fwd.name, bn.batch_norm_train_bwd.name):
+            continue  # bound by bytes: no tensor-core instruction
         op = "HMMA" if entry["name"] == ff.fused_mel_frontend.name else "HGMMA"
         assert entry["sass"][op] > 0, f"{entry['name']}: no {op} in its SASS"
     emit({"kernels": kernels})

@@ -58,6 +58,12 @@ _CPU_ARGS = ["--device", "cpu", "--dataset", "synthetic", "--model", "binaural_a
      "float, float, 4>(float const*, long, long, float*, float*, int*, double)", "BatchNorm"),
     ("void at::native::batch_norm_backward_reduce_channels_last_kernel<4, float, float, float>",
      "BatchNorm"),
+    ("void cudnn::batchnorm_bwtr_nhwc_semiPersist<float, float, float, 512, 16, 3, 4, 1, 0, "
+     "true, 2>(cudnn::NhwcBatchNormBwdParams<float, float>)", "BatchNorm"),
+    ("void (anonymous namespace)::bn_fwd_apply_kernel<8, true>(__nv_bfloat16 const*, long long)",
+     "BatchNorm"),
+    ("void (anonymous namespace)::bn_bwd_finalize_kernel(float const*, int, long long, int)",
+     "BatchNorm"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>, "
      "std::array<char*, 3ul> >(int, at::native::CUDAFunctor_add<float>, std::array<char*, 3ul>)",
      "elementwise"),
@@ -139,7 +145,9 @@ def test_parse_trace_and_report_on_a_fabricated_trace(tmp_path):
     rows = ps.hand_written_rows(prof, counters)
     assert rows == [("fused_mel_frontend", 1, 1, False),
                     ("flash_cross_attention_fwd", 1, 1, False),
-                    ("flash_cross_attention_bwd", 0, 2, True)]
+                    ("flash_cross_attention_bwd", 0, 2, True),
+                    ("batch_norm_train_fwd", 0, 0, False),
+                    ("batch_norm_train_bwd", 0, 0, False)]
     text = ps.report(prof, 2, top=3, counters=counters)
     lines = text.splitlines()
     assert lines[0].startswith("GPU time 0.029 ms/step over 2 steps")
@@ -206,7 +214,8 @@ def test_capture_on_cpu_end_to_end(model, overrides, tmp_path, capsys):
     prof, counters = ps.main(argv)
     assert len(prof.per_step) == 2 and prof.total_us == 0.0  # the CPU has no GPU events
     assert counters == {"fused_mel_frontend": 0, "flash_cross_attention_fwd": 0,
-                        "flash_cross_attention_bwd": 0}
+                        "flash_cross_attention_bwd": 0, "batch_norm_train_fwd": 0,
+                        "batch_norm_train_bwd": 0}
     out = capsys.readouterr().out
     assert "hand-written kernels" in out and "DROPPED" not in out
     # one line a phase of the step, from the engine's spans (no device ms here)
