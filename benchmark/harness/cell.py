@@ -56,11 +56,11 @@ def _read_layers(cell: Cell, ctx: Dict) -> Dict[str, Dict[str, object]]:
 def _op_records(traced) -> Dict[str, list]:
     """{op: [CPU-side calls in the trace, the wrapper's launches, calls with
     device events]}: what the roofline readers had to read."""
-    from flops.kernels import OPS
+    from flops import bounded_ops
 
     s = traced["summary"]
     return {op: [len(s.calls(op)), traced["counters"].get(op, 0),
-                 sum(1 for c in s.calls(op) if c.events)] for op in OPS}
+                 sum(1 for c in s.calls(op) if c.events)] for op in bounded_ops()}
 
 
 def _breakdown(summary) -> Dict[str, list]:
@@ -235,7 +235,7 @@ def run_serve_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     else:
         served = run.served_answers(win["answers"])
         waves = torch.from_numpy(run.waves[run.checked]).to(run.device)
-        ref = reference_predict(cell.config, run.weights, waves, Precision()).cpu()
+        ref = reference_predict(cell.config, run.weights, {"waveform": waves}, Precision()).cpu()
         numbers, where = check.serve_numbers(served, ref, float(cell.config["max_depth"]))
     correct, checks = check.judge(numbers, cell.limits)
     correct = correct and win["failed"] == 0 and not missing

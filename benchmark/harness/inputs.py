@@ -12,11 +12,15 @@ N(0, 0.01) noise. Two steps make the data a recording and a depth frame:
 the waveform is kept under full scale and rounded to the 16-bit PCM grid,
 and the depth to the uint16 grid of max_depth/65535 m, so the program's
 compact transport (int16 / uint16) carries every value exactly and both
-sides read the same numbers.
+sides read the same numbers. A family whose pairs hold more than the
+waveform and the depth (a camera frame, say) draws those tensors in its
+reference file's `extra_inputs`, from the rows' depth, with a generator of
+their own (seed + `EXTRA_STREAM`): the waveform and depth rows of a seed
+are the same whatever the family.
 
 `make_weights` draws every entry of a net's state dict from the seed in one
-normal draw on the device, by the family's initialisation
-(`reference.param_specs`), with each attention gate γ drawn non-zero
+normal draw on the device, by the family's initialisation (its reference
+file's `param_specs`), with each attention gate γ drawn non-zero
 (±U(0.25, 1)): at its published init of 0 no answer and no gradient would
 depend on the attention.
 """
@@ -27,7 +31,7 @@ from typing import Dict
 
 import torch
 
-from reference import param_specs, tof_cut_samples
+from reference import family, param_specs, tof_cut_samples
 
 SPEED_OF_SOUND = 340.0
 QUANTILES = (0.1, 0.3, 0.5, 0.7, 0.9)
@@ -35,6 +39,7 @@ AMPLITUDES = (1.0, 0.8, 0.6, 0.4, 0.3)
 CHIRP = 256
 FULL_SCALE = 0.999
 WEIGHT_STREAM = 2 ** 40  # the weights' generator: seed + this
+EXTRA_STREAM = 2 ** 41   # the family's extra inputs' generator: seed + this
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -109,12 +114,18 @@ def _pairs_chunk(n: int, gen: torch.Generator, size: int, max_depth: float,
 
 def make_pairs(n: int, seed: int, cfg: Dict, device, chunk: int = 1024
                ) -> Dict[str, torch.Tensor]:
-    """n (waveform [n, 2, L], depth [n, S, S, 1]) float32 pairs on
-    `device`, the same for the same seed (drawn `chunk` rows at a time)."""
+    """n (waveform [n, 2, L], depth [n, S, S, 1], and the family's extra
+    inputs) float32 pairs on `device`, the same for the same seed (drawn
+    `chunk` rows at a time)."""
     gen = _generator(seed, device)
-    parts = [_pairs_chunk(min(chunk, n - s), gen, int(cfg["images_size"]),
-                          float(cfg["max_depth"]), int(cfg["sample_rate"]), device)
-             for s in range(0, n, chunk)]
+    extra_gen = _generator(int(seed) + EXTRA_STREAM, device)
+    extra_inputs = family(cfg["family"]).extra_inputs
+    parts = []
+    for s in range(0, n, chunk):
+        part = _pairs_chunk(min(chunk, n - s), gen, int(cfg["images_size"]),
+                            float(cfg["max_depth"]), int(cfg["sample_rate"]), device)
+        part.update(extra_inputs(part["depth"], extra_gen, cfg))
+        parts.append(part)
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 

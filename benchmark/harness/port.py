@@ -3,9 +3,12 @@ builds it: its `Config` and its task with the benchmark's weights.
 
 Each key of the configuration file that names a field of the port's
 dataset, mode or model settings sets that field; `family` is the model
-family and `dataset` the dataset preset; `remat` and `loss_type` are the
-model's extra settings. The documentary keys (`DOC_KEYS`) are not settings.
-Any other key is an error, so the file holds exactly what is run.
+family and `dataset` the dataset preset; the model's extra settings, which
+the family's own code reads (and so does its reference file), are the
+entries of an `"extra": {...}` object, each one `model.extra.<key>`, and
+the top-level `remat` and `loss_type`. The documentary keys (`DOC_KEYS`)
+are not settings. Any other key is an error, so the file holds exactly
+what is run.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ def port_config(cfg: Dict, mode: str = "train"):
             continue
         if key in EXTRA_KEYS:
             overrides[f"model.extra.{key}"] = value
+            continue
+        if key == "extra":
+            overrides.update({f"model.extra.{k}": v for k, v in value.items()})
             continue
         where = owners.get(key)
         if not where or len(where) != 1:

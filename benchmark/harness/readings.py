@@ -29,8 +29,7 @@ def roofline(ctx: Dict, op: str) -> Optional[float]:
     if len(calls) != launched or any(not any(e.cat == "kernel" for e in c.events)
                                      for c in calls):
         return None
-    rate = int(ctx["cfg"].get("sample_rate", 44100))
-    bound = sum(kernel_bound_s(op, c.shapes, (c.dtypes or ["float"])[0], peak, rate)
+    bound = sum(kernel_bound_s(op, c.shapes, (c.dtypes or ["float"])[0], peak, ctx["cfg"])
                 for c in calls)
     busy = sum(e.dur for c in calls for e in c.events) / 1e6
     return 100.0 * bound / busy

@@ -10,9 +10,23 @@ harness reads for it.
   `traffic` here; the tools and the tests find it by name all the same.
 - `metrics/<metric>.py`: one reader per per-layer metric, a `read(ctx)`
   that returns the value, or None where the run gives it nothing to read.
+- `reference/families/<family>.py`, by the configuration's `family`: the
+  family's plain reference, `build_net(cfg, prec, checkpointed)`,
+  `param_specs(cfg)`, `train_loss(net, batch, cfg, shards)`,
+  `predict(net, batch, cfg)`, and, where the defaults do not hold,
+  `trainable(name)` (every parameter) and `extra_inputs(depth, gen, cfg)`
+  (no per-row tensors beyond the waveform and the depth); that package's
+  note sets out each.
+- `flops/families/<family>.py`: the family's `forward_flops(cfg)`, and
+  `train_flops_per_pair(cfg)` where a trained pair is not 3 × the forward.
+- `flops/bounds/<op name after "::">.py`: a hand-written op's `OP` and
+  `bound_s(shapes, dtype, peak, cfg)`, the least time of one call, which
+  its roofline reader (`harness.readings.roofline`) sums.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-these files and entries; no file of the harness names one.
+A later change adds a configuration, a mix, a cell, a metric, a model
+family or a kernel's bound by adding these files and entries; no file of
+the harness, and none of the reference or the FLOP code outside
+`families/` and `bounds/`, names one (`tests/test_bench_families.py`).
 """
 
 from __future__ import annotations

@@ -39,8 +39,8 @@ def test_serving_control_fails(card):
     cell = load_cell("binaural-serve-poisson")
     waves = make_pairs(int(cell.traffic["checked"]), SEED, cell.config, card)["waveform"]
     weights = {k: v.cpu() for k, v in make_weights(cell.config, SEED, card).items()}
-    ref = reference_predict(cell.config, weights, waves, Precision()).cpu()
-    ctl = reference_predict(cell.config, weights, waves, Precision.fp8()).cpu()
+    ref = reference_predict(cell.config, weights, {"waveform": waves}, Precision()).cpu()
+    ctl = reference_predict(cell.config, weights, {"waveform": waves}, Precision.fp8()).cpu()
     numbers = check.serve_numbers(ctl, ref, float(cell.config["max_depth"]))[0]
     correct, checks = check.judge(numbers, cell.limits)
     assert not correct, checks

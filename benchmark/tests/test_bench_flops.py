@@ -7,8 +7,11 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from flops import PEAKS, kernel_bound_s, model_flops, peak_for, train_flops_per_pair
-from flops.model import binaural_macs, unet_macs
-from reference.nets import build_net
+from flops.families import family
+from reference.families import build_net
+
+unet_macs = family("unet_baseline").unet_macs
+binaural_macs = family("binaural_attention").binaural_macs
 
 SXM = PEAKS["H100 SXM"]
 

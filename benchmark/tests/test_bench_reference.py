@@ -14,8 +14,8 @@ from reference import build_net, mel_frontend
 ALLOWED = {"torch", "numpy"} | set(sys.stdlib_module_names)
 
 
-@pytest.mark.parametrize("path", sorted((BENCH_DIR / "reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((BENCH_DIR / "reference").rglob("*.py")),
+                         ids=lambda p: p.relative_to(BENCH_DIR / "reference").as_posix())
 def test_reference_imports_only_torch_numpy_stdlib(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

@@ -128,6 +128,20 @@ def test_port_config_refuses_unknown_keys():
         port_config(cfg)
 
 
+def test_port_config_takes_an_extra_object():
+    """An `extra` object's entries are the model's extra settings, beside
+    the top-level `remat` and `loss_type`."""
+    from harness.port import port_config
+
+    with open(BENCH_DIR / "configs" / "binaural_attention.json") as f:
+        cfg = json.load(f)
+    plain = port_config(cfg).model.extra
+    cfg["extra"] = {"temperature": 4.0, "lambda_kl": 0.5}
+    extra = port_config(cfg).model.extra
+    assert extra == dict(plain, temperature=4.0, lambda_kl=0.5)
+    assert extra["remat"] is True and extra["loss_type"] == "standard"
+
+
 def test_check_budget_fits():
     # 2 + 14 runs a cell, run_seconds + 60 each, 2 x 90 s a cell to compile,
     # 1200 s spare, for the full 24 cells

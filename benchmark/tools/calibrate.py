@@ -138,14 +138,15 @@ def serve(cell, seeds, control_seeds, seconds, device) -> None:
             run.close()
         served = run.served_answers(win["answers"])
         waves = torch.from_numpy(run.waves[run.checked]).to(run.device)
-        ref = reference_predict(cell.config, run.weights, waves, Precision()).cpu()
+        ref = reference_predict(cell.config, run.weights, {"waveform": waves}, Precision()).cpu()
         lat = sorted(win["latency_s"])
         top = float(cell.config["max_depth"])
         _emit(kind="program", seed=seed, numbers=serve_numbers(served, ref, top)[0],
               failed=win["failed"], p95_ms=1e3 * lat[int(0.95 * (len(lat) - 1))],
               setup_s=run.setup_s)
         if seed in control_seeds:
-            ctl = reference_predict(cell.config, run.weights, waves, Precision.fp8()).cpu()
+            ctl = reference_predict(cell.config, run.weights, {"waveform": waves},
+                                    Precision.fp8()).cpu()
             _emit(kind="control_fp8", seed=seed, numbers=serve_numbers(ctl, ref, top)[0])
             _emit(kind="fault_answer_moved", seed=seed,
                   numbers=serve_numbers(served.roll(1, 0), ref, top)[0])
