@@ -25,6 +25,11 @@ BatchNorm folds its statistics once). The student's keep mask is drawn
 before the recomputed region and passed into it, so the recomputation uses
 the same mask and the generator advances once, as without remat.
 
+Spans (`obs.spans`): `adabins.teacher` around the teacher's forward,
+`adabins.bins` around a branch's bin predictor and its soft binning (the
+decoder runs before them: it draws nothing, so the masks' order holds);
+with remat the student's is entered again by the recomputation.
+
 Resizes of the logits and of the residual to `output_size`, where their
 size differs, take `jax.image.resize`'s "nearest" (half-pixel centres:
 torch's "nearest-exact"). Everything is NCHW, the output dict's tensors
@@ -41,6 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..obs.spans import span
 from ..parallel.mesh import draw_global
 from .base_residual import SharedEncoder
 from .layers import Conv2d, UpBilinear, at_least_f32, remat
@@ -139,10 +145,12 @@ class AdaBinsDistillationModel(nn.Module):
     def _branch(self, name: str, x: torch.Tensor, generator,
                 keep: Optional[torch.Tensor] = None) -> Dict[str, object]:
         feats = getattr(self, f"{name}_encoder")(x)
-        centers, widths = getattr(self, f"{name}_bin_predictor")(feats["x5"], generator, keep)
         logits, dec = getattr(self, f"{name}_decoder")(feats)
-        probs = torch.softmax(logits, dim=1)
-        base = torch.sum(probs * centers[:, :, None, None], dim=1, keepdim=True)
+        with span("adabins.bins", x.device):
+            centers, widths = getattr(self, f"{name}_bin_predictor")(feats["x5"], generator,
+                                                                       keep)
+            probs = torch.softmax(logits, dim=1)
+            base = torch.sum(probs * centers[:, :, None, None], dim=1, keepdim=True)
         raw = _resize_nearest(at_least_f32(self.residual_head(dec)), self.output_size)
         residual = torch.tanh(raw) * (0.05 * self.max_depth)
         return {"features": feats, "bin_centers": centers, "bin_widths": widths,
@@ -159,6 +167,6 @@ class AdaBinsDistillationModel(nn.Module):
             student = self._branch("audio", audio, generator)
         out = {"audio": student, "rgb": None}
         if mode == "train" and rgb is not None:
-            with torch.no_grad():
+            with span("adabins.teacher", rgb.device), torch.no_grad():
                 out["rgb"] = self._branch("rgb", rgb, generator)
         return out

@@ -21,11 +21,12 @@ in the trace beside its wrapper's launch counter over the same steps, and
 DROPPED where the two differ. A profiler that loses a kernel's records
 would otherwise report a breakdown without it and say nothing. Where the
 trace holds the program's spans (`obs.spans`: the `engine.*`, `cache.*`,
-`runner.*` and `serve.*` annotations), it adds one line per span name: its
-calls, its host ms a call (the annotation's length) and its device ms a
-call (the GPU events whose launch, found through its correlation id, falls
-inside the annotation, on any thread: autograd launches the backward's
-kernels from its own thread while the span's thread waits).
+`runner.*`, `serve.*`, `adabins.*` and `loss.*` annotations), it adds one
+line per span name: its calls, its host ms a call (the annotation's
+length) and its device ms a call (the GPU events whose launch, found
+through its correlation id, falls inside the annotation, on any thread:
+autograd launches the backward's kernels from its own thread while the
+span's thread waits).
 
 Usage:
     python -m audiodepth_tpu_torch.tools.profile_step --model unet_baseline \
@@ -51,7 +52,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 STEP_PREFIX = "adepth_step_"
 WARMUP_STEPS = 3
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPAN_NAME = re.compile(r"^(engine|cache|runner|serve)\.")   # the program's spans
+SPAN_NAME = re.compile(r"^(engine|cache|runner|serve|adabins|loss)\.")   # the program's spans
 
 # (regex searched in the GPU event's name) -> category. Order matters: the
 # hand-written kernels first, cuDNN's convolutions before the GEMMs (their

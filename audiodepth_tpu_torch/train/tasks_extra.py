@@ -23,6 +23,7 @@ from ..models.base_residual import BaseResidualNet
 from ..models.binaural_attention import build_binaural
 from ..models.rgb_depth import RGBDepthNet
 from ..models.unet_cvae import build_unet_cvae
+from ..obs.spans import span
 from .tasks import Task
 
 
@@ -234,7 +235,8 @@ class AdaBinsDistillationTask(Task):
     loss. Training runs the frozen teacher (the `rgb` branch, under no_grad,
     left out of the optimizer: no decay, no moments); validation and serving
     run the student alone on audio (train_adabins_distillation.py:481-522).
-    The bin predictors' dropout masks come from the task's generator."""
+    The bin predictors' dropout masks come from the task's generator. The
+    loss runs in the span `loss.distillation` (`obs.spans`)."""
 
     name = "adabins_distillation"
 
@@ -277,8 +279,10 @@ class AdaBinsDistillationTask(Task):
             lam = (w["task"], w["response"], w["feature"], w["bin"])
         else:
             lam = (self.lambda_task, self.lambda_response, self.lambda_feature, self.lambda_bin)
-        loss, parts = distillation_loss(out, gt, gt > 0, *lam, lambda_sparse=self.lambda_sparse,
-                                        temperature=self.temperature)
+        with span("loss.distillation", gt.device):
+            loss, parts = distillation_loss(out, gt, gt > 0, *lam,
+                                            lambda_sparse=self.lambda_sparse,
+                                            temperature=self.temperature)
         return loss, {"loss": loss, **{k: parts[k] for k in
                                        ("task", "response", "feature", "bin", "sparse")}}
 

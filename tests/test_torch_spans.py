@@ -205,3 +205,50 @@ def test_serving_spans_and_queue_wait(store):
         batcher.stop()
         runner.close()
 
+
+
+def adabins_task():
+    cfg = load_config("synthetic", "train", model_name="adabins_distillation", overrides={
+        "dataset.images_size": 32, "mode.batch_size": BATCH, "mode.compute_dtype": "float32",
+        "model.base_channels": 4, "model.n_bins": 8})
+    task = make_task(cfg, device="cpu")
+    init_weights(task.model, torch.Generator().manual_seed(0))
+    return cfg, task
+
+
+ADABINS = ("adabins.teacher", "adabins.bins", "loss.distillation")
+
+
+@pytest.mark.parametrize("with_image", [True, False], ids=["paired", "audio_only"])
+def test_adabins_spans_inside_the_forward(tmp_path, store, with_image):
+    """A paired step enters the teacher's span once, the bins' twice (a
+    branch each) and the loss's once, all inside `engine.forward`; a step
+    with no frame runs no teacher, and its one branch's bins."""
+    from audiodepth_tpu_torch.data.synthetic import SyntheticEchoDataset
+
+    cfg, task = adabins_task()
+    cache = DeviceDatasetCache(SyntheticEchoDataset(cfg, num_samples=BATCH, seed=0,
+                                                    with_image=with_image),
+                               depth_storage_units(cfg), "cpu")
+    eng = Engine(cfg, task)
+    state = eng.init_state()
+    batch = cache.batch(np.arange(BATCH))
+    assert ("image" in batch) == with_image
+    before = counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, _ = eng.train_step(state, batch)
+    want = {"adabins.teacher": 1, "adabins.bins": 2, "loss.distillation": 1} if with_image \
+        else {"adabins.bins": 1, "loss.distillation": 1}
+    assert {k: n for k, n in grown(before, counts()).items() if k in ADABINS} == want
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ann = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+               for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    (f0, f1, _), = [a for a in ann if a[2] == "engine.forward"]
+    mine = [a for a in ann if a[2] in ADABINS]
+    assert sorted(a[2] for a in mine) == sorted(k for k, n in want.items() for _ in range(n))
+    assert all(f0 <= a[0] and a[1] <= f1 for a in mine)
+    if with_image:   # the teacher's bins inside the teacher's span
+        (t0, t1, _), = [a for a in mine if a[2] == "adabins.teacher"]
+        assert sum(1 for a in mine if a[2] == "adabins.bins" and t0 <= a[0] and a[1] <= t1) == 1
