@@ -8,6 +8,8 @@
               averaged over batch and channels)
         + λ_bin · (KL(softmax(rgb/T) ‖ softmax(audio/T)) of the spatial-mean
               logits, batchmean, no T² factor, + MSE(audio_centers, rgb_centers))
+              (the means are the branches' `bin_logit_mean`, which the
+              model computes with the soft binning, in at least fp32)
         + λ_sparse · mean|audio_residual| (masked)
 
 The output dict is the model's (`models/adabins.py`), NCHW; gt and mask
@@ -43,10 +45,12 @@ def feature_cosine_distance(audio_feats: Dict, rgb_feats: Dict) -> torch.Tensor:
     return total / max(count, 1)
 
 
-def bin_distribution_kl(audio_logits, rgb_logits, temperature: float = 4.0) -> torch.Tensor:
-    """KL of the spatial-mean logits' tempered softmaxes, batchmean."""
-    a = at_least_f32(audio_logits).mean(dim=(2, 3)) / temperature
-    r = at_least_f32(rgb_logits).mean(dim=(2, 3)) / temperature
+def bin_distribution_kl(audio_logit_mean, rgb_logit_mean,
+                        temperature: float = 4.0) -> torch.Tensor:
+    """KL of the spatial-mean logits' tempered softmaxes, batchmean; takes
+    the means [B, K] (a branch's `bin_logit_mean`)."""
+    a = at_least_f32(audio_logit_mean) / temperature
+    r = at_least_f32(rgb_logit_mean) / temperature
     log_p_audio = torch.log_softmax(a, dim=1)
     log_p_rgb = torch.log_softmax(r, dim=1)
     return global_mean(torch.sum(log_p_rgb.exp() * (log_p_rgb - log_p_audio), dim=1))
@@ -63,7 +67,8 @@ def distillation_loss(output: Dict, gt: torch.Tensor, mask: torch.Tensor,
     if rgb is not None:
         loss_response = l2_loss(audio["final_depth"], rgb["final_depth"], mask)
         loss_feature = feature_cosine_distance(audio["features"], rgb["features"])
-        loss_bin = bin_distribution_kl(audio["bin_logits"], rgb["bin_logits"], temperature)
+        loss_bin = bin_distribution_kl(audio["bin_logit_mean"], rgb["bin_logit_mean"],
+                                       temperature)
         loss_centers = global_mean((audio["bin_centers"] - rgb["bin_centers"]) ** 2)
     else:
         loss_response = loss_feature = loss_bin = loss_centers = torch.zeros(

@@ -61,6 +61,7 @@ _CATEGORIES = (
     (r"fused_mel_frontend_kernel|frontend_normalize_kernel", "B1 mel front end (hand-written)"),
     (r"flash_fwd_\w*kernel", "B2 flash attention forward (hand-written)"),
     (r"flash_bwd_\w*kernel", "B3 flash attention backward (hand-written)"),
+    (r"soft_bin_\w*kernel", "AdaBins soft binning (hand-written)"),
     (r"^Memcpy|^Memset", "copies and memsets"),
     (r"batch_?norm|bn_fw|bn_bw|welford", "BatchNorm"),  # cuDNN's batchnorm_*, ours bn_*
     (r"fprop", "convolution forward (cuDNN fprop)"),
@@ -79,13 +80,16 @@ _CATEGORIES = (
 # each hand-written kernel: its wrapper's name and the GPU launches its
 # `launches` counter counts (B1's two-pass form counts both of its kernels;
 # B3's bf16 call also launches `flash_bwd_prep_kernel`, which it does not;
-# a BatchNorm call launches three kernels and counts one, its first)
+# a BatchNorm call launches three kernels and counts one, its first; a
+# soft-binning call two, its pass and its finalize, and counts the pass)
 HAND_WRITTEN = (
     ("fused_mel_frontend", r"fused_mel_frontend_kernel|frontend_normalize_kernel"),
     ("flash_cross_attention_fwd", r"flash_fwd_(wgmma|f32)_kernel"),
     ("flash_cross_attention_bwd", r"flash_bwd_(wgmma|split|f32)_kernel"),
     ("batch_norm_train_fwd", r"bn_fwd_stats_kernel"),
     ("batch_norm_train_bwd", r"bn_bwd_reduce_kernel"),
+    ("soft_binning_fwd", r"soft_bin_fwd_kernel"),
+    ("soft_binning_bwd", r"soft_bin_bwd_kernel"),
 )
 
 

@@ -55,6 +55,21 @@ non-zero:
              registers and spills with the others'. Every bf16 train phase
              below counts the pair's launches against BN_PER_TRAIN_STEP
              (none in eval, serving, float32 or a data or model group);
+  kernel_sb  AdaBins' soft-binning pair (`audiodepth::soft_binning_fwd` /
+             `_bwd`, csrc/soft_binning.cu) at the AdaBins cell's class-head
+             logits [64, 128, 256, 256] and a small ragged shape (SB_ROWS)
+             against its plain version (the model's own chain): base and
+             the logits' spatial mean within SB_REL_TOL of their scales,
+             grad_logits within one bf16 ulp, grad_centers within
+             SB_REL_TOL of Σ|g·p|, two runs bit-equal; the device memory a
+             forward and backward through autograd takes beside its inputs
+             (less than one fp32 copy of the logits: no fp32 tensor of
+             their shape exists on the path); forward and backward times
+             against the bytes bound (2 and 4 B an element), the plain
+             version's, and today's PyTorch chain through autograd
+             (library). Every bf16 AdaBins phase below counts the pair's
+             launches (`sb_launches`: two forwards and a backward a train
+             step, one forward an eval or served batch; none elsewhere);
   serve      the unet path: unet_256 / ngf 64 / 256² / bf16, random init
              from seed 0, batch ladder 1,4,16, the port's HTTP server
              in-process, 16 warm-up requests, then a 48-request loadtest
@@ -338,6 +353,21 @@ def bn_launches(family: str, steps: int) -> dict:
     fwd, bwd = BN_PER_TRAIN_STEP[family]
     return {"batch_norm_train_fwd": fwd * steps, "batch_norm_train_bwd": bwd * steps}
 
+
+# the soft-binning pair's calls on one card: a bf16 AdaBins train step runs
+# it in the student (with grad) and the teacher (under no_grad) and takes one
+# backward; an eval, detector or served forward runs the student alone. No
+# other family, and no float32 step, calls it.
+NO_SB = {"soft_binning_fwd": 0, "soft_binning_bwd": 0}
+
+
+def sb_launches(family: str, steps: int, forwards: int = 0) -> dict:
+    """The soft-binning pair's launches over `steps` bf16 train steps (with
+    the teacher) and `forwards` student forwards of `family`."""
+    if family != "adabins_distillation":
+        return dict(NO_SB)
+    return {"soft_binning_fwd": 2 * steps + forwards, "soft_binning_bwd": steps}
+
 B1_BEFORE = os.path.join("build", "b1_before", "fused_frontend.cu")
 F32_VS_CPU_TOL = 1e-3      # relative to max |cpu|
 SERVED_TOL = 2 ** -5       # served vs direct bf16 answer, relative to max |direct|
@@ -451,7 +481,8 @@ def phase_env(torch):
 def kernel_name(text: str) -> str:
     """`flash_bwd_wgmma_kernel<16,128>` from a line holding its mangled name
     (the line itself where there is none)."""
-    m = re.search(r"((?:flash_fwd|flash_bwd|flash_split3|fused_mel|frontend_normalize|bn_fwd|bn_bwd)"
+    m = re.search(r"((?:flash_fwd|flash_bwd|flash_split3|fused_mel|frontend_normalize|bn_fwd|bn_bwd"
+                  r"|soft_bin)"
                   r"\w*?_kernel)(I(?:L[ib]\d+E)+E)?", text)
     if not m:
         return text.strip()
@@ -532,8 +563,8 @@ def spills(report) -> dict:
 
 def phase_build(build):
     # one library per source; B2 and B3 share csrc/flash_attention.cu, the
-    # BatchNorm pair csrc/batch_norm.cu
-    names = ["fused_frontend", "flash_attention", "batch_norm"]
+    # BatchNorm pair csrc/batch_norm.cu, the soft-binning pair csrc/soft_binning.cu
+    names = ["fused_frontend", "flash_attention", "batch_norm", "soft_binning"]
     t0 = time.perf_counter()
     befores = {src: _build_before(build, src) for src in (B1_BEFORE, B2B3_BEFORE)}
     logs = build.build(names)
@@ -1085,6 +1116,152 @@ def phase_kernel_bn(torch, bn, peak):
     return rows_out
 
 
+# the soft-binning pair's rows, the class head's logits [B, K, H, W]: the
+# AdaBins cell's (the main row) and a small ragged one (K = 24: three of a
+# pixel's four lanes hold bins; H·W = 323 not a multiple of a block's slots)
+SB_ROWS = [(64, 128, 256, 256), (3, 24, 17, 19)]
+SB_MAIN = (64, 128, 256, 256)
+SB_BYTES_FWD, SB_BYTES_BWD = 2, 4  # bf16 logits read; read, and their gradient written
+# base, the logits' spatial mean and grad_centers against the plain version,
+# relative to their scales (the largest |base|; the mean of |logit| over a
+# bin's pixels; Σ|g·p| over them): fp32 sums in two orders of 128 bins and
+# up to 65,536 pixels, and exp2 against expf
+SB_REL_TOL = 1e-5
+
+
+def _sb_inputs(torch, shape, seed):
+    """logits (bf16 channels-last, N(0, 2)), centers (fp32, increasing in
+    (0, 30) as the bin predictor's), g_base and g_mean (fp32)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, k, h, w = shape
+
+    def draw(*size):
+        return torch.randn(size, generator=g, device="cuda")
+
+    logits = (draw(*shape) * 2.0).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    widths = torch.softmax(draw(b, k), dim=1)
+    edges = torch.cumsum(widths, dim=1) * 30.0
+    centers = edges - 0.5 * widths * 30.0
+    return logits, centers, draw(b, 1, h, w), draw(b, k)
+
+
+def _bf16_ulp(torch, x):
+    """One bf16 ulp of |x| (8 significant bits), x float32."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def phase_kernel_sb(torch, sb, peak):
+    """AdaBins' soft-binning pair (`audiodepth::soft_binning_fwd` / `_bwd`)
+    at SB_ROWS against its plain version (the model's own chain: cast,
+    softmax, product, sum, mean, and that chain's gradient) on the card:
+    base and logit_mean within SB_REL_TOL of their scales, grad_logits
+    within one bf16 ulp of the plain's (two roundings of fp32 values that
+    differ in their last bits) plus 1e-6 of its largest value, grad_centers
+    within SB_REL_TOL of Σ|g·p|; two runs bit-equal. The device memory one
+    forward and backward through autograd adds to its inputs, against one
+    fp32 copy of the logits (4 B an element): the path keeps none. Times
+    (median of back-to-back calls): forward, backward, each against its
+    bytes bound (SB_BYTES_FWD, SB_BYTES_BWD at the card's published
+    bandwidth), the plain version's, and today's PyTorch chain through
+    autograd (cast, softmax, product, sum, mean; library_ms, a yardstick the
+    port does not call)."""
+    gbps = peak[1] * 1e12
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows_out = []
+    for shape in SB_ROWS:
+        logits, centers, g_base, g_mean = _sb_inputs(torch, shape, seed=len(rows_out))
+        b, k, h, w = shape
+        plan = sb.sb_plan(b, k, h * w, n_sm)
+        runs = []
+        for _ in range(2):
+            base, mean = sb.soft_binning_fwd(logits, centers)
+            dz, dc = sb.soft_binning_bwd(g_base, g_mean, logits, centers, base)
+            runs.append((base, mean, dz, dc))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(*runs)), f"SB {shape}: runs differ"
+        base, mean, dz, dc = runs[0]
+        del runs
+        base_p, mean_p = sb.soft_binning_fwd_plain(logits, centers)
+        dz_p, dc_p = sb.soft_binning_bwd_plain(g_base, g_mean, logits, centers, base_p)
+        probs = torch.softmax(logits.float(), dim=1)
+        scale = {"base": base_p.abs().max(),
+                 "logit_mean": logits.float().abs().mean(dim=(2, 3)),
+                 "grad_centers": (g_base.abs() * probs).sum(dim=(2, 3))}
+        del probs
+        errs = {}
+        for name, got, want in (("base", base, base_p), ("logit_mean", mean, mean_p),
+                                ("grad_centers", dc, dc_p)):
+            gap = (got - want).abs()
+            rel = float((gap / scale[name]).max())
+            assert rel <= SB_REL_TOL, f"SB {shape}: {name} {rel} of its scale"
+            errs[name] = float(gap.max())
+            errs[f"{name}_rel"] = rel
+        got, want = dz.float(), dz_p.float()
+        gap = (got - want).abs()
+        excess = float((gap - _bf16_ulp(torch, want) - 1e-6 * want.abs().max()).max())
+        assert excess <= 0, f"SB {shape}: grad_logits beyond one bf16 ulp by {excess}"
+        errs["grad_logits"] = float(gap.max())
+        errs["grad_logits_beyond_half_ulp"] = int((gap > 0.5 * _bf16_ulp(torch, want)).sum())
+        del got, want, gap, dz_p
+        torch.cuda.empty_cache()
+        # the memory one forward and backward through autograd adds to its inputs
+        leaf = logits.detach().requires_grad_()
+        c_leaf = centers.detach().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        base_a, mean_a = sb.soft_binning_fwd_op(leaf, c_leaf)
+        torch.autograd.backward((base_a, mean_a), (g_base, g_mean))
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - before
+        elems = logits.numel()
+        assert torch.equal(leaf.grad, dz) and torch.equal(c_leaf.grad, dc), f"SB {shape}: autograd"
+        # an fp32 tensor of the logits' shape alone would take 4 B an element
+        # (1 MiB for the allocator's rounding of a small shape's tensors)
+        assert added < 3 * elems + 2 ** 20, f"SB {shape}: {added} bytes beside the inputs"
+        del leaf, c_leaf, base_a, mean_a
+        torch.cuda.empty_cache()
+        fwd_ms = time_ms(torch, lambda: sb.soft_binning_fwd(logits, centers), runs=20)
+        bwd_ms = time_ms(torch, lambda: sb.soft_binning_bwd(g_base, g_mean, logits, centers,
+                                                            base), runs=20)
+        plain_fwd_ms = time_ms(torch, lambda: sb.soft_binning_fwd_plain(logits, centers), runs=10)
+        plain_bwd_ms = time_ms(torch, lambda: sb.soft_binning_bwd_plain(
+            g_base, g_mean, logits, centers, base), runs=10)
+        xs = logits.detach().requires_grad_()
+        cs = centers.detach().requires_grad_()
+
+        def library(backward):
+            z = xs.float()
+            probs = torch.softmax(z, dim=1)
+            out = torch.sum(probs * cs[:, :, None, None], dim=1, keepdim=True)
+            m = z.mean(dim=(2, 3))
+            if backward:
+                torch.autograd.backward((out, m), (g_base, g_mean))
+
+        library_fwd_ms = time_ms(torch, lambda: library(False), runs=10)
+        library_ms = time_ms(torch, lambda: library(True), runs=10)
+        bound_fwd_ms = SB_BYTES_FWD * elems / gbps * 1e3
+        bound_bwd_ms = SB_BYTES_BWD * elems / gbps * 1e3
+        row = {"phase": "kernel", "name": "soft_binning", "shape": list(shape),
+               "main": shape == SB_MAIN, "plan": dataclasses.asdict(plan),
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
+               "bound_fwd_ms": bound_fwd_ms, "bound_bwd_ms": bound_bwd_ms,
+               "bound_ms": bound_fwd_ms + bound_bwd_ms, "bound_by": "bytes",
+               "bound_share_fwd": bound_fwd_ms / fwd_ms, "bound_share_bwd": bound_bwd_ms / bwd_ms,
+               "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+               "plain_ms": plain_fwd_ms + plain_bwd_ms, "library_fwd_ms": library_fwd_ms,
+               "library_bwd_ms": library_ms - library_fwd_ms, "library_ms": library_ms,
+               "library": "cast, softmax, product, sum and mean through autograd",
+               "memory_added_bytes": added, "fp32_copy_bytes": 4 * elems,
+               "max_abs_err_vs_plain": errs, "max_abs_err": errs["grad_logits"]}
+        emit(row)
+        rows_out.append(row)
+        del logits, centers, g_base, g_mean, base, mean, dz, dc, xs, cs
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def phase_autograd(torch, fa, blockwise):
     """`cross_attention` (FlashCrossAttentionFn: B2 forward, B3 backward)
     against autograd of the blockwise plain path on the card, values and
@@ -1225,13 +1402,13 @@ SERVE_PATHS = {
     "unet_baseline": {
         "argv": ["--generator", "unet_256", "--ngf", "64"],
         "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
-                      "flash_cross_attention_bwd": 0, **NO_BN},
+                      "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB},
         "share_of": None},
     "binaural_attention": {
         "argv": ["--model", "binaural_attention", "--base_channels", "64",
                  "--attention_levels", "2,3,4,5"],
         "per_batch": {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
-                      "flash_cross_attention_bwd": 0, **NO_BN},
+                      "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB},
         "share_of": "flash_fwd"},
 }
 
@@ -1359,9 +1536,10 @@ TRAIN_ARGV = ["--dataset", "synthetic", "--model", "binaural_attention",
               "--validation_iter", "1", "--seed", "0"]
 VAL_SAMPLES = 64  # the synthetic val split (data/batvision.py)
 PER_TRAIN_STEP = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
-                  "flash_cross_attention_bwd": 4, **bn_launches("binaural_attention", 1)}
+                  "flash_cross_attention_bwd": 4, **bn_launches("binaural_attention", 1),
+                  **NO_SB}
 PER_EVAL_BATCH = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 4,
-                  "flash_cross_attention_bwd": 0, **NO_BN}
+                  "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB}
 REPEATED_STEPS = 8
 
 
@@ -1506,7 +1684,8 @@ def phase_train_f32(torch, np, train_cli, kernels):
                if torch.equal(p.detach(), seen["before"][n])]
     assert not unmoved, f"parameters that did not move: {unmoved[:8]}"
     # float32: BatchNorm keeps its own code
-    expected = dict({name: PER_TRAIN_STEP[name] * len(steps) for name in PER_TRAIN_STEP}, **NO_BN)
+    expected = dict({name: PER_TRAIN_STEP[name] * len(steps) for name in PER_TRAIN_STEP}, **NO_BN,
+                    **NO_SB)
     assert launches == expected, f"train_f32: launches {launches}, expected {expected}"
     for name, per_step in F32_VARIANTS_PER_STEP.items():
         assert by_variant[name] == {v: k * len(steps) for v, k in per_step.items()}, \
@@ -1815,8 +1994,9 @@ UNET_TRAIN_ARGV = ["--dataset", "synthetic", "--model", "unet_baseline",
                    "--num_samples", "64", "--epochs", "1", "--validation", "true",
                    "--validation_iter", "1", "--seed", "0", "--saving_checkpoints", "1"]
 UNET_PER_TRAIN_STEP = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
-                       "flash_cross_attention_bwd": 0, **bn_launches("unet_baseline", 1)}
-UNET_PER_EVAL_BATCH = dict(UNET_PER_TRAIN_STEP, **NO_BN)
+                       "flash_cross_attention_bwd": 0, **bn_launches("unet_baseline", 1),
+                       **NO_SB}
+UNET_PER_EVAL_BATCH = dict(UNET_PER_TRAIN_STEP, **NO_BN, **NO_SB)
 # the larger batch of one timed unet step: the config's batch
 # (conf/mode/train.yaml: 256), the largest of 256, 128 and 64 that fits
 UNET_BIG_BATCH = 256
@@ -2042,9 +2222,9 @@ def phase_train_widths(torch, np, train_cli, kernels, base):
 # ---------------------------------------------------------------------------
 
 B1_ONCE = {"fused_mel_frontend": 1, "flash_cross_attention_fwd": 0,
-           "flash_cross_attention_bwd": 0, **NO_BN}
+           "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB}
 NO_KERNEL = {"fused_mel_frontend": 0, "flash_cross_attention_fwd": 0,
-             "flash_cross_attention_bwd": 0, **NO_BN}
+             "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB}
 # family → (its flags beyond the preset, parameters, launches per train step,
 # eval batch and detector forward, the serve flags of its shapes or None)
 FAMILIES = {
@@ -2148,6 +2328,7 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root, 
     # per epoch: its steps, its eval batches and the detectors' forward
     expected = {k: per[k] * (n_steps + FAMILY_EPOCHS * (n_eval + 1)) for k in per}
     expected.update(bn_launches(family, n_steps))  # train steps only
+    expected.update(sb_launches(family, n_steps, FAMILY_EPOCHS * (n_eval + 1)))
     assert launches == expected, f"train {family}: launches {launches}, expected {expected}"
     for rec in eng.history:
         assert rec["val"] and all(np.isfinite(v) for v in rec["val"].values()), rec
@@ -2164,7 +2345,8 @@ def phase_train_family(torch, np, train_cli, serve, kernels, family, ckpt_root, 
     if serve_flags is not None:
         exp_dir = os.path.join(ckpt_root, experiment_name(cfg))
         source, res, errs, s_launches, s_by_variant, s_expected = serve_checkpoint(
-            torch, np, serve, kernels, eng, exp_dir, serve_flags, per)
+            torch, np, serve, kernels, eng, exp_dir, serve_flags,
+            dict(per, **sb_launches(family, 0, 1)))
         emit({"phase": "serve_family", "model": family, "checkpoint": source,
               "requests": res["requests"], "bad_responses": res["bad_responses"],
               "p50_ms": res["p50_ms"], "served_vs_trained_max_abs": errs,
@@ -2541,7 +2723,7 @@ def phase_train_corpus(torch, np, configs, train_cli, kernels, root, work):
     per_epoch = steps_per_epoch + eval_batches + 1  # + the detectors' forward
     expected = {"fused_mel_frontend": per_epoch * CORPUS_EPOCHS,
                 "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0,
-                **bn_launches("unet_baseline", steps_per_epoch * CORPUS_EPOCHS)}
+                **bn_launches("unet_baseline", steps_per_epoch * CORPUS_EPOCHS), **NO_SB}
     out = {}
     for name, extra in (("streamed", []), ("cached", ["--device_cache"])):
         log_dir, ckpt_dir = os.path.join(work, f"logs_{name}"), os.path.join(work, f"ck_{name}")
@@ -2669,7 +2851,7 @@ def phase_evaluate(torch, np, evaluate_cli, kernels, root, work, run):
     n_val = sum(c[2] for c in CORPUS_LOCATIONS)
     batches = -(-n_val // TRAIN_BATCH)
     expected = {"fused_mel_frontend": batches, "flash_cross_attention_fwd": 0,
-                "flash_cross_attention_bwd": 0, **NO_BN}
+                "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB}
     assert launches == expected, f"evaluate: launches {launches}, expected {expected}"
     val = eng.history[best - 1]["val"]
     diffs = {k: abs(means[k] - val[k]) / max(abs(val[k]), 1e-12) for k in means}
@@ -2749,7 +2931,8 @@ def phase_train_corpus_images(torch, np, train_cli, kernels, root, work, family,
     reads_audio = family == "adabins_distillation"
     forwards = len(steps) + -(-n_val // TRAIN_BATCH) + -(-n_hold // TRAIN_BATCH) + 1
     expected = dict(NO_KERNEL, fused_mel_frontend=forwards if reads_audio else 0,
-                    **bn_launches(family, len(steps)))
+                    **bn_launches(family, len(steps)),
+                    **sb_launches(family, len(steps), forwards - len(steps)))
     assert launches == expected, f"train corpus {family}: launches {launches}, expected {expected}"
     emit({"phase": "train_corpus_images", "model": family, "flags": argv, "steps": len(steps),
           "losses": losses, "launches": launches, "expected_launches": expected,
@@ -2829,7 +3012,7 @@ def phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli, kernels, ro
     steps_per_epoch, eval_batches = n_train // TRAIN_BATCH, -(-n_val // TRAIN_BATCH)
     expected = {"fused_mel_frontend": steps_per_epoch + eval_batches + 1,
                 "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0,
-                **bn_launches("coarse_depth/hybrid", steps_per_epoch)}
+                **bn_launches("coarse_depth/hybrid", steps_per_epoch), **NO_SB}
     paths, runs = {}, {}
     for name, extra in (("streamed", []), ("cached", ["--device_cache"])):
         ckpt_dir = os.path.join(work, f"ck_sparse_{name}")
@@ -2891,7 +3074,7 @@ def phase_sparse_corpus(torch, np, configs, train_cli, evaluate_cli, kernels, ro
     launches, by_variant = read_launches(kernels)
     n_dense = sum(c[2] for c in CORPUS_LOCATIONS)
     e_expected = {"fused_mel_frontend": -(-n_dense // TRAIN_BATCH),
-                  "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0, **NO_BN}
+                  "flash_cross_attention_fwd": 0, "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB}
     assert launches == e_expected, f"evaluate sparse: launches {launches}, expected {e_expected}"
     diffs = {k: abs(means[k] - want[k]) / max(abs(want[k]), 1e-12) for k in means}
     assert all(d <= SPARSE_EVAL_REL_TOL for d in diffs.values()), (means, want)
@@ -3286,6 +3469,10 @@ def phase_adabins_remat(torch, np, configs, models, kernels):
     assert peak[True] < peak[False], peak
     steps = 2 * 2 * (1 + REMAT_TIMED_STEPS)
     assert launches["fused_mel_frontend"] == steps + 2 + REMAT_FLOOR_PAIRS, launches
+    # the soft-binning pair in the bf16 steps only (float32 keeps the model's
+    # chain); a remat step runs the student's forward twice, both with grad
+    assert by_variant["soft_binning_fwd"] == {"grad": steps // 2 * 3, "no_grad": steps} \
+        and launches["soft_binning_bwd"] == steps, by_variant
     emit({"phase": "adabins_remat", "batch": TRAIN_BATCH, "timing_bf16": {
           "remat": timing[True], "no_remat": timing[False]},
           "peak_mem_mb": {"remat": peak[True], "no_remat": peak[False]},
@@ -3391,7 +3578,7 @@ def phase_examples_compare(torch, np, evaluate_cli, kernels, root, entries):
     n_binaural = sum(family == "binaural_attention" for _, family, _, _, _ in entries)
     expected = {"fused_mel_frontend": n_eval * len(entries),
                 "flash_cross_attention_fwd": 4 * n_eval * n_binaural,
-                "flash_cross_attention_bwd": 0, **NO_BN}
+                "flash_cross_attention_bwd": 0, **NO_BN, **NO_SB}
     assert launches == expected, f"compare: launches {launches}, expected {expected}"
     with open(out) as f:
         header = next(csv.reader(f))
@@ -3439,7 +3626,7 @@ def phase_examples_convergence(torch, np, kernels):
     first, last = rows[0]["rmse"], rows[-1]["rmse"]
     assert last < first and last <= EXAMPLES_RMSE_MAX, (first, last)
     expected = {"fused_mel_frontend": steps + len(rows), "flash_cross_attention_fwd": 0,
-                "flash_cross_attention_bwd": 0, **bn_launches("unet_baseline", steps)}
+                "flash_cross_attention_bwd": 0, **bn_launches("unet_baseline", steps), **NO_SB}
     assert launches == expected, f"convergence: launches {launches}, expected {expected}"
     emit({"phase": "examples_convergence", "rows": rows, "steps": steps,
           "train_s": rows[-1]["train_s"], "s_per_epoch": rows[-1]["train_s"] / epochs,
@@ -3459,7 +3646,8 @@ def _family_expected(name, steps, eval_batches):
             "flash_cross_attention_fwd": 4 * (steps + eval_batches) if attn else 0,
             "flash_cross_attention_bwd": 4 * steps if attn else 0,
             # the examples' coarse_depth is the hybrid
-            **bn_launches("coarse_depth/hybrid" if name == "coarse_depth" else name, steps)}
+            **bn_launches("coarse_depth/hybrid" if name == "coarse_depth" else name, steps),
+            **sb_launches(name, steps, eval_batches)}
 
 
 def _sweep_run(torch, np, kernels, family_sweep, name, over, overrides=None):
@@ -3564,7 +3752,8 @@ def phase_examples_step_bench(torch, kernels, smi):
 PTXAS_PREFIX = {"fused_mel_frontend": ("fused_mel", "frontend_normalize"),
                 "flash_cross_attention_fwd": "flash_fwd",
                 "flash_cross_attention_bwd": "flash_bwd",
-                "batch_norm_train_fwd": "bn_fwd", "batch_norm_train_bwd": "bn_bwd"}
+                "batch_norm_train_fwd": "bn_fwd", "batch_norm_train_bwd": "bn_bwd",
+                "soft_binning_fwd": "soft_bin_fwd", "soft_binning_bwd": "soft_bin_bwd"}
 
 
 # data parallelism on the one card (`parallel/`): a world of one NCCL rank
@@ -3579,8 +3768,8 @@ DP_MODELS = ("unet_baseline", "binaural_attention")
 DP_F32_BATCH = {"unet_baseline": 4, "binaural_attention": 2}
 DP_F32_SLACK = 1e-6       # added to F32_GRAD_FACTOR × the plain engine's error
 # a data group keeps BatchNorm's own code (the global batch's statistics)
-DP_PER_STEP = {"unet_baseline": dict(UNET_PER_TRAIN_STEP, **NO_BN),
-               "binaural_attention": dict(PER_TRAIN_STEP, **NO_BN)}
+DP_PER_STEP = {"unet_baseline": dict(UNET_PER_TRAIN_STEP, **NO_BN, **NO_SB),
+               "binaural_attention": dict(PER_TRAIN_STEP, **NO_BN, **NO_SB)}
 DP_WORLD_TIMEOUT_S = 420
 DP_DEVICE = "cuda:0"      # every rank's card
 DP_ONE_RANK_BACKEND = "nccl"
@@ -4015,7 +4204,7 @@ def phase_train_sp(torch, np, kernels, smi):
     world_s = time.perf_counter() - t0
     rows = [r["binaural_attention"] for r in ranks]
     # the mesh's data group keeps BatchNorm's own code
-    per_step = {k: v * SP_STEPS for k, v in dict(PER_TRAIN_STEP, **NO_BN).items()}
+    per_step = {k: v * SP_STEPS for k, v in dict(PER_TRAIN_STEP, **NO_BN, **NO_SB).items()}
     want_shapes = sorted((b2, n // 2, n) for b2, n, _ in _sp_levels())
     # every query-row shape of the phase is held to its plain version
     held = {(n, m, dk, dv) for _, _, n, m, dk, dv, dtype in B2_SHAPES if dtype == "bfloat16"}
@@ -4100,6 +4289,7 @@ def main() -> int:
     from audiodepth_tpu_torch.ops.cuda import batch_norm as bn
     from audiodepth_tpu_torch.ops.cuda import flash_attention as fa
     from audiodepth_tpu_torch.ops.cuda import fused_frontend as ff
+    from audiodepth_tpu_torch.ops.cuda import soft_binning as sb
 
     configure_precision()
     smi, ex2_rate = phase_env(torch)
@@ -4112,6 +4302,7 @@ def main() -> int:
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
     phase_autograd(torch, fa, blockwise_cross_attention)
     bn_rows = phase_kernel_bn(torch, bn, peak)
+    sb_rows = phase_kernel_sb(torch, sb, peak)
     launches = {f"serve {path}": phase_serve(torch, np, serve, KERNELS, path)
                 for path in SERVE_PATHS}
     for path in SERVE_PATHS:
@@ -4254,10 +4445,19 @@ def main() -> int:
             ms_by_shape={f"{r['shape']} relu={r['relu']}": r["ms"] for r in rows},
             pair_bound_share={r["main"]: r["bound_share"] for r in rows if r["main"]},
             extra=("ms_by_shape", "pair_bound_share")))
+    for w, way in ((sb.soft_binning_fwd, "fwd"), (sb.soft_binning_bwd, "bwd")):
+        rows = [dict(r, name=w.name, ms=r[f"{way}_ms"], plain_ms=r[f"plain_{way}_ms"],
+                     library_ms=r[f"library_{way}_ms"], bound_ms=r[f"bound_{way}_ms"],
+                     bound_share=r[f"bound_share_{way}"]) for r in sb_rows]
+        main = next(r for r in rows if r["main"])
+        main_rows[w.name] = (rows, dict(
+            main, main_shape="[64, 128, 256, 256] bf16 channels-last (the AdaBins cell's "
+            "class-head logits)", extra=("bound_share", "memory_added_bytes")))
     kernels = [kernel_entry(w, src, rep, *main_rows[w.name], launches, peak_name, ptxas, sass)
                for w, src, rep in KERNELS]
     for entry in kernels:  # the tensor-core designs must be in the binary
-        if entry["name"] in (bn.batch_norm_train_fwd.name, bn.batch_norm_train_bwd.name):
+        if entry["name"] in (bn.batch_norm_train_fwd.name, bn.batch_norm_train_bwd.name,
+                             sb.soft_binning_fwd.name, sb.soft_binning_bwd.name):
             continue  # bound by bytes: no tensor-core instruction
         op = "HMMA" if entry["name"] == ff.fused_mel_frontend.name else "HGMMA"
         assert entry["sass"][op] > 0, f"{entry['name']}: no {op} in its SASS"

@@ -326,8 +326,12 @@ def test_distillation_loss_pieces_match_jax_f64(f64):
                 for k, v in b.items()}
 
     def to_torch(b):
-        return {k: ({kk: torch.from_numpy(vv) for kk, vv in v.items()} if isinstance(v, dict)
-                    else torch.from_numpy(v)) for k, v in b.items()}
+        # the model gives the logits' spatial mean beside them (`bin_logit_mean`),
+        # which the KL term reads: computed here from the same logits
+        out = {k: ({kk: torch.from_numpy(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                   else torch.from_numpy(v)) for k, v in b.items()}
+        out["bin_logit_mean"] = out["bin_logits"].mean(dim=(2, 3))
+        return out
 
     jgt = jnp.asarray(gt.transpose(0, 2, 3, 1))
     for teacher in (True, False):

@@ -89,6 +89,10 @@ _CPU_ARGS = ["--device", "cpu", "--dataset", "synthetic", "--model", "binaural_a
      "B3 flash attention backward (hand-written)"),
     ("void flash_bwd_prep_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float*)",
      "B3 flash attention backward (hand-written)"),
+    ("void (anonymous namespace)::soft_bin_fwd_kernel<16>(__nv_bfloat16 const*, float const*, "
+     "(anonymous namespace)::Shape, float*, float*)", "AdaBins soft binning (hand-written)"),
+    ("void (anonymous namespace)::soft_bin_finalize_kernel(float const*, int, int, float, float*)",
+     "AdaBins soft binning (hand-written)"),
     ("void some_unknown_kernel<int>(int)", "misc"),
 ])
 def test_categorize_cuda_kernel_names(name, category):
@@ -147,7 +151,9 @@ def test_parse_trace_and_report_on_a_fabricated_trace(tmp_path):
                     ("flash_cross_attention_fwd", 1, 1, False),
                     ("flash_cross_attention_bwd", 0, 2, True),
                     ("batch_norm_train_fwd", 0, 0, False),
-                    ("batch_norm_train_bwd", 0, 0, False)]
+                    ("batch_norm_train_bwd", 0, 0, False),
+                    ("soft_binning_fwd", 0, 0, False),
+                    ("soft_binning_bwd", 0, 0, False)]
     text = ps.report(prof, 2, top=3, counters=counters)
     lines = text.splitlines()
     assert lines[0].startswith("GPU time 0.029 ms/step over 2 steps")
@@ -215,7 +221,8 @@ def test_capture_on_cpu_end_to_end(model, overrides, tmp_path, capsys):
     assert len(prof.per_step) == 2 and prof.total_us == 0.0  # the CPU has no GPU events
     assert counters == {"fused_mel_frontend": 0, "flash_cross_attention_fwd": 0,
                         "flash_cross_attention_bwd": 0, "batch_norm_train_fwd": 0,
-                        "batch_norm_train_bwd": 0}
+                        "batch_norm_train_bwd": 0, "soft_binning_fwd": 0,
+                        "soft_binning_bwd": 0}
     out = capsys.readouterr().out
     assert "hand-written kernels" in out and "DROPPED" not in out
     # one line a phase of the step, from the engine's spans (no device ms here)
