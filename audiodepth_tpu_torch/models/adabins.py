@@ -32,13 +32,12 @@ with remat the student's is entered again by the recomputation.
 
 The soft binning (Σ softmax(logits)·centres) and the logits' spatial mean,
 which the KL term of the loss reads as a branch's `bin_logit_mean`, are
-one computation: bf16 channels-last logits on a card with a multiple of 8
-bins up to 256 and fp32 centres go through the hand-written kernel pair
-(`ops/cuda/soft_binning.py`; with or without grad, so the student, the
-teacher and a remat recompute alike), which reads the logits once each
-way; every other input takes the same chain in PyTorch (cast to at least
-fp32, softmax, product, sum, mean). A branch's `bin_logits` are the class
-head's, in its compute dtype.
+one computation, `ops/cuda/soft_binning.py::soft_binning`: the hand-written
+kernel pair where it takes the logits (bf16 channels-last on a card; with
+or without grad, so the student, the teacher and a remat recompute
+alike), which reads them once each way; every other input takes the same
+chain in PyTorch (cast to at least fp32, softmax, product, sum, mean). A
+branch's `bin_logits` are the class head's, in its compute dtype.
 
 Resizes of the logits and of the residual to `output_size`, where their
 size differs, take `jax.image.resize`'s "nearest" (half-pixel centres:
@@ -57,8 +56,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..obs.spans import span
-from ..ops.cuda.soft_binning import (MAX_BINS, VEC, soft_binning_fwd_op,
-                                     soft_binning_fwd_plain)
+from ..ops.cuda.soft_binning import soft_binning
 from ..parallel.mesh import draw_global
 from .base_residual import SharedEncoder
 from .layers import Conv2d, UpBilinear, at_least_f32, remat
@@ -153,15 +151,6 @@ class AdaBinsDistillationModel(nn.Module):
         """The frozen teacher's parameters (the `rgb` branch)."""
         return [p for n, p in self.named_parameters() if n.startswith("rgb_")]
 
-    @staticmethod
-    def _kernel_path(logits: torch.Tensor, centers: torch.Tensor) -> bool:
-        """Whether the soft binning takes the hand-written kernels."""
-        return (logits.is_cuda and logits.dtype == torch.bfloat16 and logits.dim() == 4
-                and logits.shape[1] % VEC == 0 and logits.shape[1] <= MAX_BINS
-                and logits.is_contiguous(memory_format=torch.channels_last)
-                and centers.dtype == torch.float32 and centers.device == logits.device
-                and centers.shape == logits.shape[:2])
-
     def _branch(self, name: str, x: torch.Tensor, generator,
                 keep: Optional[torch.Tensor] = None) -> Dict[str, object]:
         feats = getattr(self, f"{name}_encoder")(x)
@@ -169,10 +158,7 @@ class AdaBinsDistillationModel(nn.Module):
         with span("adabins.bins", x.device):
             centers, widths = getattr(self, f"{name}_bin_predictor")(feats["x5"], generator,
                                                                        keep)
-            if self._kernel_path(logits, centers):
-                base, logit_mean = soft_binning_fwd_op(logits, centers)
-            else:
-                base, logit_mean = soft_binning_fwd_plain(logits, centers)
+            base, logit_mean = soft_binning(logits, centers)
         raw = _resize_nearest(at_least_f32(self.residual_head(dec)), self.output_size)
         residual = torch.tanh(raw) * (0.05 * self.max_depth)
         return {"features": feats, "bin_centers": centers, "bin_widths": widths,

@@ -34,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.cuda.batch_norm import VEC, batch_norm_train
+from ..ops.cuda.batch_norm import batch_norm_train, kernel_takes
 from ..parallel.mesh import active_group, global_sum
 
 
@@ -154,11 +154,11 @@ class BatchNorm(nn.BatchNorm2d):
     owner's Sequential holds an `nn.Identity`, so indices and state_dict
     keys stay the reference's).
 
-    A train-mode bf16 channels-last input on a card, with a multiple of 8
-    channels, fp32 buffers and no data-parallel group, goes through the
-    hand-written kernels (`ops/cuda/batch_norm.py`): bf16 in and out, fp32
-    statistics, the fold and the ReLU inside, no fp32 copy of the
-    activation. Every other input takes the code below."""
+    A bf16 train-mode forward outside a data-parallel group goes through
+    the hand-written kernels where `ops/cuda/batch_norm.py::kernel_takes`
+    its input: bf16 in and out, fp32 statistics, the fold and the ReLU
+    inside, no fp32 copy of the activation. Every other input takes the
+    code below."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
                  relu: bool = False):
@@ -169,17 +169,10 @@ class BatchNorm(nn.BatchNorm2d):
     def extra_repr(self) -> str:
         return super().extra_repr() + (", relu=True" if self.relu else "")
 
-    def _kernel_path(self, x: torch.Tensor) -> bool:
-        return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
-                and x.shape[1] % VEC == 0
-                and self.compute_dtype == torch.bfloat16 and self.training
-                and x.is_contiguous(memory_format=torch.channels_last)
-                and all(t.dtype == torch.float32 for t in (
-                    self.weight, self.bias, self.running_mean, self.running_var))
-                and active_group() is None)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self._kernel_path(x):
+        if (self.training and self.compute_dtype == torch.bfloat16 and active_group() is None
+                and kernel_takes(x, self.weight, self.bias, self.running_mean,
+                                 self.running_var)):
             return batch_norm_train(x, self.weight, self.bias, self.running_mean,
                                     self.running_var, self.momentum, self.eps, self.relu,
                                     fold=not _recomputing())

@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels of the port, one wrapper module each.
 
 `KERNELS` lists every kernel wrapper with its source and the TPU kernel it
-replaces (the BatchNorm pair and the soft-binning pair replace none); each wrapper keeps a
-`launches` count of its calls.
+replaces (the BatchNorm pair and the soft-binning pair replace none); each
+wrapper derives from `_build.Launcher`, which keeps a `launches` count of
+its calls. A module here decides which tensors its kernels take: the model
+calls its entry (`cross_attention`, `soft_binning`, the front end's op) or
+its `kernel_takes` (BatchNorm), and no module outside `ops/` reads its
+constants.
 """
 
 from . import batch_norm, flash_attention, fused_frontend, soft_binning

@@ -8,6 +8,10 @@ an edited source or header is rebuilt and a stale library is never loaded. Nothi
 built when a module is imported: the first wrapper call on a CUDA tensor
 builds, or `build()` builds several sources at once, one nvcc each, all
 started together.
+
+`Launcher` is what the kernel wrappers share: the counts, the library
+loaded at the first launch, and the check of a C call's error code; with
+it `cdiv`, `device_args` and `sm_count`.
 """
 
 from __future__ import annotations
@@ -18,9 +22,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
@@ -81,3 +89,55 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         build([name])
         return ctypes.CDLL(str(library_path(name)))
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def device_args(dev: torch.device) -> Tuple[int, int]:
+    """(card index, current stream), the last two arguments of every C
+    entry point."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of card `index`, asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class Launcher:
+    """The base of every kernel wrapper: `name` (its registered op is
+    `audiodepth::<name>`), `launches` and `variant_launches` (counted by
+    `_check`), and its library, loaded at the first launch. A wrapper
+    defined in `ops/cuda/<module>.py` loads `csrc/<module>.cu` with the
+    entry points that module's `bind` declares; `library`, a callable
+    giving a loaded library, replaces it (a variant build)."""
+
+    name = ""
+
+    def __init__(self, library: Optional[Callable[[], ctypes.CDLL]] = None):
+        self.launches = 0
+        self.variant_launches = Counter()
+        self._load = library or self._own_library
+        self._lib = None
+
+    def _own_library(self) -> ctypes.CDLL:
+        module = sys.modules[type(self).__module__]
+        return module.bind(load(module.__name__.rpartition(".")[2]))
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self._lib = self._load()
+        return self._lib
+
+    def _check(self, err: int, variant: str, launches: int = 1) -> None:
+        """Raise on a C call's error code; else count the call: `launches`
+        kernel launches, one call of `variant`."""
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: "
+                               + self.library().adepth_cuda_error_string(err).decode())
+        self.launches += launches
+        self.variant_launches[variant] += 1

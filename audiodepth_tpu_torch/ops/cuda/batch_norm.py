@@ -13,9 +13,10 @@ that joins them.
 It replaces no TPU kernel: on the TPU, XLA fused the casts around the fp32
 BatchNorm, and the normalisation, into their neighbours; eager PyTorch ran
 them as three passes each way (bf16 → fp32 copy, cuDNN's fp32 BatchNorm,
-fp32 → bf16 copy). `models/layers.py::BatchNorm` takes this path for a
-CUDA bf16 channels-last input in train mode with fp32 buffers outside a
-data-parallel group, and keeps its own code for everything else.
+fp32 → bf16 copy). `models/layers.py::BatchNorm` takes this path in a
+bf16 train-mode forward outside a data-parallel group where `kernel_takes`
+the input (a CUDA bf16 channels-last activation, C a multiple of 8, fp32
+parameters and buffers), and keeps its own code for everything else.
 
 `audiodepth::batch_norm_train_fwd` (which folds the running buffers, so
 its schema marks them mutated) and `audiodepth::batch_norm_train_bwd` are
@@ -38,12 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ._build import Launcher, cdiv, device_args, sm_count
 
 SOURCE = "audiodepth_tpu_torch/csrc/batch_norm.cu"
 # no TPU kernel: XLA fused the casts and the normalisation into their neighbours
@@ -53,10 +55,6 @@ THREADS = 256          # csrc/batch_norm.cu kThreads
 VEC = 8                # kVec: the channels of one 16-byte load
 BLOCKS_PER_SM = 2      # kMinBlocksPerSm: the blocks of a pass all resident at once
 MIN_ROWS_PER_SLOT = 16  # rows a block's thread row slot takes at the least
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 @dataclass(frozen=True)
@@ -91,14 +89,14 @@ def bn_plan(rows: int, channels: int, n_sm: int) -> BnPlan:
         raise ValueError(f"the kernels take more than one value a channel and a multiple of "
                          f"{VEC} channels; got {rows} rows of {channels} channels")
     groups = channels // VEC
-    channel_tiles = _cdiv(groups, THREADS)
-    group_tile = _cdiv(groups, channel_tiles)
+    channel_tiles = cdiv(groups, THREADS)
+    group_tile = cdiv(groups, channel_tiles)
     rows_per_iter = THREADS // group_tile
     max_blocks = max(1, n_sm * BLOCKS_PER_SM // channel_tiles)
-    blocks = min(max_blocks, max(1, _cdiv(rows, rows_per_iter * MIN_ROWS_PER_SLOT)))
-    rows_per_block = _cdiv(_cdiv(rows, blocks), rows_per_iter) * rows_per_iter
+    blocks = min(max_blocks, max(1, cdiv(rows, rows_per_iter * MIN_ROWS_PER_SLOT)))
+    rows_per_block = cdiv(cdiv(rows, blocks), rows_per_iter) * rows_per_iter
     return BnPlan(rows, channels, group_tile, channel_tiles, rows_per_iter, rows_per_block,
-                  _cdiv(rows, rows_per_block))
+                  cdiv(rows, rows_per_block))
 
 
 # ---- the plain versions -----------------------------------------------------------
@@ -169,6 +167,15 @@ def row_stride(t: torch.Tensor) -> Optional[int]:
     return ld if ld >= c else None
 
 
+def kernel_takes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 running_mean: torch.Tensor, running_var: torch.Tensor) -> bool:
+    """Whether the kernels take a train-mode BatchNorm of `x` with these
+    parameters and running buffers."""
+    return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4 and x.shape[1] % VEC == 0
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and all(t.dtype == torch.float32 for t in (weight, bias, running_mean, running_var)))
+
+
 def _kernel_tensor(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """(t, row stride) as the kernels read it: t itself where its rows are
     evenly strided and aligned for 16-byte loads, else a channels-last
@@ -197,18 +204,13 @@ def _kernel_input(x: torch.Tensor) -> None:
         raise TypeError(f"the kernels take bfloat16 activations, got {x.dtype}")
 
 
-def _device_args(dev: torch.device):
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(dev).cuda_stream
-
-
 @functools.lru_cache(maxsize=256)
 def _device_plan(index: int, rows: int, channels: int) -> BnPlan:
     """`bn_plan` for card `index`, worked out once per shape."""
-    return bn_plan(rows, channels, torch.cuda.get_device_properties(index).multi_processor_count)
+    return bn_plan(rows, channels, sm_count(index))
 
 
-class BatchNormTrainFwd:
+class BatchNormTrainFwd(Launcher):
     """Callable wrapper of the forward kernels (statistics, finalize with
     the fold, normalise): (x, weight, bias, running_mean, running_var,
     momentum, eps, relu, fold) → (y, mean, invstd). `launches` counts calls
@@ -216,11 +218,6 @@ class BatchNormTrainFwd:
     "plain")."""
 
     name = "batch_norm_train_fwd"
-
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, x, weight, bias, running_mean, running_var, momentum: float,
                  eps: float, relu: bool, fold: bool):
@@ -230,28 +227,23 @@ class BatchNormTrainFwd:
                                               momentum, eps, relu, fold)
         _kernel_input(x)
         _check_params(x, weight, bias, running_mean, running_var)
-        index, stream = _device_args(x.device)
+        index, stream = device_args(x.device)
         plan = _device_plan(index, rows, c)
         x, ld = _kernel_tensor(x)
         y = torch.empty_like(x, memory_format=torch.channels_last)
         mean = torch.empty(c, dtype=torch.float32, device=x.device)
         invstd = torch.empty_like(mean)
         part = torch.empty(plan.fwd_scratch_floats, dtype=torch.float32, device=x.device)
-        lib = self._library()
-        err = lib.adepth_bn_fwd(
+        err = self.library().adepth_bn_fwd(
             x.data_ptr(), ld, y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             running_mean.data_ptr(), running_var.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
             part.data_ptr(), rows, c, *_plan_args(plan), float(momentum), float(eps), int(relu),
             int(fold), index, stream)
-        if err != 0:
-            raise RuntimeError("batch_norm_train_fwd launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
-        self.variant_launches["relu" if relu else "plain"] += 1
+        self._check(err, "relu" if relu else "plain")
         return y, mean, invstd
 
 
-class BatchNormTrainBwd:
+class BatchNormTrainBwd(Launcher):
     """Callable wrapper of the backward kernels (sums, finalize, dx):
     (dy, x, weight, bias, mean, invstd, eps, relu) → (dx, dweight, dbias).
     dy may be a channel slice of a channels-last tensor (the gradient of a
@@ -260,11 +252,6 @@ class BatchNormTrainBwd:
     same by epilogue."""
 
     name = "batch_norm_train_bwd"
-
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, dy, x, weight, bias, mean, invstd, eps: float, relu: bool):
         rows, c = check_activation(x)
@@ -275,7 +262,7 @@ class BatchNormTrainBwd:
             return batch_norm_train_bwd_plain(dy, x, weight, bias, mean, invstd, eps, relu)
         _kernel_input(x)
         _check_params(x, weight, bias, mean, invstd)
-        index, stream = _device_args(x.device)
+        index, stream = device_args(x.device)
         plan = _device_plan(index, rows, c)
         x, ld_x = _kernel_tensor(x)
         dy, ld_dy = _kernel_tensor(dy)
@@ -283,29 +270,17 @@ class BatchNormTrainBwd:
         dweight = torch.empty(c, dtype=torch.float32, device=x.device)
         dbias = torch.empty_like(dweight)
         part = torch.empty(plan.bwd_scratch_floats, dtype=torch.float32, device=x.device)
-        lib = self._library()
-        err = lib.adepth_bn_bwd(
+        err = self.library().adepth_bn_bwd(
             dy.data_ptr(), ld_dy, x.data_ptr(), ld_x, weight.data_ptr(), bias.data_ptr(),
             mean.data_ptr(), invstd.data_ptr(), dx.data_ptr(), dweight.data_ptr(),
             dbias.data_ptr(), part.data_ptr(), rows, c, *_plan_args(plan), int(relu), index,
             stream)
-        if err != 0:
-            raise RuntimeError("batch_norm_train_bwd launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
-        self.variant_launches["relu" if relu else "plain"] += 1
+        self._check(err, "relu" if relu else "plain")
         return dx, dweight, dbias
 
 
 def _plan_args(plan: BnPlan):
     return plan.group_tile, plan.channel_tiles, plan.rows_per_block, plan.row_blocks
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from ._build import load
-
-    return bind(load("batch_norm"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

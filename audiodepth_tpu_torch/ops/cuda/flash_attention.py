@@ -50,14 +50,13 @@ of three pieces each (`_pieces`), which the wrapper allocates.
 from __future__ import annotations
 
 import ctypes
-import functools
-from collections import Counter
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from ..attention import score_blocks
+from ._build import Launcher, cdiv, device_args
 
 SOURCE = "audiodepth_tpu_torch/csrc/flash_attention.cu"
 # the TPU kernels these replace (file:line of `_fwd_kernel` and `_bwd_kernel`)
@@ -103,14 +102,10 @@ class Plan:
         return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED_PER_BLOCK)
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def _aligned(width: int) -> int:
     """The width a row is zero-padded to: a multiple of 8 elements, so that
     a bf16 row is whole 16-byte units (TMA's stride rule)."""
-    return 8 * _cdiv(width, 8)
+    return 8 * cdiv(width, 8)
 
 
 def _wgmma_dkp(dk: int) -> int:
@@ -172,8 +167,8 @@ def _first_fit(options, bytes_of):
 def _slices(dv: int, most: int) -> Tuple[int, int]:
     """(n_slices, slice width): dv in the fewest slices of ≤ `most`
     columns, each padded to a multiple of 64."""
-    n_slices = _cdiv(dv, most)
-    return n_slices, TILE * _cdiv(_cdiv(dv, n_slices), TILE)
+    n_slices = cdiv(dv, most)
+    return n_slices, TILE * cdiv(cdiv(dv, n_slices), TILE)
 
 
 # fp32 as three bf16 pieces triples every tile in shared memory: B2's
@@ -189,7 +184,7 @@ def fwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Pl
     """B2's design and tiles for q [b, n, dk], k [b, m, dk], v [b, m, dv]
     (at the widths the wrapper pads them to)."""
     dk, dv = _aligned(dk), _aligned(dv)
-    q_tiles = _cdiv(n, TILE)
+    q_tiles = cdiv(n, TILE)
     dkp = _wgmma_dkp(dk)
     if dtype == torch.float32:
         n_slices, dvs = _slices(dv, FWD_BF16X3_DV_SLICE)
@@ -212,18 +207,18 @@ def bwd_plan(b: int, n: int, m: int, dk: int, dv: int, dtype: torch.dtype) -> Pl
         (stages, chunk_stages, dq_bufs), smem = _first_fit(
             BWD_BF16X3_TILINGS, lambda o: _bwd_split_bytes(dkp, dvs, dk, *o, pieces=3))
         return Plan("split_bf16x3", 5, dkp, dvs, n_slices, stages, smem,
-                    (_cdiv(m, TILE) * (n_slices + 1), b, 1), 128, chunk_stages, dq_bufs, 3)
+                    (cdiv(m, TILE) * (n_slices + 1), b, 1), 128, chunk_stages, dq_bufs, 3)
     if dkp > 64 or dv > 512:
         # the split design: dV blocks per dv slice of ≤ 256 beside a dK/dQ
         # block per key tile (their registers hold dV or dK, never both)
         n_slices, dvs = _slices(dv, 256)
         return Plan("split", 3, dkp, dvs, n_slices, 2, _bwd_split_bytes(dkp, dvs, dk, 2),
-                    (_cdiv(m, TILE) * (n_slices + 1), b, 1), 128, 2, 2)
+                    (cdiv(m, TILE) * (n_slices + 1), b, 1), 128, 2, 2)
     wgs = 1 if dv <= 256 else 2  # one warpgroup's registers hold 256 fp32 columns of dv
-    dvs = TILE * _cdiv(_cdiv(dv, wgs), TILE)
+    dvs = TILE * cdiv(cdiv(dv, wgs), TILE)
     stages = _most_stages(lambda s: _bwd_wgmma_bytes(dkp, dvs * wgs, dk, s, wgs), (2, 1))
     return Plan("wgmma", 2, dkp, dvs, 1, stages, _bwd_wgmma_bytes(dkp, dvs * wgs, dk, stages, wgs),
-                (_cdiv(m, TILE), b, 1), 128 * wgs)
+                (cdiv(m, TILE), b, 1), 128 * wgs)
 
 
 def flash_cross_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -352,21 +347,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _device_args(dev: torch.device):
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(dev).cuda_stream
-
-
-class FlashCrossAttention:
+class FlashCrossAttention(Launcher):
     """Callable wrapper of kernel B2; `launches` counts kernel launches and
     `variant_launches` the same launches by the plan's variant."""
 
     name = "flash_cross_attention_fwd"
-
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -379,23 +364,18 @@ class FlashCrossAttention:
         b, n, m, dk, dv = _check_qkv(q, k, v)
         _check_kernel_inputs((q, k, v), dk)
         plan = fwd_plan(b, n, m, dk, dv, q.dtype)
-        lib = self._library()
         o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
         pieces = _pieces(plan, q, k, v)
-        err = lib.adepth_flash_attention_fwd(
+        err = self.library().adepth_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             _ptr(pieces), b, n, m, dk, dv, float(scale), *_plan_args(plan),
-            *_device_args(q.device))
-        if err != 0:
-            raise RuntimeError("flash_cross_attention launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
-        self.variant_launches[plan.variant] += 1
+            *device_args(q.device))
+        self._check(err, plan.variant)
         return o, lse
 
 
-class FlashCrossAttentionBwd:
+class FlashCrossAttentionBwd(Launcher):
     """Callable wrapper of kernel B3: (q, k, v, o, lse, do, scale) →
     (dq, dk, dv); `launches` counts kernel launches (one a call) and
     `variant_launches` the same by the plan's variant.
@@ -407,11 +387,6 @@ class FlashCrossAttentionBwd:
     dtype afterwards."""
 
     name = "flash_cross_attention_bwd"
-
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                  lse: torch.Tensor, do: torch.Tensor, scale: float
@@ -435,30 +410,18 @@ class FlashCrossAttentionBwd:
         b, n, m, dk, dv = _check_qkv(q, k, v)
         _check_kernel_inputs((q, k, v, do, o, lse), dk)
         plan = bwd_plan(b, n, m, dk, dv, q.dtype)
-        lib = self._library()
-        stat = torch.empty((b, _cdiv(n, TILE), 2, TILE), dtype=torch.float32, device=q.device)
+        stat = torch.empty((b, cdiv(n, TILE), 2, TILE), dtype=torch.float32, device=q.device)
         pieces = _pieces(plan, q, k, v, do)
         dq = torch.zeros((b, n, dk), dtype=torch.float32, device=q.device)
         dk_out = torch.empty_like(k)
         dv_out = torch.empty_like(v)
-        err = lib.adepth_flash_attention_bwd(
+        err = self.library().adepth_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), stat.data_ptr(), _ptr(pieces), dq.data_ptr(), dk_out.data_ptr(),
             dv_out.data_ptr(), b, n, m, dk, dv, float(scale), *_plan_args(plan),
-            plan.chunk_stages, plan.dq_bufs, *_device_args(q.device))
-        if err != 0:
-            raise RuntimeError("flash_cross_attention backward launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
-        self.variant_launches[plan.variant] += 1
+            plan.chunk_stages, plan.dq_bufs, *device_args(q.device))
+        self._check(err, plan.variant)
         return dq.to(q.dtype), dk_out, dv_out
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from ._build import load
-
-    return bind(load("flash_attention"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from dataclasses import dataclass
 from typing import Mapping, Optional, Tuple
 
@@ -43,6 +42,7 @@ import torch
 
 from ..stft import (log_minmax_per_channel, mel_filterbank, mel_spectrogram, num_frames,
                     stft_basis)
+from ._build import Launcher, cdiv, device_args, sm_count
 
 # the TPU kernel this one replaces (file:line of `_frontend_kernel`)
 REPLACES = "audiodepth_tpu/ops/pallas/fused_frontend.py:39"
@@ -198,10 +198,6 @@ def frontend_constants(n_fft: int = 512, win_length: int = 64, n_mels: int = 32,
 # ---- the plan -------------------------------------------------------------------
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def smem_bytes(frames_per_block: int, hop_length: int, consts: Constants) -> int:
     """Dynamic shared memory of one block (csrc/fused_frontend.cu:
     SmemLayout): the constants, the tile's waveform segment (4 floats of
@@ -252,8 +248,8 @@ def frontend_plan(bc: int, length: int, n_sm: int, max_active_clusters: Mapping[
     consts = consts or frontend_constants()
     t_frames = num_frames(length, hop_length)
     best, best_key = None, None
-    for fpb in range(FRAME_STEP, FRAME_STEP * _cdiv(t_frames, FRAME_STEP) + 1, FRAME_STEP):
-        nb = _cdiv(t_frames, fpb)
+    for fpb in range(FRAME_STEP, FRAME_STEP * cdiv(t_frames, FRAME_STEP) + 1, FRAME_STEP):
+        nb = cdiv(t_frames, fpb)
         smem = smem_bytes(fpb, hop_length, consts)
         if nb > MAX_CLUSTER or smem > MAX_DYNAMIC_SMEM:
             continue
@@ -262,8 +258,8 @@ def frontend_plan(bc: int, length: int, n_sm: int, max_active_clusters: Mapping[
             cap = max_active_clusters.get(size, 0)
             if cap <= 0 or cpc > max(bc, 1):
                 continue
-            n_clusters = _cdiv(bc, cpc)
-            waves = max(_cdiv(n_clusters, cap), _cdiv(n_clusters * size, n_sm))
+            n_clusters = cdiv(bc, cpc)
+            waves = max(cdiv(n_clusters, cap), cdiv(n_clusters * size, n_sm))
             key = (waves, fpb, size > PORTABLE_CLUSTER, n_clusters * size, n_clusters)
             if best_key is None or key < best_key:
                 best_key = key
@@ -279,17 +275,17 @@ def _two_pass_plan(bc: int, t_frames: int, n_sm: int, max_active_clusters: Mappi
     clusters of any size the card runs (they share the constants' copy),
     chosen as in the one-pass plan."""
     best, best_key = None, None
-    for fpb in range(FRAME_STEP, FRAME_STEP * _cdiv(t_frames, FRAME_STEP) + 1, FRAME_STEP):
+    for fpb in range(FRAME_STEP, FRAME_STEP * cdiv(t_frames, FRAME_STEP) + 1, FRAME_STEP):
         smem = smem_bytes(fpb, hop_length, consts)
         if smem > MAX_DYNAMIC_SMEM:
             break
-        nb = _cdiv(t_frames, fpb)
+        nb = cdiv(t_frames, fpb)
         for size in range(1, MAX_CLUSTER + 1):
             cap = max_active_clusters.get(size, 0)
             if cap <= 0:
                 continue
-            n_clusters = _cdiv(bc * nb, size)
-            waves = max(_cdiv(n_clusters, cap), _cdiv(n_clusters * size, n_sm))
+            n_clusters = cdiv(bc * nb, size)
+            waves = max(cdiv(n_clusters, cap), cdiv(n_clusters * size, n_sm))
             key = (waves, fpb, size > PORTABLE_CLUSTER, n_clusters * size, n_clusters)
             if best_key is None or key < best_key:
                 best_key = key
@@ -331,18 +327,13 @@ def _device_constants(device: torch.device, *args) -> torch.Tensor:
     return torch.from_numpy(frontend_constants(*args).packed.view(np.int32)).to(device)
 
 
-class FusedMelFrontend:
+class FusedMelFrontend(Launcher):
     """Callable wrapper of kernel B1; `launches` counts kernel launches: one
     for a one-pass call, two for a two-pass call (the clusters, then the
     normalising pass); `variant_launches` counts calls by form ("one_pass",
     "two_pass")."""
 
     name = "fused_mel_frontend"
-
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, waveform: torch.Tensor, n_fft: int = 512,
                  win_length: int = 64, hop_length: int = 32, n_mels: int = 32,
@@ -363,34 +354,28 @@ class FusedMelFrontend:
         out = torch.empty((b, c, n_mels, t_frames), dtype=torch.float32, device=dev)
         if b * c == 0:
             return out
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        index, stream = device_args(dev)
         args = (n_fft, win_length, n_mels, sample_rate, float(f_min), float(f_max))
         consts = frontend_constants(*args)
         packed = _device_constants(torch.device("cuda", index), *args)
         plan = _device_plan(index, b * c, length, hop_length, args)
-        lib = self._library()
         minmax = (torch.empty((b * c, plan.blocks_per_channel, 2), dtype=torch.float32,
                               device=dev) if plan.two_pass else None)
-        err = lib.adepth_fused_mel_frontend(
+        err = self.library().adepth_fused_mel_frontend(
             waveform.data_ptr(), stride_b, stride_c, n_c, packed.data_ptr(), consts.nbytes,
             consts.table_off, consts.weight_off, consts.n_ntiles, n_mels, out.data_ptr(),
             b * c, length, t_frames, hop_length, (n_fft - win_length) // 2 - n_fft // 2,
             plan.frames_per_block, plan.blocks_per_channel, plan.cluster_size,
             plan.n_clusters, plan.smem_bytes, None if minmax is None else minmax.data_ptr(),
-            index, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError("fused_mel_frontend launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 2 if plan.two_pass else 1
-        self.variant_launches["two_pass" if plan.two_pass else "one_pass"] += 1
+            index, stream)
+        self._check(err, "two_pass" if plan.two_pass else "one_pass", 2 if plan.two_pass else 1)
         return out
 
 
 @functools.lru_cache(maxsize=256)
 def _device_plan(index: int, bc: int, length: int, hop_length: int, args) -> FrontendPlan:
     """`frontend_plan` for card `index`, worked out once per shape."""
-    return frontend_plan(bc, length, torch.cuda.get_device_properties(index).multi_processor_count,
-                         cluster_capacity(index), hop_length, frontend_constants(*args))
+    return frontend_plan(bc, length, sm_count(index), cluster_capacity(index), hop_length, frontend_constants(*args))
 
 
 @functools.lru_cache(maxsize=None)
@@ -398,7 +383,7 @@ def cluster_capacity(device_index: int) -> Mapping[int, int]:
     """{cluster size: clusters the card runs at once} for B1 at its largest
     shared memory (one block an SM), asked of the card once. A size above
     the portable 8 that the card refuses gets 0."""
-    lib = _library()
+    lib = fused_mel_frontend.library()
     caps = {}
     for size in range(1, MAX_CLUSTER + 1):
         count = ctypes.c_int(0)
@@ -409,13 +394,6 @@ def cluster_capacity(device_index: int) -> Mapping[int, int]:
                                + lib.adepth_cuda_error_string(err).decode())
         caps[size] = count.value if err == 0 else 0
     return caps
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from ._build import load
-
-    return bind(load("fused_frontend"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -14,10 +14,11 @@ It replaces no TPU kernel: on the TPU, XLA fused the float32 cast, the
 softmax, the product with the centres, the sum and the KL term's spatial
 mean into a few passes; eager PyTorch runs each as its own float32 pass
 over [B, K, H, W] and keeps the probabilities for the backward.
-`models/adabins.py::AdaBinsDistillationModel` takes this path for CUDA
-bf16 channels-last logits with K a multiple of 8 up to 256 and fp32
-centers [B, K], with or without grad, and keeps its own code (which the
-plain versions are) for everything else.
+
+`soft_binning` is the entry the model calls: the registered op where
+`kernel_takes` the input (CUDA bf16 channels-last logits with K a multiple
+of 8 up to 256 and fp32 centers [B, K], with or without grad), the plain
+forward (the model's own chain) for everything else.
 
 `audiodepth::soft_binning_fwd` and `audiodepth::soft_binning_bwd` are the
 registered ops: their CUDA implementations are the wrappers (the kernels,
@@ -38,11 +39,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from ._build import Launcher, cdiv, device_args, sm_count
 
 SOURCE = "audiodepth_tpu_torch/csrc/soft_binning.cu"
 # no TPU kernel: XLA fused the cast, the softmax expectation and the mean
@@ -54,10 +56,6 @@ MAX_LANES = 32           # kMaxLanes: a pixel's bins in one warp
 MAX_BINS = VEC * MAX_LANES
 PIXELS_PER_BLOCK = 1024  # a block's pixels where the image has enough
 MIN_BLOCKS_PER_SM = 2    # at least this many blocks a card's SM, where the pixels allow
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 @dataclass(frozen=True)
@@ -91,11 +89,11 @@ def sb_plan(batch: int, bins: int, hw: int, n_sm: int) -> SbPlan:
     while lanes < bins // VEC:
         lanes *= 2
     slots = THREADS // lanes
-    blocks = _cdiv(hw, PIXELS_PER_BLOCK)
+    blocks = cdiv(hw, PIXELS_PER_BLOCK)
     # small images: more, smaller blocks, down to one iteration's pixels each
-    blocks = min(_cdiv(hw, slots), max(blocks, _cdiv(MIN_BLOCKS_PER_SM * n_sm, batch)))
-    pixels_per_block = _cdiv(_cdiv(hw, blocks), slots) * slots
-    return SbPlan(batch, bins, hw, lanes, slots, pixels_per_block, _cdiv(hw, pixels_per_block))
+    blocks = min(cdiv(hw, slots), max(blocks, cdiv(MIN_BLOCKS_PER_SM * n_sm, batch)))
+    pixels_per_block = cdiv(cdiv(hw, blocks), slots) * slots
+    return SbPlan(batch, bins, hw, lanes, slots, pixels_per_block, cdiv(hw, pixels_per_block))
 
 
 # ---- the plain versions -----------------------------------------------------------
@@ -174,22 +172,17 @@ def _kernel_inputs(logits: torch.Tensor, *fp32: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _device_args(dev: torch.device):
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(dev).cuda_stream
-
-
 @functools.lru_cache(maxsize=256)
 def _device_plan(index: int, batch: int, bins: int, hw: int) -> SbPlan:
     """`sb_plan` for card `index`, worked out once per shape."""
-    return sb_plan(batch, bins, hw, torch.cuda.get_device_properties(index).multi_processor_count)
+    return sb_plan(batch, bins, hw, sm_count(index))
 
 
 def _plan_args(plan: SbPlan):
     return plan.batch, plan.hw, plan.bins, plan.lanes, plan.pixels_per_block, plan.blocks
 
 
-class SoftBinningFwd:
+class SoftBinningFwd(Launcher):
     """Callable wrapper of the forward kernels (the pass, the finalize):
     (logits, centers) → (base, logit_mean). `launches` counts calls (two
     kernels each), `variant_launches` the same by whether the call records
@@ -199,11 +192,6 @@ class SoftBinningFwd:
 
     name = "soft_binning_fwd"
 
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
-
     def __call__(self, logits, centers):
         batch, bins, hw = check_logits(logits, centers)
         if logits.device.type == "cpu":
@@ -211,36 +199,26 @@ class SoftBinningFwd:
         grad = logits.requires_grad or centers.requires_grad
         logits = _kernel_inputs(logits, centers)
         centers = centers.contiguous()
-        index, stream = _device_args(logits.device)
+        index, stream = device_args(logits.device)
         plan = _device_plan(index, batch, bins, hw)
         h, w = logits.shape[2:]
         base = torch.empty((batch, 1, h, w), dtype=torch.float32, device=logits.device)
         logit_mean = torch.empty((batch, bins), dtype=torch.float32, device=logits.device)
         part = torch.empty(plan.scratch_floats, dtype=torch.float32, device=logits.device)
-        lib = self._library()
-        err = lib.adepth_sb_fwd(logits.data_ptr(), centers.data_ptr(), base.data_ptr(),
-                                logit_mean.data_ptr(), part.data_ptr(), *_plan_args(plan),
-                                index, stream)
-        if err != 0:
-            raise RuntimeError("soft_binning_fwd launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
-        self.variant_launches["grad" if grad else "no_grad"] += 1
+        err = self.library().adepth_sb_fwd(logits.data_ptr(), centers.data_ptr(),
+                                           base.data_ptr(), logit_mean.data_ptr(),
+                                           part.data_ptr(), *_plan_args(plan), index, stream)
+        self._check(err, "grad" if grad else "no_grad")
         return base, logit_mean
 
 
-class SoftBinningBwd:
+class SoftBinningBwd(Launcher):
     """Callable wrapper of the backward kernels (the pass, the finalize):
     (g_base, g_mean, logits, centers, base) → (grad_logits, grad_centers),
     grad_logits bf16 channels-last. `launches` counts calls (two kernels
     each), `variant_launches` the same under "backward"."""
 
     name = "soft_binning_bwd"
-
-    def __init__(self, library=None):
-        self.launches = 0
-        self.variant_launches = Counter()
-        self._library = library or _library  # a callable giving the loaded library
 
     def __call__(self, g_base, g_mean, logits, centers, base):
         batch, bins, hw = check_logits(logits, centers)
@@ -254,29 +232,18 @@ class SoftBinningBwd:
         logits = _kernel_inputs(logits, centers, g_base, g_mean, base)
         g_base, g_mean = g_base.contiguous(), g_mean.contiguous()
         centers, base = centers.contiguous(), base.contiguous()
-        index, stream = _device_args(logits.device)
+        index, stream = device_args(logits.device)
         plan = _device_plan(index, batch, bins, hw)
         grad_logits = torch.empty_like(logits, memory_format=torch.channels_last)
         grad_centers = torch.empty((batch, bins), dtype=torch.float32, device=logits.device)
         part = torch.empty(plan.scratch_floats, dtype=torch.float32, device=logits.device)
-        lib = self._library()
-        err = lib.adepth_sb_bwd(g_base.data_ptr(), g_mean.data_ptr(), logits.data_ptr(),
-                                centers.data_ptr(), base.data_ptr(), grad_logits.data_ptr(),
-                                grad_centers.data_ptr(), part.data_ptr(), *_plan_args(plan),
-                                index, stream)
-        if err != 0:
-            raise RuntimeError("soft_binning_bwd launch failed: "
-                               + lib.adepth_cuda_error_string(err).decode())
-        self.launches += 1
-        self.variant_launches["backward"] += 1
+        err = self.library().adepth_sb_bwd(g_base.data_ptr(), g_mean.data_ptr(),
+                                           logits.data_ptr(), centers.data_ptr(),
+                                           base.data_ptr(), grad_logits.data_ptr(),
+                                           grad_centers.data_ptr(), part.data_ptr(),
+                                           *_plan_args(plan), index, stream)
+        self._check(err, "backward")
         return grad_logits, grad_centers
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from ._build import load
-
-    return bind(load("soft_binning"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -356,3 +323,21 @@ def _backward(ctx, g_base, g_mean):
 
 
 soft_binning_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def kernel_takes(logits: torch.Tensor, centers: torch.Tensor) -> bool:
+    """Whether the kernels take the soft binning of `logits` and `centers`."""
+    return (logits.is_cuda and logits.dtype == torch.bfloat16 and logits.dim() == 4
+            and logits.shape[1] % VEC == 0 and logits.shape[1] <= MAX_BINS
+            and logits.is_contiguous(memory_format=torch.channels_last)
+            and centers.dtype == torch.float32 and centers.device == logits.device
+            and centers.shape == logits.shape[:2])
+
+
+def soft_binning(logits: torch.Tensor, centers: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(base, logit_mean) of the class head's logits and the bin centers:
+    the kernels where they take the input, else the model's own chain."""
+    if kernel_takes(logits, centers):
+        return soft_binning_fwd_op(logits, centers)
+    return soft_binning_fwd_plain(logits, centers)

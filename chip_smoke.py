@@ -14,8 +14,7 @@ non-zero:
              HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel in
              `cuobjdump -sass` of the built libraries (B1 must have HMMA,
              B2 and B3 HGMMA, every float32 three-piece instantiation
-             too); with it, B1's and B2/B3's earlier sources where they
-             were put at B1_BEFORE and B2B3_BEFORE (not in the repository);
+             too);
   layout_probe  the q/k operand layouts of B2 and B3 alone, at each dkp
              (16, 32, 64, 128 and 128 part filled): S = Q·Kᵀ and the two
              MN-major products of B3 against torch.matmul in float64;
@@ -39,8 +38,6 @@ non-zero:
              split design), each row naming the plan it ran; B1 also at
              B·C = 2, L = 100,000 (its two-pass form: each B1 row asserts
              the form its call took and its launches, 1 or 2);
-  b1_before_after  B1 against its earlier design in turns on the same
-             card, where that source was built (else a line saying so);
   autograd   `cross_attention` gradients through FlashCrossAttentionFn
              (B2 forward, B3 backward) against autograd of the blockwise
              plain path on the card, level 3 in bf16, level 2 in f32;
@@ -109,10 +106,6 @@ non-zero:
              three-piece variants, F32_VARIANTS_PER_STEP), then 5 timed
              steps on one batch (the loss must fall), peak memory and a
              profile of one;
-  b2b3_before_after  B2's and B3's float32 rows (levels 2-5 at 2B = 32,
-             level 3 at 2B = 2) and the train_f32 step against the parent
-             design's CUDA-core kernels in turns on the same card, where
-             that source was built (else a line saying so);
   profile    one bf16 train step at batch 16: host wall, device time, busy
              share, top items, B2's and B3's shares;
   train_unet the main training path: `cli/train.py`'s main in-process,
@@ -328,8 +321,7 @@ PEAKS = {"H100 SXM": (67.0, 3.35, 989.0), "H100 PCIe": (51.0, 2.0, 756.0),
 EX2_PER_CLOCK_PER_SM = 16  # the SFU's exp2 rate on sm_90
 KERNEL_TOL = 1e-5          # B1 vs its fp32 plain version (see phase_kernel)
 B1_CLEAN_SLACK = 1e-5      # B1 vs float64 on clean chirps, beyond the fp32 plain's own error
-# B1's rows (input, B·C, L); the first port's source, where one was put
-# here, for the same-call before/after (phase_b1_before_after)
+# B1's rows (input, B·C, L)
 B1_ROWS = [("noise", 2, 7782), ("noise", 8, 7782), ("noise", 32, 7782), ("noise", 8, 4000),
            ("synthetic", 32, 7782), ("clean chirps", 8, 7782),
            # a channel of 3,126 frames: the two-pass form (more than 16 blocks a channel)
@@ -368,7 +360,6 @@ def sb_launches(family: str, steps: int, forwards: int = 0) -> dict:
         return dict(NO_SB)
     return {"soft_binning_fwd": 2 * steps + forwards, "soft_binning_bwd": steps}
 
-B1_BEFORE = os.path.join("build", "b1_before", "fused_frontend.cu")
 F32_VS_CPU_TOL = 1e-3      # relative to max |cpu|
 SERVED_TOL = 2 ** -5       # served vs direct bf16 answer, relative to max |direct|
 # B2 vs its plain version (see phase_kernel_b2)
@@ -522,29 +513,6 @@ def ptxas_report(logs) -> dict:
     return report
 
 
-def _build_before(build, source):
-    """nvcc of an earlier kernel source, where one was put at `source` (B1_BEFORE
-    or B2B3_BEFORE; not in the repository: `git show <commit>:audiodepth_tpu_torch/csrc/<file>`,
-    the headers it includes beside it, else the checkout's), started in the
-    background: (process, library path), or None."""
-    if not os.path.exists(source):
-        return None
-    name = os.path.splitext(os.path.basename(source))[0]
-    lib = os.path.join(os.path.dirname(source), f"lib{name}_before.so")
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib, source]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
-
-
-def _built_before(before, source):
-    """The library path of a `_build_before` job once it has finished."""
-    if before is None:
-        return None
-    proc, lib = before
-    log, _ = proc.communicate()
-    assert proc.returncode == 0, f"nvcc of {source} failed:\n{log}"
-    return lib
-
-
 # instantiations that spill, all from before the C1 repair (B3's two-warpgroup
 # variants at dv 384-512): any other spill fails the build phase
 KNOWN_SPILLS = {"flash_bwd_wgmma_kernel<64,256,2>", "flash_bwd_wgmma_kernel<64,192,2>",
@@ -566,16 +534,13 @@ def phase_build(build):
     # BatchNorm pair csrc/batch_norm.cu, the soft-binning pair csrc/soft_binning.cu
     names = ["fused_frontend", "flash_attention", "batch_norm", "soft_binning"]
     t0 = time.perf_counter()
-    befores = {src: _build_before(build, src) for src in (B1_BEFORE, B2B3_BEFORE)}
     logs = build.build(names)
-    before_libs = {src: _built_before(job, src) for src, job in befores.items()}
     seconds = time.perf_counter() - t0
     report = ptxas_report(logs)
     sass = sass_mma(build, names)
     spilled = spills(report)
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs), "ptxas": report,
-          "sass_mma": sass, "b1_before": before_libs[B1_BEFORE],
-          "b2b3_before": before_libs[B2B3_BEFORE], "spills": spilled})
+          "sass_mma": sass, "spills": spilled})
     new = set(spilled) - KNOWN_SPILLS
     assert not new, f"instantiations that spill: {sorted(new)}"
     # the float32 designs run on the tensor cores: every three-piece
@@ -583,7 +548,7 @@ def phase_build(build):
     bf16x3 = {k: v["HGMMA"] for k, v in sass.items() if k.endswith(",3>")}
     assert all(bf16x3.values()) and {k.split("<")[0] for k in bf16x3} == {
         "flash_fwd_wgmma_kernel", "flash_bwd_split_kernel"}, bf16x3
-    return report, sass, before_libs
+    return report, sass
 
 
 def _b1_input(np, kind: str, bc: int, length: int, configs):
@@ -709,57 +674,6 @@ def log_minmax_f64(torch, wave):
                                                   dtype=torch.float64))
 
 
-def phase_b1_before_after(torch, np, ff, before_lib):
-    """B1 against its previous design (the parent commit's source, built from
-    B1_BEFORE) on the same card in one call, at the serving shapes, timed in
-    turns (before, after, after, before); the new design must not be slower
-    at any of them. Skipped, and said so, where no earlier source was put
-    there."""
-    if before_lib is None:
-        emit({"phase": "b1_before_after", "skipped": f"no earlier source at {B1_BEFORE}"})
-        return None
-    import ctypes
-
-    from audiodepth_tpu_torch.ops.stft import basis_tensor, mel_tensor
-
-    lib = ctypes.CDLL(before_lib)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.adepth_fused_mel_frontend.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-    lib.adepth_fused_mel_frontend.restype = i
-    basis = basis_tensor(512, 64, torch.float32, torch.device("cuda", 0))
-    fb = mel_tensor(257, 32, 44100, 20.0, 20000.0, torch.float32, torch.device("cuda", 0))
-    rows = []
-    for bc in (2, 8, 32):
-        wave = torch.from_numpy(_b1_input(np, "noise", bc, 7782, None)).cuda()
-        t_frames = 1 + 7782 // 32
-        out = torch.empty((bc // 2, 2, 32, t_frames), device="cuda")
-
-        def before():
-            err = lib.adepth_fused_mel_frontend(
-                wave.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(), bc, 7782,
-                t_frames, 64, 257, 32, 32, -32, 0, torch.cuda.current_stream().cuda_stream)
-            assert err == 0, err
-
-        before()
-        got = ff.fused_mel_frontend(wave)
-        torch.cuda.synchronize()
-        agree = float((got - out).abs().max())
-        times = {"before": [], "after": []}
-        for which in ("before", "after", "after", "before"):
-            fn = before if which == "before" else (lambda: ff.fused_mel_frontend(wave))
-            times[which].append(time_ms(torch, fn) * 1e3)
-        row = {"phase": "b1_before_after", "bc": bc, "L": 7782,
-               "before_us": statistics.mean(times["before"]),
-               "after_us": statistics.mean(times["after"]), "turns_us": times,
-               "max_abs_before_vs_after": agree}
-        row["speedup"] = row["before_us"] / row["after_us"]
-        emit(row)
-        assert agree <= 2 * KERNEL_TOL, f"B1 before and after differ by {agree}"
-        assert row["after_us"] < row["before_us"], f"B1 is slower than before at B*C={bc}"
-        rows.append(row)
-    return rows
-
-
 def plan_dict(plan) -> dict:
     return {"variant": plan.variant, "dkp": plan.dkp, "dvs": plan.dvs,
             "n_slices": plan.n_slices, "stages": plan.stages, "smem_bytes": plan.smem_bytes,
@@ -836,7 +750,7 @@ def phase_layout_probe(torch, fa):
     bf16 values (of the kernel's own S rounded to bf16 for the last two).
     The products are exact in fp32 and only the summation order differs, so
     PROBE_TOL; a wrong swizzle or descriptor moves whole entries."""
-    lib = fa._library()
+    lib = fa.flash_cross_attention.library()
     stream = torch.cuda.current_stream().cuda_stream
     for dk in PROBE_DK:
         dkp = fa._wgmma_dkp(dk)
@@ -1665,8 +1579,7 @@ def phase_train_f32(torch, np, train_cli, kernels):
     moved, B1 1 / B2 4 / B3 4 launches a step, B2's and B3's on their
     float32 variants (F32_VARIANTS_PER_STEP); then TRAIN_F32_TIMED_STEPS
     steps on one repeated batch (the loss must fall), timed, with the peak
-    memory, and a profile of one. Returns (launches, by variant) and (engine, state, batch) for
-    the before/after phase."""
+    memory, and a profile of one. Returns (launches, by variant)."""
     from audiodepth_tpu_torch.data.batvision import make_dataset
 
     gammas = {}
@@ -1715,160 +1628,7 @@ def phase_train_f32(torch, np, train_cli, kernels):
     emit(profile_train_step(torch, eng, state, batch, tags=("flash_fwd", "flash_bwd",
                                                            "flash_split3"),
                             what="one float32 train step"))
-    return (launches, by_variant), (eng, state, batch)
-
-
-# the parent design's float32 path (two CUDA-core kernels), where its source
-# was put here (not in the repository: `git show c7d4649:audiodepth_tpu_torch/
-# csrc/flash_attention.cu`, with its sm90.cuh and sm90_wgmma.cuh beside it),
-# timed in turns against the three-piece variants (phase_b2b3_before_after)
-B2B3_BEFORE = os.path.join("build", "b2b3_before", "flash_attention.cu")
-BEFORE_AFTER_ROWS = ("level 2, float32, batch 16", "level 3, float32, batch 16",
-                     "level 4, float32, batch 16", "level 5, float32, batch 16",
-                     "level 3, float32")
-BEFORE_AFTER_STEPS = 2  # train_f32 steps a turn
-
-
-class ParentF32:
-    """The parent design's f32 B2 and B3 (flash_fwd_f32_kernel,
-    flash_bwd_f32_kernel) through a library built from B2B3_BEFORE, with
-    the parent's C signatures and its f32 plans; `fwd` and `bwd` take the
-    wrappers' `_launch` arguments (widths already multiples of 8)."""
-
-    def __init__(self, torch, path):
-        import ctypes
-
-        self.torch = torch
-        self.lib = lib = ctypes.CDLL(path)
-        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        plan = [i, i, i, i, i, ll, i]
-        lib.adepth_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, *plan, i, p]
-        lib.adepth_flash_attention_fwd.restype = i
-        lib.adepth_flash_attention_bwd.argtypes = [p] * 11 + [i, i, i, i, i, f, *plan, i, p]
-        lib.adepth_flash_attention_bwd.restype = i
-
-    def _stream(self):
-        return self.torch.cuda.current_stream().cuda_stream
-
-    def fwd(self, q, k, v, scale):
-        torch = self.torch
-        b, n, dk = q.shape
-        m, dv = v.shape[1:]
-        o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
-        lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
-        n_slices = -(-dv // 128)
-        smem = (3 * 64 * 65 + 64 * 128) * 4  # its F32Smem
-        err = self.lib.adepth_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, m, dk,
-            dv, float(scale), 0, dk, 128, 256, 1, smem, -(-n // 64) * n_slices, 0, self._stream())
-        assert err == 0, err
-        return o, lse
-
-    def bwd(self, q, k, v, o, lse, do, scale):
-        torch = self.torch
-        b, n, dk = q.shape
-        m, dv = v.shape[1:]
-        dsum = (do * o).sum(-1)
-        dq = torch.zeros((b, n, dk), dtype=torch.float32, device=q.device)
-        dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
-        n_slices = -(-dv // 64) + -(-dk // 64)
-        smem = 4 * (4 * 32 * 65 + 2 * 32 * 33 + 2 * 32)  # its BwdF32Smem
-        err = self.lib.adepth_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), None, dq.data_ptr(), dk_out.data_ptr(),
-            dv_out.data_ptr(), b, n, m, dk, dv, float(scale), 0, dk, 64, 256, 1, smem,
-            -(-m // 32) * n_slices, 0, self._stream())
-        assert err == 0, err
-        return dq, dk_out, dv_out
-
-
-@contextlib.contextmanager
-def parent_f32_path(fa, parent):
-    """The wrappers launch the parent design's f32 kernels inside (uncounted)."""
-    fa.flash_cross_attention._launch = parent.fwd
-    fa.flash_cross_attention_bwd._launch = parent.bwd
-    try:
-        yield
-    finally:
-        del fa.flash_cross_attention._launch, fa.flash_cross_attention_bwd._launch
-
-
-def phase_b2b3_before_after(torch, fa, before_lib, b2_rows, b3_rows, train_f32):
-    """B2's and B3's float32 path against the parent design (built from
-    B2B3_BEFORE) on the same card in one call: each row of
-    BEFORE_AFTER_ROWS (inputs as the kernel phases draw them) timed in
-    turns (before, after, after, before), the two designs' answers within
-    twice the tolerance of each other, beside each row's bound and SDPA
-    time from the kernel phases; then BEFORE_AFTER_STEPS train_f32 steps a
-    turn. Skipped, and said so, where no earlier source was put there."""
-    if before_lib is None:
-        emit({"phase": "b2b3_before_after", "skipped": f"no earlier source at {B2B3_BEFORE}"})
-        return None
-    parent = ParentF32(torch, before_lib)
-    shapes = {r[0]: r for r in B2_SHAPES}
-    out = []
-    for label in BEFORE_AFTER_ROWS:
-        _, b, n, m, dk, dv, dtype = shapes[label]
-        g = torch.Generator(device="cuda").manual_seed(n + m + dk + dv + b)
-        q = 3 * torch.randn(b, n, dk, device="cuda", generator=g)
-        k = 3 * torch.randn(b, m, dk, device="cuda", generator=g)
-        v = torch.randn(b, m, dv, device="cuda", generator=g)
-        do = torch.randn(b, n, dv, device="cuda", generator=g)
-        scale = 1.0 / dv ** 0.5
-        o, lse = fa.flash_cross_attention(q, k, v, scale)
-        o_before, lse_before = parent.fwd(q, k, v, scale)
-        grads = fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale)
-        grads_before = parent.bwd(q, k, v, o, lse, do, scale)
-        torch.cuda.synchronize()
-        agree = {"o": float((o - o_before).abs().max() / v.abs().max())}
-        for name, a, w in zip(("dq", "dk", "dv"), grads, grads_before):
-            agree[name] = float((a - w).abs().max() / w.abs().max())
-        assert agree["o"] <= 2 * B2_TOL[dtype], (label, agree)
-        assert all(agree[x] <= 2 * B3_TOL[dtype] for x in ("dq", "dk", "dv")), (label, agree)
-        runs = dict(runs=3, warmup=1) if is_heavy(b, n, m, dtype) else dict(runs=10, warmup=2)
-        calls = {"B2": (lambda: parent.fwd(q, k, v, scale),
-                        lambda: fa.flash_cross_attention(q, k, v, scale)),
-                 "B3": (lambda: parent.bwd(q, k, v, o, lse, do, scale),
-                        lambda: fa.flash_cross_attention_bwd(q, k, v, o, lse, do, scale))}
-        for kernel, (before, after) in calls.items():
-            turns = {"before": [], "after": []}
-            for which in ("before", "after", "after", "before"):
-                turns[which].append(time_ms(torch, before if which == "before" else after, **runs))
-            mine = next(r for r in (b2_rows if kernel == "B2" else b3_rows) if r["shape"] == label)
-            row = {"phase": "b2b3_before_after", "kernel": kernel, "shape": label,
-                   "before_ms": statistics.mean(turns["before"]),
-                   "after_ms": statistics.mean(turns["after"]), "turns_ms": turns,
-                   "bound_ms": mine["bound_ms"], "bound_term": mine["bound_term"],
-                   "bound_fp32_cuda_cores_ms": mine["bound_terms_ms"]["fp32_cuda_cores"],
-                   "library_ms": mine["library_ms"], "rel_diff_before_vs_after": agree}
-            row["speedup"] = row["before_ms"] / row["after_ms"]
-            row["vs_library"] = (row["after_ms"] / row["library_ms"] if row["library_ms"]
-                                 else None)
-            emit(row)
-            out.append(row)
-        del q, k, v, do, o, lse, o_before, lse_before, grads, grads_before
-        torch.cuda.empty_cache()
-
-    eng, state, batch = train_f32
-    turns = {"before": [], "after": []}
-    for which in ("before", "after", "after", "before"):
-        with parent_f32_path(fa, parent) if which == "before" else contextlib.nullcontext():
-            times = []
-            for _ in range(BEFORE_AFTER_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = eng.train_step(state, batch)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                assert math.isfinite(float(metrics["loss"]))
-        turns[which].append(statistics.median(times) * 1e3)
-    row = {"phase": "b2b3_before_after", "kernel": "train_f32 step",
-           "before_ms": statistics.mean(turns["before"]),
-           "after_ms": statistics.mean(turns["after"]), "turns_ms": turns}
-    row["speedup"] = row["before_ms"] / row["after_ms"]
-    emit(row)
-    out.append(row)
-    return out
+    return launches, by_variant
 
 
 def phase_f32_train_vs_cpu(torch, np, configs, models, model_name):
@@ -4294,9 +4054,8 @@ def main() -> int:
     configure_precision()
     smi, ex2_rate = phase_env(torch)
     peak_name, peak = peak_for(torch.cuda.get_device_name(0))
-    ptxas, sass, before_libs = phase_build(_build)
+    ptxas, sass = phase_build(_build)
     b1_rows = phase_kernel(torch, np, ff, peak, configs)
-    b1_turns = phase_b1_before_after(torch, np, ff, before_libs[B1_BEFORE])
     phase_layout_probe(torch, fa)
     b2_rows = phase_kernel_b2(torch, np, fa, peak, ex2_rate)
     b3_rows = phase_kernel_b3(torch, fa, peak, ex2_rate)
@@ -4314,11 +4073,7 @@ def main() -> int:
                                                        compare_root)
     binaural_dir = experiment_dir(train_cli, TRAIN_ARGV, compare_root)
     phase_f32_train_vs_cpu(torch, np, configs, models, "binaural_attention")
-    launches["train binaural_attention float32"], train_f32 = phase_train_f32(
-        torch, np, train_cli, KERNELS)
-    b2b3_turns = phase_b2b3_before_after(torch, fa, before_libs[B2B3_BEFORE], b2_rows, b3_rows,
-                                         train_f32)
-    del train_f32
+    launches["train binaural_attention float32"] = phase_train_f32(torch, np, train_cli, KERNELS)
     torch.cuda.empty_cache()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -4418,8 +4173,7 @@ def main() -> int:
                    library_ms=None, library=None,
                    us_by_bc={r["bc"]: r["us"] for r in b1_rows if r["input"] == "noise"
                              and r["L"] == 7782},
-                   before_after=b1_turns,
-                   extra=("bound_fp32_ms", "plan", "us_by_bc", "before_after"))
+                   extra=("bound_fp32_ms", "plan", "us_by_bc"))
     level2 = "level 2: 2B=32, N=M=16384, dk=16, dv=128, bf16"
     f32_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_term", "bound_terms_ms",
                 "library_ms", "library", "plan")
@@ -4428,8 +4182,7 @@ def main() -> int:
         f32 = next(r for r in rows if r["shape"] == B2_F32_MAIN)
         mains[name] = dict(next(r for r in rows if r["shape"] == B2_MAIN), main_shape=level2,
                            float32={"shape": B2_F32_MAIN, **{k: f32[k] for k in f32_keys}},
-                           before_after=[r for r in b2b3_turns or () if r["kernel"] == name],
-                           extra=("float32", "before_after"))
+                           extra=("float32",))
     b2_main, b3_main = mains["B2"], mains["B3"]
     main_rows = {ff.fused_mel_frontend.name: (b1_rows, b1_main),
                  fa.flash_cross_attention.name: (b2_rows, b2_main),

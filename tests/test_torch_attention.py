@@ -141,7 +141,6 @@ def test_registered_and_nothing_built_on_import():
     assert entry[2] == "audiodepth_tpu/ops/pallas/flash_attention.py:103"
     with open(jfa.__file__) as f:
         assert f.read().splitlines()[102].startswith("def _fwd_kernel(")
-    assert fa._library.cache_info().currsize == 0
 
 
 # (2B, N, M, dk, dv): the binaural levels 2-5 at a batch of 16 and level 2 at

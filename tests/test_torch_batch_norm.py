@@ -140,10 +140,9 @@ def test_registered_ops_and_kernels_list():
 
 
 def _op_everywhere(monkeypatch):
-    """Route every train-mode 4-D BatchNorm through the op (its plain
+    """Route every bf16 train-mode 4-D BatchNorm through the op (its plain
     version on the CPU), as the card routes bf16 channels-last inputs."""
-    monkeypatch.setattr(BatchNorm, "_kernel_path",
-                        lambda self, x: self.training and x.dim() == 4)
+    monkeypatch.setattr(layers, "kernel_takes", lambda x, *params: x.dim() == 4)
 
 
 def test_remat_folds_once_and_saves_the_same(monkeypatch):
@@ -177,18 +176,17 @@ def test_remat_folds_once_and_saves_the_same(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_epilogue_matches_batch_norm_then_relu(dtype, monkeypatch):
+def test_epilogue_matches_batch_norm_then_relu(dtype):
     x, dy, w, b, rm, rv = _inputs((3, 12, 5, 5), dtype)
     ref = nn.Sequential(_module(12, dtype, w, b, rm, rv), nn.ReLU())
     xr = x.clone().requires_grad_()
     y_ref = ref(xr)
     y_ref.backward(dy)
     for route in ("module", "op"):
-        if route == "op":
-            _op_everywhere(monkeypatch)
         m = _module(12, dtype, w, b, rm, rv, relu=True)
         xi = x.clone().requires_grad_()
-        y = m(xi)
+        y = m(xi) if route == "module" else bn.batch_norm_train(
+            xi, m.weight, m.bias, m.running_mean, m.running_var, m.momentum, m.eps, True, True)
         y.backward(dy)
         assert torch.equal(y, y_ref) and torch.equal(xi.grad, xr.grad)
         assert torch.equal(m.weight.grad, ref[0].weight.grad)
@@ -268,25 +266,36 @@ class _OnCard:
         return self.t.is_contiguous(**kw)
 
 
-def test_dispatch_predicate():
-    m = BatchNorm(8, torch.bfloat16).train()
+def test_dispatch_predicate(monkeypatch):
     x = _channels_last(torch.randn(2, 8, 4, 4).to(torch.bfloat16))
-    assert m._kernel_path(_OnCard(x))
-    assert not m._kernel_path(x)                                          # CPU
-    assert not m._kernel_path(_OnCard(x.float()))                         # fp32
-    assert not BatchNorm(8, torch.float32).train()._kernel_path(_OnCard(x.float()))
-    assert not m._kernel_path(_OnCard(x.contiguous()))                    # NCHW
-    assert not m._kernel_path(_OnCard(torch.randn(2, 8).to(torch.bfloat16)))  # [B, C]
-    m12 = BatchNorm(12, torch.bfloat16).train()
-    assert not m12._kernel_path(_OnCard(_channels_last(                   # 12 channels
-        torch.randn(2, 12, 4, 4).to(torch.bfloat16))))
-    m.eval()
-    assert not m._kernel_path(_OnCard(x))                                 # eval
+    m = BatchNorm(8, torch.bfloat16).train()
+    params = (m.weight, m.bias, m.running_mean, m.running_var)
+    assert bn.kernel_takes(_OnCard(x), *params)
+    assert not bn.kernel_takes(x, *params)                                # CPU
+    assert not bn.kernel_takes(_OnCard(x.float()), *params)               # fp32
+    assert not bn.kernel_takes(_OnCard(x.contiguous()), *params)          # NCHW
+    assert not bn.kernel_takes(_OnCard(torch.randn(2, 8).to(torch.bfloat16)), *params)  # [B, C]
+    m12 = BatchNorm(12, torch.bfloat16)
+    assert not bn.kernel_takes(_OnCard(_channels_last(                    # 12 channels
+        torch.randn(2, 12, 4, 4).to(torch.bfloat16))), m12.weight, m12.bias, m12.running_mean,
+        m12.running_var)
+    assert not bn.kernel_takes(_OnCard(x), *(p.double() for p in params))  # fp64 buffers
+    # the module's own conditions, on tensors the kernels take
+    taken = []
+    monkeypatch.setattr(layers, "kernel_takes", lambda *args: True)
+    monkeypatch.setattr(layers, "batch_norm_train", lambda x, *args, **kw: taken.append(x) or x)
+
+    def routed(m):
+        taken.clear()
+        m(x)
+        return bool(taken)
+
+    assert routed(m)
+    assert not routed(BatchNorm(8, torch.float32).train())                # fp32 compute
+    assert not routed(m.eval())                                           # eval
     m.train()
     with use_group(SimpleNamespace(size=1)):
-        assert not m._kernel_path(_OnCard(x))                             # a data group
-    m.double()
-    assert not m._kernel_path(_OnCard(x))                                 # fp64 buffers
+        assert not routed(m)                                              # a data group
 
 
 @pytest.mark.parametrize("case", ["cpu", "fp32", "fp64", "eval", "nchw", "group", "flat"])

@@ -11,9 +11,9 @@ On the CPU (torch only, a few seconds):
     logits and the centers from random g_base and g_mean;
   * the ops' schemas and fakes (shapes, dtypes, layouts) and the
     registered autograd formula;
-  * the model's dispatch predicate: the module path on the CPU and in
-    float32 and float64, the kernel path only for bf16 channels-last logits
-    on a card; the op through the model (its plain version on the CPU)
+  * the dispatch predicate (`kernel_takes`): the module path on the CPU and
+    in float32 and float64, the kernel path only for bf16 channels-last
+    logits on a card; the op through the model (its plain version on the CPU)
     giving the module path's outputs and gradients, with and without remat;
   * the KL term from the branches' `bin_logit_mean` against the KL of the
     spatial means of `bin_logits`, in float64.
@@ -31,7 +31,6 @@ import pytest
 import torch
 
 from audiodepth_tpu_torch.losses import distillation as dist
-from audiodepth_tpu_torch.models import adabins
 from audiodepth_tpu_torch.models.adabins import AdaBinsDistillationModel
 from audiodepth_tpu_torch.models.layers import at_least_f32
 from audiodepth_tpu_torch.ops.cuda import KERNELS
@@ -192,7 +191,7 @@ class _Like:
 
 
 def test_dispatch_predicate():
-    path = AdaBinsDistillationModel._kernel_path
+    path = sb.kernel_takes
     logits, centers, _, _ = _inputs((2, 128, 4, 4), torch.bfloat16)
     on_card = lambda t: _Like(t)  # noqa: E731
     assert path(on_card(logits), on_card(centers))
@@ -232,7 +231,7 @@ def test_module_path_on_the_cpu(dtype, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the kernel path ran")
 
-    monkeypatch.setattr(adabins, "soft_binning_fwd_op", refuse)
+    monkeypatch.setattr(sb, "soft_binning_fwd_op", refuse)
     model = _model(dtype).train()
     g = torch.Generator().manual_seed(1)
     audio = torch.rand(2, 2, 32, 32, generator=g).to(torch.promote_types(dtype, torch.float32))
@@ -257,13 +256,14 @@ def test_op_through_the_model_matches_the_module_path(remat, monkeypatch):
     rgb = torch.rand(2, 3, 32, 32, generator=g, dtype=torch.float64)
     want, want_grads = _run(_model(torch.float64, remat).train(), audio, rgb)
     calls = []
+    op = sb.soft_binning_fwd_op
 
     def counted(logits, centers):
         calls.append(logits.requires_grad)
-        return sb.soft_binning_fwd_op(logits, centers)
+        return op(logits, centers)
 
-    monkeypatch.setattr(AdaBinsDistillationModel, "_kernel_path", staticmethod(lambda z, c: True))
-    monkeypatch.setattr(adabins, "soft_binning_fwd_op", counted)
+    monkeypatch.setattr(sb, "kernel_takes", lambda z, c: True)
+    monkeypatch.setattr(sb, "soft_binning_fwd_op", counted)
     got, got_grads = _run(_model(torch.float64, remat).train(), audio, rgb)
     # the student with grad (and again in remat's recompute), the teacher without
     assert calls == ([True, False, True] if remat else [True, False])
