@@ -14,6 +14,17 @@ padded with row 0, as the JAX cache pads), about 1/N of the split. A batch
 is then gathered by a collective: every rank contributes the batch's rows
 it holds, the contributions are all-gathered as bytes, and each row is
 taken from its holder, so the batch is bit for bit the one-rank cache's.
+
+A step's gather waits for nothing on the host. On a card the index vector
+goes up from pinned memory with `non_blocking=True` on the current stream,
+which orders the gather's kernels after it; a copy from pageable memory
+would wait there for the card to drain the previous step. The pinned block
+comes from torch's caching host allocator (`Tensor.pin_memory`), which
+records the copy's event on it and hands the block out again only once that
+event has completed, so a copy in flight is never overwritten and the host
+never waits for one. The sharded gather's three index vectors go up as one.
+`uploads` counts the index uploads (reset and read like the prefetcher's
+`copies`); on a CPU device nothing is uploaded and nothing is counted.
 """
 
 from __future__ import annotations
@@ -36,6 +47,21 @@ def _bits(v: torch.Tensor) -> torch.Tensor:
     return v.view(torch.int16) if v.dtype == torch.uint16 else v
 
 
+class UploadCounts:
+    """A cache's index uploads since `reset`: `queued` from pinned memory
+    (no host wait), `blocking` from pageable memory (the host waits for the
+    device)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.queued = self.blocking = 0
+
+    def read(self) -> Dict[str, int]:
+        return {"queued": self.queued, "blocking": self.blocking}
+
+
 class DeviceDatasetCache:
     def __init__(self, dataset, max_depth_units: float, device,
                  group: Optional[DataGroup] = None):
@@ -48,6 +74,7 @@ class DeviceDatasetCache:
         self.device = torch.device(device)
         self.n = n = len(dataset)
         self.group = group
+        self.uploads = UploadCounts()
         size, rank = (1, 0) if group is None else (group.size, group.rank)
         self.rows_per_rank = k = -(-n // size)
         with span("cache.encode"):
@@ -66,16 +93,32 @@ class DeviceDatasetCache:
         with span("cache.gather", self.device):
             return self._gather(np.asarray(indices, np.int64))
 
+    def _upload(self, idx: np.ndarray) -> torch.Tensor:
+        """The int64 vector `idx` on the cache's device."""
+        host = torch.from_numpy(np.ascontiguousarray(idx, np.int64))
+        if self.device.type == "cpu":
+            return host
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        pinned = host.is_pinned()
+        if pinned:
+            self.uploads.queued += 1
+        else:
+            self.uploads.blocking += 1
+        return host.to(self.device, non_blocking=pinned)
+
     def _gather(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         if self.group is None:
-            sel = torch.as_tensor(idx, device=self.device)
+            sel = self._upload(idx)
             return {key: _bits(v).index_select(0, sel).view(v.dtype)
                     for key, v in self.arrays.items()}
         owner = idx // self.rows_per_rank
         mine = np.nonzero(owner == self.group.rank)[0]
-        pos = torch.as_tensor(mine, device=self.device)
-        local = torch.as_tensor(idx[mine] % self.rows_per_rank, device=self.device)
-        pick = torch.as_tensor(owner * len(idx) + np.arange(len(idx)), device=self.device)
+        m = len(mine)
+        # pos, local and pick in one upload
+        packed = self._upload(np.concatenate([
+            mine, idx[mine] % self.rows_per_rank, owner * len(idx) + np.arange(len(idx))]))
+        pos, local, pick = packed[:m], packed[m:2 * m], packed[2 * m:]
         out = {}
         for key, v in self.arrays.items():
             bits = _bits(v)

@@ -15,6 +15,7 @@ Also the RGB teacher's loss: unmasked L1 + mean first-difference smoothness.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -25,11 +26,18 @@ from ..parallel.mesh import global_mean, global_sum
 _SOBEL = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 
 
+@functools.lru_cache(maxsize=8)
+def _sobel_taps(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The [2, 1, 3, 3] Sobel weight (x, then y), made once per (device,
+    dtype): an upload inside a train step would wait for the card."""
+    kx = torch.tensor(_SOBEL, dtype=dtype, device=device)
+    return torch.stack([kx, kx.t()])[:, None]
+
+
 def _sobel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sobel gradients (x, y) of NHWC single-channel maps, zero 'same'
     padding, in float32."""
-    kx = torch.tensor(_SOBEL, dtype=torch.float32, device=x.device)
-    weight = torch.stack([kx, kx.t()])[:, None]  # [2, 1, 3, 3]: x, then y
+    weight = _sobel_taps(x.device, torch.float32)
     g = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), weight, padding=1)
     g = g.permute(0, 2, 3, 1)
     return g[..., 0:1], g[..., 1:2]

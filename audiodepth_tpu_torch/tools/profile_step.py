@@ -2,9 +2,10 @@
 port's train step and print a per-category breakdown of its GPU time (port
 of `tools/profile_step.py`).
 
-The capture half drives `Engine.train_step` on device-cached batches (a
-fixed device batch with its bins for coarse_depth, attached on the host as
-`cli/train.py` attaches them): 3 steps untraced, then `--steps` steps traced
+The capture half drives `Engine.train_step` on batches gathered from the
+device cache as each step takes them (a fixed device batch with its bins
+for coarse_depth, attached on the host as `cli/train.py` attaches them):
+3 steps untraced, then `--steps` steps traced
 (after `obs.logging.prime_trace`: a trace may lose the records of the
 kernels launched right after it starts), each inside a `record_function` span
 named `adepth_step_<i>`, written as a chrome trace. The analysis half
@@ -19,7 +20,9 @@ of the window (the time any of them ran, merged over streams).
 The report adds one line per hand-written kernel of the port: its launches
 in the trace beside its wrapper's launch counter over the same steps, and
 DROPPED where the two differ. A profiler that loses a kernel's records
-would otherwise report a breakdown without it and say nothing. Where the
+would otherwise report a breakdown without it and say nothing. Beside them,
+the device cache's index uploads over the traced steps: queued from pinned
+memory, or blocking (a host wait for the card; 0 on a card). Where the
 trace holds the program's spans (`obs.spans`: the `engine.*`, `cache.*`,
 `runner.*`, `serve.*`, `adabins.*` and `loss.*` annotations), it adds one
 line per span name: its calls, its host ms a call (the annotation's
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import itertools
 import json
 import os
 import re
@@ -234,10 +238,13 @@ def hand_written_rows(prof: TraceProfile, counters: Optional[Mapping[str, int]] 
 
 
 def report(prof: TraceProfile, steps: int, top: int = 12,
-           counters: Optional[Mapping[str, int]] = None) -> str:
+           counters: Optional[Mapping[str, int]] = None,
+           uploads: Optional[Mapping[str, int]] = None) -> str:
     """The JAX tool's table (category, ms/step, share; the top items) on
-    CUDA kernel names, with the steps, one line per hand-written kernel and
-    one per span of the program (device n/a in a trace without GPU events)."""
+    CUDA kernel names, with the steps, one line per hand-written kernel,
+    the device cache's index uploads where given (`DeviceDatasetCache.uploads`)
+    and one line per span of the program (device n/a in a trace without GPU
+    events)."""
     total = prof.total_us
     steps = max(steps, 1)
     lines = [f"GPU time {total / 1e3 / steps:.3f} ms/step over {steps} steps; busy union "
@@ -262,6 +269,9 @@ def report(prof: TraceProfile, steps: int, top: int = 12,
         lines.append(f"  {name:28s} trace {seen:5d}  counter "
                      + ("  n/a" if counted is None else f"{counted:5d}")
                      + ("  DROPPED" if dropped else ""))
+    if uploads is not None:
+        lines.append(f"device cache index uploads: {uploads['queued']} queued from pinned "
+                     f"memory, {uploads['blocking']} blocking")
     if prof.phases:
         lines.append("")
         lines.append("the program's spans (obs.spans): calls, host and device ms a call")
@@ -271,9 +281,10 @@ def report(prof: TraceProfile, steps: int, top: int = 12,
     return "\n".join(lines)
 
 
-def _batches(args, cfg, eng, task, ds) -> List[dict]:
-    """max(steps, WARMUP_STEPS) train batches on the device."""
-    n = max(args.steps, WARMUP_STEPS)
+def _feed(args, cfg, eng, task, ds):
+    """(an endless iterator of train batches on the device, the device cache
+    or None): the cached epochs, each shuffled alike and gathered as a step
+    takes its batch; coarse_depth's one fixed device batch."""
     if cfg.model.name == "coarse_depth":
         # bin targets are attached on the host (cli/train.py does the same);
         # one fixed device batch
@@ -281,17 +292,22 @@ def _batches(args, cfg, eng, task, ds) -> List[dict]:
 
         batch = add_bins_to_batch(next(ds.batches(args.batch_size, shuffle=False)),
                                   task.bin_edges, cfg.dataset.max_depth, cfg.dataset.depth_norm)
-        return [eng.put_batch(eng.encode(batch))] * n
+        return itertools.repeat(eng.put_batch(eng.encode(batch))), None
     from ..data.device_cache import DeviceDatasetCache
 
     cache = DeviceDatasetCache(ds, eng._depth_units, task.device)
-    return (list(cache.batches(args.batch_size, shuffle=True, seed=2)) * n)[:n]
+
+    def epochs():
+        while True:
+            yield from cache.batches(args.batch_size, shuffle=True, seed=2)
+
+    return epochs(), cache
 
 
-def capture(args) -> Tuple[str, Dict[str, int]]:
+def capture(args) -> Tuple[str, Dict[str, int], Optional[Dict[str, int]]]:
     """Trace `args.steps` train steps after WARMUP_STEPS untraced ones;
     returns (chrome trace path, each hand-written kernel's counter over the
-    traced steps)."""
+    traced steps, the device cache's index uploads over them or None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -315,28 +331,31 @@ def capture(args) -> Tuple[str, Dict[str, int]]:
     state = eng.init_state()
     ds = SyntheticEchoDataset(cfg, num_samples=args.batch_size * 2, seed=0,
                               with_image=args.model in ("rgb_depth", "adabins_distillation"))
-    bts = _batches(args, cfg, eng, task, ds)
+    feed, cache = _feed(args, cfg, eng, task, ds)
     on_card = task.device.type == "cuda"
 
-    for b in bts[:WARMUP_STEPS]:  # the kernels' build and cuDNN's search, untraced
-        state, m = eng.train_step(state, b)
+    for _ in range(WARMUP_STEPS):  # the kernels' build and cuDNN's search, untraced
+        state, m = eng.train_step(state, next(feed))
     float(m["loss"])
     synchronize(task.device)
     before = {w.name: w.launches for w, _, _ in KERNELS}
+    if cache is not None:
+        cache.uploads.reset()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with profile(activities=activities) as prof:
         if on_card:
             prime_trace(task.device)
-        for i, b in enumerate(bts[:args.steps]):
+        for i in range(args.steps):
             with record_function(f"{STEP_PREFIX}{i}"):
-                state, m = eng.train_step(state, b)
+                state, m = eng.train_step(state, next(feed))
         float(m["loss"])
         synchronize(task.device)
     counters = {w.name: w.launches - before[w.name] for w, _, _ in KERNELS}
+    uploads = None if cache is None else cache.uploads.read()
     os.makedirs(args.trace_dir, exist_ok=True)
     path = os.path.join(args.trace_dir, f"{args.model}_bs{args.batch_size}.pt.trace.json")
     prof.export_chrome_trace(path)
-    return path, counters
+    return path, counters, uploads
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -361,16 +380,16 @@ def main(argv=None):
     """Capture (or read) a trace and print the report; returns
     (TraceProfile, counters or None)."""
     args = build_parser().parse_args(argv)
-    counters = None
+    counters = uploads = None
     if args.parse_only:
         path = args.parse_only
     else:
         made_dir = args.trace_dir is None
         if made_dir:
             args.trace_dir = tempfile.mkdtemp(prefix="adepth_prof_")
-        path, counters = capture(args)
+        path, counters, uploads = capture(args)
     prof = parse_trace(path, args.steps)
-    print(report(prof, args.steps, args.top, counters))
+    print(report(prof, args.steps, args.top, counters, uploads))
     if args.parse_only is None and not args.keep_trace:
         if made_dir:
             shutil.rmtree(args.trace_dir, ignore_errors=True)

@@ -19,7 +19,8 @@ references meanwhile, then each assertion is a case of its own:
     count, one fold under `remat`;
   * ragged evaluation (13 rows at batch 4) against one rank and the JAX
     mesh, and the refusal of a padded train batch;
-  * the row-sharded device cache; checkpoints across topology (2 → 1 and
+  * the row-sharded device cache (each gather the split's rows at its
+    indices, with no index upload on the CPU); checkpoints across topology (2 → 1 and
     1 → 2 ranks); SIGTERM on one rank; the train CLI's `--num_devices`.
 """
 
@@ -82,6 +83,11 @@ def world(tmp_path_factory):
 
 def _np(d):
     return {k: v.numpy() for k, v in d.items()}
+
+
+def _bits(t):
+    # uint16 has few CPU kernels in torch: compare its bits
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
 
 
 def _same(a, b):
@@ -354,6 +360,23 @@ def test_device_cache_holds_a_row_shard_and_gathers_exact_batches(world):
     # the pad row of rank 1 repeats row 0
     _same({k: v[6:] for k, v in r1["cache"]["held"].items()},
           {k: v[:1] for k, v in one["cache"]["held"].items()})
+
+
+@pytest.mark.parametrize("pick", range(len(W.CACHE_PICKS)))
+def test_sharded_gather_returns_the_rows_at_idx(world, pick):
+    """Each rank's gather of CACHE_PICKS[pick] is the split's rows at those
+    indices, in their order and dtypes (the one-rank cache holds the whole
+    split), and a CPU cache uploads nothing."""
+    r0, r1, one, _ = world
+    idx = list(W.CACHE_PICKS[pick])
+    split = one["cache"]["held"]
+    for res in (r0, r1, one):
+        got = res["cache"]["picked"][pick]
+        assert got.keys() == split.keys()
+        for k, v in split.items():
+            assert got[k].dtype == v.dtype, k
+            assert torch.equal(_bits(got[k]), _bits(v).index_select(0, torch.tensor(idx))), k
+        assert res["cache"]["uploads"] == {"queued": 0, "blocking": 0}
 
 
 @pytest.mark.parametrize("case", ["saved_at_2_resumed_at_1", "saved_at_1_resumed_at_2"])

@@ -6,7 +6,8 @@
     `parse_trace` and `report` on a fabricated chrome trace (steps found
     through the launches' correlation ids, the busy union of overlapping
     events, a hand-written kernel whose records are missing reported
-    DROPPED); `capture --device cpu` at a tiny size, end to end;
+    DROPPED), the device cache's upload line; `capture --device cpu` at a
+    tiny size, end to end;
   * `cli/train.py --profile_dir` writes the trace of epoch 2 of 2 (the
     `obs.ProfilerHook`), and `Engine.fit` stops the hook when a step
     raises inside the profiled epoch;
@@ -164,6 +165,9 @@ def test_parse_trace_and_report_on_a_fabricated_trace(tmp_path):
         "  flash_cross_attention_bwd    trace     0  counter     2  DROPPED"]
     assert "top 3 kernels:" in text and "n/a" not in text
     assert "n/a" in ps.report(prof, 2)  # a read trace has no counters
+    assert "device cache index uploads" not in text  # none given
+    text = ps.report(prof, 2, top=3, counters=counters, uploads={"queued": 8, "blocking": 0})
+    assert "device cache index uploads: 8 queued from pinned memory, 0 blocking" in text
 
 
 def test_span_lines_take_the_gpu_events_their_launches_started(tmp_path):
@@ -225,6 +229,10 @@ def test_capture_on_cpu_end_to_end(model, overrides, tmp_path, capsys):
                         "soft_binning_bwd": 0}
     out = capsys.readouterr().out
     assert "hand-written kernels" in out and "DROPPED" not in out
+    # the cached steps gather on the CPU: nothing is uploaded (coarse_depth
+    # trains on one fixed batch, no cache)
+    assert ("device cache index uploads: 0 queued from pinned memory, 0 blocking"
+            in out) == (model != "coarse_depth")
     # one line a phase of the step, from the engine's spans (no device ms here)
     for name in ("engine.train_step", "engine.decode", "engine.forward", "engine.backward",
                  "engine.optimizer"):

@@ -238,17 +238,25 @@ def run_ragged_eval(group=None) -> dict:
     return out
 
 
+# global rows gathered as they are: out of order, repeated, from one rank's
+# rows only, from the padded rank's last row
+CACHE_PICKS = ((12, 0, 7, 6, 3, 3, 11), (8, 9, 10), (2, 1), (12,))
+
+
 def run_cache(group=None) -> dict:
     """A 13-row split in the device cache: the rows this rank holds, the
-    global batches of a shuffled epoch (ragged tail kept) and a sharded
-    drop_last epoch's local batches."""
+    global batches of a shuffled epoch (ragged tail kept), a sharded
+    drop_last epoch's local batches, the batches of CACHE_PICKS and the
+    cache's index uploads over all of them."""
     cfg = family_config("unet_baseline")
     ds = make_dataset(cfg, "train", num_samples=13)
     cache = DeviceDatasetCache(ds, 30.0, "cpu", group=group)
     shard = None if group is None else (group.rank, group.size)
     return {"held": {k: v.clone() for k, v in cache.arrays.items()},
             "global": list(cache.batches(GLOBAL_BATCH, shuffle=True, seed=5, drop_last=False)),
-            "local": list(cache.batches(GLOBAL_BATCH, shuffle=True, seed=5, shard=shard))}
+            "local": list(cache.batches(GLOBAL_BATCH, shuffle=True, seed=5, shard=shard)),
+            "picked": [cache.batch(idx) for idx in CACHE_PICKS],
+            "uploads": cache.uploads.read()}
 
 
 def fit_unet(ckpt_root: str, epochs: int, group=None, resume: bool = False,
