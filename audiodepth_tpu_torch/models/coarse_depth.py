@@ -21,6 +21,11 @@ and hybrid models hold `bin_centers` as a buffer, as reference `.pth` files
 do, and soft-bin over it; the task writes its own centers into it (the
 JAX package passes them as a forward argument). The logits and the depth
 are in at least fp32 whatever the compute dtype; models run NCHW.
+
+Spans (`obs.spans`): `coarse.bins` around each soft binning (one a
+forward), `coarse.offset` around the offset branch (`_TwoDecoders._offset`:
+the offset decoder, the resize, the concatenation of the detached coarse
+depth, the fusion and the head).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
+from ..obs.spans import span
 from ..ops.resize import resize_bilinear
 from .base_residual import SharedEncoder
 from .layers import BatchNorm, Conv2d, ConvDown, ConvUp, UpBilinear, at_least_f32
@@ -78,7 +84,8 @@ class CoarseDepthUNet(SharedEncoder):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = _decode(self, "up", SharedEncoder.forward(self, x))
         logits = _resize_bilinear_to(at_least_f32(self.outc(h)), self.output_size)
-        return logits, soft_binning(logits, self.bin_centers)
+        with span("coarse.bins", logits.device):
+            return logits, soft_binning(logits, self.bin_centers)
 
 
 class CoarseDepthLite(nn.Module):
@@ -103,7 +110,8 @@ class CoarseDepthLite(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self.decoder(self.encoder(x))
         logits = _resize_bilinear_to(at_least_f32(self.head(h)), self.output_size)
-        return logits, soft_binning(logits, self.bin_centers)
+        with span("coarse.bins", logits.device):
+            return logits, soft_binning(logits, self.bin_centers)
 
 
 class _TwoDecoders(SharedEncoder):
@@ -127,9 +135,10 @@ class _TwoDecoders(SharedEncoder):
     def _offset(self, f: Dict[str, torch.Tensor], coarse: torch.Tensor) -> torch.Tensor:
         """The offset from the offset decoder and the coarse depth, which
         enters detached (no gradient reaches the coarse branch through it)."""
-        oh = _resize_bilinear_to(_decode(self, "offset_up", f), self.output_size)
-        h = torch.cat([oh, coarse.detach().to(oh.dtype)], dim=1)
-        return at_least_f32(self.offset_head(self.offset_fusion(h)))
+        with span("coarse.offset", coarse.device):
+            oh = _resize_bilinear_to(_decode(self, "offset_up", f), self.output_size)
+            h = torch.cat([oh, coarse.detach().to(oh.dtype)], dim=1)
+            return at_least_f32(self.offset_head(self.offset_fusion(h)))
 
 
 class CoarseWithOffsetModel(_TwoDecoders):
@@ -143,7 +152,8 @@ class CoarseWithOffsetModel(_TwoDecoders):
         f = SharedEncoder.forward(self, x)
         logits = self.coarse_head(_decode(self, "coarse_up", f))
         logits = _resize_bilinear_to(at_least_f32(logits), self.output_size)
-        coarse = soft_binning(logits, self.bin_centers)
+        with span("coarse.bins", logits.device):
+            coarse = soft_binning(logits, self.bin_centers)
         offset = self._offset(f, coarse)
         return logits, coarse, offset, coarse + offset
 

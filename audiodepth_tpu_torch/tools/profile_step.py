@@ -24,7 +24,7 @@ would otherwise report a breakdown without it and say nothing. Beside them,
 the device cache's index uploads over the traced steps: queued from pinned
 memory, or blocking (a host wait for the card; 0 on a card). Where the
 trace holds the program's spans (`obs.spans`: the `engine.*`, `cache.*`,
-`runner.*`, `serve.*`, `adabins.*` and `loss.*` annotations), it adds one
+`runner.*`, `serve.*`, `adabins.*`, `coarse.*` and `loss.*` annotations), it adds one
 line per span name: its calls, its host ms a call (the annotation's
 length) and its device ms a call (the GPU events whose launch, found
 through its correlation id, falls inside the annotation, on any thread:
@@ -56,7 +56,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 STEP_PREFIX = "adepth_step_"
 WARMUP_STEPS = 3
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPAN_NAME = re.compile(r"^(engine|cache|runner|serve|adabins|loss)\.")   # the program's spans
+SPAN_NAME = re.compile(r"^(engine|cache|runner|serve|adabins|coarse|loss)\.")   # the program's spans
 
 # (regex searched in the GPU event's name) -> category. Order matters: the
 # hand-written kernels first, cuDNN's convolutions before the GEMMs (their

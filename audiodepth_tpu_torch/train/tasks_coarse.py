@@ -11,7 +11,8 @@ carry int 'bins' targets [B, H, W] beside 'depth' (the target in model
 units). The loss weights are the training script's defaults
 (train_coarse_depth.py:148-186): ce 1.0, regression 0.5, offset_reg 0.01,
 coarse / final 1.0, soft-CE σ 2.0, and label smoothing 0.1 for the hybrid
-(:342); --use_focal turns soft CE into focal (:348-352).
+(:342); --use_focal turns soft CE into focal (:348-352). The loss runs in
+the span `loss.coarse` (`obs.spans`), whatever the variant.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..configs import Config, resolve_compute_dtype
 from ..data.bins import compute_bin_edges
 from ..losses.coarse import coarse_depth_loss, coarse_offset_loss, dual_regression_loss
 from ..models.coarse_depth import build_coarse
+from ..obs.spans import span
 from .tasks import Task
 from .tasks_extra import _nchw, _nhwc, _on
 
@@ -98,25 +100,27 @@ class CoarseDepthTask(Task):
         out = [_nhwc(t) for t in self.model(_nchw(self.prepare(batch)))]
         gt = batch["depth"]           # the target in model units
         bins = batch["bins"]          # [B, H, W] int targets
-        if self.model_type in ("unet", "lite"):
-            logits, depth = out
-            loss, parts = coarse_depth_loss(
-                logits, depth, bins, gt, gt > 0, mode=self.ce_mode, ce_weight=self.ce_weight,
-                regression_weight=self.regression_weight, soft_ce_sigma=self.soft_ce_sigma)
-            keys = ("ce", "regression")
-        elif self.model_type == "hybrid":
-            logits, coarse, offset, final = out
-            loss, parts = coarse_offset_loss(
-                logits, coarse, offset, final, gt, bins, ce_weight=self.ce_weight,
-                regression_weight=self.regression_weight,
-                offset_reg_weight=self.offset_reg_weight, label_smoothing=0.1)
-            keys = ("ce", "regression", "offset_reg", "coarse_l1")
-        else:  # dual_reg
-            coarse, offset, final = out
-            loss, parts = dual_regression_loss(
-                coarse, offset, final, gt, coarse_weight=self.coarse_weight,
-                final_weight=self.final_weight, offset_reg_weight=self.offset_reg_weight)
-            keys = ("coarse", "final", "offset_reg")
+        with span("loss.coarse", gt.device):
+            if self.model_type in ("unet", "lite"):
+                logits, depth = out
+                loss, parts = coarse_depth_loss(
+                    logits, depth, bins, gt, gt > 0, mode=self.ce_mode,
+                    ce_weight=self.ce_weight, regression_weight=self.regression_weight,
+                    soft_ce_sigma=self.soft_ce_sigma)
+                keys = ("ce", "regression")
+            elif self.model_type == "hybrid":
+                logits, coarse, offset, final = out
+                loss, parts = coarse_offset_loss(
+                    logits, coarse, offset, final, gt, bins, ce_weight=self.ce_weight,
+                    regression_weight=self.regression_weight,
+                    offset_reg_weight=self.offset_reg_weight, label_smoothing=0.1)
+                keys = ("ce", "regression", "offset_reg", "coarse_l1")
+            else:  # dual_reg
+                coarse, offset, final = out
+                loss, parts = dual_regression_loss(
+                    coarse, offset, final, gt, coarse_weight=self.coarse_weight,
+                    final_weight=self.final_weight, offset_reg_weight=self.offset_reg_weight)
+                keys = ("coarse", "final", "offset_reg")
         return loss, {"loss": loss, **{k: parts[k] for k in keys}}
 
     @torch.no_grad()

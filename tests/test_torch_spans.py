@@ -252,3 +252,110 @@ def test_adabins_spans_inside_the_forward(tmp_path, store, with_image):
     if with_image:   # the teacher's bins inside the teacher's span
         (t0, t1, _), = [a for a in mine if a[2] == "adabins.teacher"]
         assert sum(1 for a in mine if a[2] == "adabins.bins" and t0 <= a[0] and a[1] <= t1) == 1
+
+
+def coarse_task(model_type="hybrid"):
+    cfg = load_config("synthetic", "train", model_name="coarse_depth", overrides={
+        "dataset.images_size": 32, "mode.batch_size": BATCH, "mode.compute_dtype": "float32",
+        "model.base_channels": 4, "model.n_bins": 8, "model.model_type": model_type})
+    task = make_task(cfg, device="cpu")
+    init_weights(task.model, torch.Generator().manual_seed(0))
+    return cfg, task
+
+
+def coarse_batch(cfg, task):
+    """A batch of the device cache with its bins, as `cli/train.py
+    --device_cache` loads a coarse split (int32 bins beside the compact
+    waveform and depth)."""
+    from audiodepth_tpu_torch.cli.train import _BinnedView
+    from audiodepth_tpu_torch.data.synthetic import SyntheticEchoDataset
+
+    ds = _BinnedView(SyntheticEchoDataset(cfg, num_samples=BATCH, seed=0), task.bin_edges, cfg)
+    cache = DeviceDatasetCache(ds, depth_storage_units(cfg), "cpu")
+    assert cache.arrays["bins"].dtype == torch.int32
+    return cache.batch(np.arange(BATCH))
+
+
+COARSE = ("coarse.bins", "coarse.offset", "loss.coarse")
+
+
+@pytest.mark.parametrize("model_type", ["hybrid", "unet", "lite", "dual_reg"])
+def test_coarse_spans_inside_the_forward(tmp_path, store, model_type):
+    """A hybrid step enters the soft binning's, the offset branch's and the
+    loss's spans once each, all inside `engine.forward`; the unet and lite
+    models have no offset branch, dual_reg no bins."""
+    cfg, task = coarse_task(model_type)
+    eng = Engine(cfg, task)
+    state = eng.init_state()
+    batch = coarse_batch(cfg, task)
+    before = counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, _ = eng.train_step(state, batch)
+    want = {"coarse.bins": model_type != "dual_reg",
+            "coarse.offset": model_type in ("hybrid", "dual_reg"), "loss.coarse": True}
+    want = {k: 1 for k, on in want.items() if on}
+    assert {k: n for k, n in grown(before, counts()).items() if k in COARSE} == want
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ann = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+               for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    (f0, f1, _), = [a for a in ann if a[2] == "engine.forward"]
+    mine = [a for a in ann if a[2] in COARSE]
+    assert sorted(a[2] for a in mine) == sorted(want)
+    assert all(f0 <= a[0] and a[1] <= f1 for a in mine)
+    # the loss after the forward's branches
+    (l0, _, _), = [a for a in mine if a[2] == "loss.coarse"]
+    assert all(a[1] <= l0 for a in mine if a[2] != "loss.coarse")
+
+
+def test_coarse_spans_change_nothing_a_step_computes():
+    out = []
+    for traced in (False, True):
+        cfg, task = coarse_task()
+        batch = coarse_batch(cfg, task)
+        eng = Engine(cfg, task)
+        state = eng.init_state()
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU]):
+                state, m = eng.train_step(state, batch)
+        else:
+            state, m = eng.train_step(state, batch)
+        out.append((m["loss"], m["grad_norm"],
+                    [p.detach().clone() for p in state.model.parameters()],
+                    [b.detach().clone() for b in state.model.buffers()]))
+    (l0, g0, p0, b0), (l1, g1, p1, b1) = out
+    assert torch.equal(l0, l1) and torch.equal(g0, g1)
+    assert all(torch.equal(a, b) for a, b in zip(p0 + b0, p1 + b1))
+
+
+@pytest.mark.parametrize("name", ["step.coarse_bins_ms.train", "step.offset_ms.train",
+                                  "step.coarse_loss_ms.train"])
+def test_coarse_readers_none_without_their_spans(monkeypatch, name):
+    """The benchmark's readers of the three spans: None in an untraced run,
+    None on a program whose store holds the step's spans but
+    not theirs (the parent commit's), and their device ms a step where it
+    holds them."""
+    import sys
+    from pathlib import Path
+
+    bench = str(Path(__file__).resolve().parents[1] / "benchmark")
+    if bench not in sys.path:
+        sys.path.append(bench)   # after the repository's own packages
+    from harness import spans as hs
+    from harness.spec import load_reader
+    from harness.trace import GpuEvent, TraceSummary
+
+    summary = TraceSummary(window_us=100.0, gpu=[GpuEvent("k", 0.0, 50.0, None)], ops=[],
+                           host=[], start_us=0.0)
+    ctx = {"trace": {"summary": summary, "steps": 2, "counters": {}}}
+    step = [("engine.train_step", 90.0), ("engine.forward", 40.0)] * 2
+    monkeypatch.setattr(hs, "program_spans", lambda: {"device_ms": step, "totals": {}})
+    read = load_reader(name)
+    assert read({"trace": None, "rank_traces": [None]}) is None
+    assert read(ctx) is None
+    span = {"step.coarse_bins_ms.train": "coarse.bins", "step.offset_ms.train": "coarse.offset",
+            "step.coarse_loss_ms.train": "loss.coarse"}[name]
+    monkeypatch.setattr(hs, "program_spans", lambda: {
+        "device_ms": step + [(span, 3.0), (span, 5.0)], "totals": {}})
+    assert read(ctx) == pytest.approx(4.0)

@@ -215,6 +215,8 @@ def test_span_lines_take_the_gpu_events_their_launches_started(tmp_path):
 @pytest.mark.parametrize("model,overrides", [
     ("unet_baseline", ["model.generator=unet_128", "model.ngf=4", "dataset.images_size=128"]),
     ("coarse_depth", ["model.base_channels=4", "model.n_bins=8", "dataset.images_size=32"]),
+    ("coarse_depth", ["model.base_channels=4", "model.n_bins=8", "dataset.images_size=32",
+                      "model.model_type=hybrid"]),
 ])
 def test_capture_on_cpu_end_to_end(model, overrides, tmp_path, capsys):
     argv = ["--device", "cpu", "--model", model, "--batch_size", "2", "--steps", "2",
@@ -237,6 +239,12 @@ def test_capture_on_cpu_end_to_end(model, overrides, tmp_path, capsys):
     for name in ("engine.train_step", "engine.decode", "engine.forward", "engine.backward",
                  "engine.optimizer"):
         assert re.search(rf"^  {re.escape(name)} +2  host +[0-9.]+  device +n/a$", out, re.M), name
+    # the coarse family's spans, one a step each (the offset branch: the hybrid's)
+    coarse = {"coarse.bins": model == "coarse_depth", "loss.coarse": model == "coarse_depth",
+              "coarse.offset": "model.model_type=hybrid" in overrides}
+    for name, shown in coarse.items():
+        line = re.search(rf"^  {re.escape(name)} +2  host +[0-9.]+  device +n/a$", out, re.M)
+        assert bool(line) == shown, name
     path = os.path.join(str(tmp_path), f"{model}_bs2.pt.trace.json")
     assert f"trace: {path}" in out and os.path.exists(path)
     again, _ = ps.main(["--parse_only", path, "--steps", "2"])
